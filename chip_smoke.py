@@ -10,24 +10,36 @@ catches nothing and never falls back to the CPU):
   2. build every kernel of the path from trino_tpu_torch/csrc with nvcc
      (one process per source, started together), with the build seconds and
      ptxas's register/shared-memory report;
-  3. hold each kernel to its plain PyTorch version on the card, at the main
-     path's shape and at the edges, and time kernel, plain version, a
-     PyTorch library yardstick and the memory bound;
-  4. the main path: TPC-H Q1, Q6 and Q1-over-DOUBLE (with `pallas_agg` on,
-     the grouped-sums kernel's path) at sf1 through LocalQueryRunner on the
-     card, cold and warm, with wall time, lineitem rows/s, kernel launches
-     and peak device memory, then one profiled warm run each (planning
-     time, device busy share, the top ops by device time); every result is
-     checked against the port's own CPU run (device="cpu") of the same
-     query;
-  5. one JSON line with the kernels (and the TPU kernels not ported yet);
-  6. last line: {"ok": true, "device": {...}}.
+  3. hold the grouped-sums kernel to its plain PyTorch version on the card,
+     at the main path's shape and at the edges, and time kernel, plain
+     version, a PyTorch library yardstick and the memory bound;
+  4. the single-device aggregation path: TPC-H Q1, Q6 and Q1-over-DOUBLE
+     (with `pallas_agg` on, the grouped-sums kernel's path) at sf1 through
+     LocalQueryRunner on the card, cold and warm, with wall time, lineitem
+     rows/s, kernel launches and peak device memory, then one profiled warm
+     run each (planning time, device busy share, the top ops by device
+     time); every result is checked against the port's own CPU run
+     (device="cpu") of the same query;
+  5. the join and mesh path: TPC-H Q3 at sf1 on a DistributedQueryRunner of
+     4 logical workers on the card with `pallas_probe` on (the sorted-probe
+     kernel's path) and with default knobs, and through LocalQueryRunner on
+     the card, each cold and warm, with the same readings as phase 4 and
+     the sorted-probe kernel's launches; every result is checked against
+     the port's CPU LocalQueryRunner at sf1;
+  6. hold the sorted-probe kernel to its plain version on the card, bit for
+     bit, at the inputs of the largest launch of phase 5 and at the edges
+     (duplicate runs and misses, all rows nomatch, n_match = 0, ragged and
+     small probe lengths, keys at INT64_MIN/MAX, an int32 plane), and time
+     kernel, plain version, the torch.searchsorted yardstick and the bound;
+  7. one JSON line with the kernels;
+  8. last line: {"ok": true, "device": {...}}.
 
 Tolerances: integers, decimals and strings exact.  Kernel sums: counts
 exact, |kernel - plain| <= 5e-5 * (sum of |values| in the cell), the f32
 summation bound of the kernel (~530 sequential additions * 2**-24).  Q1 over
 DOUBLE with the f32 kernel against the CPU's f64 path: relative 5e-5 on
-doubles (all summed values are non-negative), counts exact.
+doubles (all summed values are non-negative), counts exact.  The
+sorted-probe kernel: bit-exact.
 """
 
 import json
@@ -37,12 +49,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 LINEITEM_SF1_ROWS = 6_001_215
 KERNEL_RTOL = 5e-5
+MESH_WORKERS = 4
 
 Q1_DOUBLE = """select l_returnflag, l_linestatus,
        sum(cast(l_quantity as double)), sum(cast(l_extendedprice as double)),
@@ -208,6 +222,12 @@ def profile_warm(name: str, runner, sql: str) -> None:
             f"  {name} device op {e.key[:70]!r}: calls={e.count} "
             f"device_ms={e.device_time_total / 1e3!r}"
         )
+    for e in events:  # the port's own kernels, wherever they rank
+        if "grouped_sums" in e.key or "locate_sorted" in e.key:
+            log(
+                f"  {name} kernel {e.key[:70]!r}: calls={e.count} "
+                f"device_ms={e.device_time_total / 1e3!r}"
+            )
 
 
 def run_main_path() -> dict:
@@ -264,6 +284,202 @@ def run_main_path() -> dict:
     return {"launches": launches}
 
 
+# -- phase 5: the join and mesh path ------------------------------------------
+
+
+def run_mesh_path(capture: dict) -> dict:
+    """TPC-H Q3 at sf1: the 4-worker mesh with the sorted-probe kernel, the
+    mesh with default knobs (the plain search), and the local runner (the
+    direct-address join).  `capture` receives the inputs of the largest
+    sorted-probe launch."""
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    sql = QUERIES[3]
+    kernel_mesh = DistributedQueryRunner(
+        catalog="tpch", schema="sf1", n_workers=MESH_WORKERS
+    )
+    kernel_mesh.execute("set session pallas_probe = true")
+    plain_mesh = DistributedQueryRunner(
+        catalog="tpch", schema="sf1", n_workers=MESH_WORKERS
+    )
+    local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    runs = [
+        ("q3_mesh_kernel", kernel_mesh),
+        ("q3_mesh", plain_mesh),
+        ("q3_local", local),
+    ]
+
+    import trino_tpu_torch.parallel.runner as mesh_runner
+
+    kernel = mesh_runner.locate_sorted
+    keep_inputs = False  # copies are made only in an untimed run at the end
+
+    def recording(build, n_match, probe, nomatch, cap_b):
+        """The mesh join's call of the kernel wrapper, passed through; notes
+        the launch shapes and, when `keep_inputs`, keeps copies of the
+        inputs of the largest launch (the wrapper alone counts it)."""
+        out = kernel(build, n_match, probe, nomatch, cap_b=cap_b)
+        capture.setdefault("shapes", set()).add(
+            (probe.shape[0], build.shape[0], cap_b)
+        )
+        size = probe.shape[0] * max(build.shape[0], 1)
+        if keep_inputs and size > capture.get("size", -1):
+            capture.update(
+                size=size,
+                inputs=(build.clone(), n_match.clone(), probe.clone(),
+                        nomatch.clone(), cap_b),
+            )
+        return out
+
+    results = {}
+    mesh_runner.locate_sorted = recording
+    ls.locate_sorted.launches = 0  # every kernel count, just before the path
+    for name, r in runs:
+        walls = []
+        for attempt in ("cold", "warm", "warm"):
+            before = ls.locate_sorted.launches
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = r.execute(sql)  # rows come back to the host: synchronized
+            wall = time.perf_counter() - t0
+            walls.append(wall)
+            if name == "q3_mesh_kernel" and ls.locate_sorted.launches == before:
+                raise AssertionError(f"{name} {attempt}: no locate_sorted launch")
+            ex = getattr(r, "last_stage_executor", None)
+            log(
+                f"{name} {attempt}: wall_s={wall!r} "
+                f"lineitem_rows_per_s={LINEITEM_SF1_ROWS / wall!r} "
+                f"locate_sorted_launches={ls.locate_sorted.launches - before} "
+                f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                f"memory_allocated_after={torch.cuda.memory_allocated()}"
+                + ("" if ex is None else f" mesh_events={ex.counters}")
+            )
+        results[name] = (res, min(walls[1:]))
+    for name, r in runs:
+        profile_warm(name, r, sql)
+    launches = ls.locate_sorted.launches  # read just after the path
+    keep_inputs = True
+    kernel_mesh.execute(sql)  # untimed, uncounted: copies phase 6's inputs
+    mesh_runner.locate_sorted = kernel
+    log(f"mesh path: locate_sorted launches={launches} "
+        f"shapes (P, build rows, cap_b)={sorted(capture.get('shapes', ()))}")
+    if launches <= 0:
+        raise AssertionError("the mesh path never launched locate_sorted")
+    for name, (res, warm) in results.items():
+        log(f"{name} warm: wall_s={warm!r} lineitem_rows_per_s={LINEITEM_SF1_ROWS / warm!r}")
+    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    t0 = time.perf_counter()
+    expected = cpu.execute(sql)
+    log(f"q3 cpu reference: wall_s={time.perf_counter() - t0!r}")
+    for name, (res, _) in results.items():
+        rows_match(res.rows, expected.rows, float_rtol=0.0)
+        log(f"{name}: {len(res.rows)} rows match the CPU run; first row {res.rows[0]}")
+    return {"launches": launches}
+
+
+# -- phase 6: the sorted-probe kernel against its plain version ----------------
+
+
+def probe_edge_inputs(dev):
+    """(name, build, n_match, probe, nomatch, cap_b) at the edges."""
+    rng = np.random.default_rng(7)
+    i64 = np.iinfo(np.int64)
+
+    def sorted_build(cap_b, n_match, lo, hi, dtype=np.int64):
+        keys = np.sort(rng.integers(lo, hi, n_match)).astype(dtype)
+        pad = np.full(cap_b - n_match, np.iinfo(dtype).max, dtype=dtype)
+        return np.concatenate([keys, pad])
+
+    cases = []
+    b = sorted_build(512, 389, 0, 64)
+    cases.append(("dups_misses", b, 389, rng.integers(-4, 72, 2048), rng.random(2048) < 0.15, 512))
+    cases.append(("all_nomatch", b, 389, rng.integers(0, 64, 4096), np.ones(4096, bool), 512))
+    cases.append(("n_match_0", np.full(16, i64.max), 0, np.arange(64), np.zeros(64, bool), 16))
+    b = sorted_build(4096, 3000, -1000, 1000)
+    cases.append(("ragged_p", b, 3000, rng.integers(-1100, 1100, 1500), rng.random(1500) < 0.1, 4096))
+    cases.append(("small_p", b, 3000, rng.integers(-1100, 1100, 100), np.zeros(100, bool), 4096))
+    edge = np.array([i64.min, i64.min, -1, 0, 5, i64.max - 1, i64.max, i64.max])
+    cases.append(("int64_extremes", edge, 8, np.array([i64.min, i64.max, 0, -1, 7, i64.max - 1, 3]), np.zeros(7, bool), 8))
+    b = sorted_build(1024, 900, -50, 50, np.int32)
+    cases.append(("int32_planes", b, 900, rng.integers(-60, 60, 3000).astype(np.int32), rng.random(3000) < 0.05, 1024))
+    out = []
+    for name, build, n_match, probe, nomatch, cap_b in cases:
+        out.append((
+            name,
+            torch.from_numpy(np.ascontiguousarray(build)).to(dev),
+            torch.tensor(n_match, dtype=torch.int64, device=dev),
+            torch.from_numpy(np.ascontiguousarray(probe)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(nomatch)).to(dev),
+            cap_b,
+        ))
+    return out
+
+
+def check_locate_sorted(dev, capture: dict) -> dict:
+    from trino_tpu_torch.ops import locate_sorted as ls
+
+    if "inputs" not in capture:
+        raise AssertionError("no sorted-probe launch was captured on the mesh path")
+    build, n_match, probe, nomatch, cap_b = capture["inputs"]
+    cases = [("main", build, n_match, probe, nomatch, cap_b)] + probe_edge_inputs(dev)
+    for name, b, nm, p, no, cb in cases:
+        start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
+        torch.cuda.synchronize()
+        rs, rc = ls.locate_sorted_reference(b, nm, p, no, cap_b=cb)
+        if not (torch.equal(start, rs) and torch.equal(count, rc)):
+            bad = int(((start != rs) | (count != rc)).sum())
+            raise AssertionError(f"locate_sorted {name}: {bad} rows differ from the plain version")
+        log(f"locate_sorted check {name}: P={p.shape[0]} build={b.shape[0]} "
+            f"n_match={int(nm)} matched_rows={int((count > 0).sum())} bit-exact ok")
+
+    n = int(n_match)
+    p_rows = probe.shape[0]
+    kernel_ms = cuda_ms(lambda: ls.locate_sorted(build, n_match, probe, nomatch, cap_b=cap_b))
+    plain_ms = cuda_ms(lambda: ls.locate_sorted_reference(build, n_match, probe, nomatch, cap_b=cap_b))
+    prefix = build[:n]
+    probe64 = probe.to(torch.int64)
+
+    def library():
+        lo = torch.searchsorted(prefix, probe64, right=False)
+        hi = torch.searchsorted(prefix, probe64, right=True)
+        return torch.where(nomatch, 0, lo), torch.where(nomatch, 0, hi - lo)
+
+    lib_start, lib_count = library()
+    rs, rc = ls.locate_sorted_reference(build, n_match, probe, nomatch, cap_b=cap_b)
+    if not (torch.equal(lib_start, rs) and torch.equal(lib_count, rc)):
+        raise AssertionError("the searchsorted yardstick disagrees with the plain version")
+    library_ms = cuda_ms(library)
+    live = int((~nomatch).sum())
+    # every nomatch flag read and start/count written once, the probe key of
+    # live rows only (a nomatch row's key is never read), the sorted prefix
+    # of the build plane read once
+    nbytes = p_rows * (1 + 16) + live * 8 + n * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # two binary searches of ceil(log2(n_match + 1)) compares per live row
+    ops_ms = live * 2 * max(1, (n + 1).bit_length()) / F32_FLOPS * 1e3
+    log(
+        f"locate_sorted main: P={p_rows} live={live} build={build.shape[0]} n_match={n} "
+        f"kernel_ms={kernel_ms!r} plain_ms={plain_ms!r} "
+        f"library_ms={library_ms!r} (torch.searchsorted lower+upper, masked) "
+        f"bound_ms={max(bytes_ms, ops_ms)!r} ({nbytes} bytes)"
+    )
+    return {
+        "name": "locate_sorted",
+        "route": "cuda",
+        "source": "trino_tpu_torch/csrc/locate_sorted.cu",
+        "replaces": "trino_tpu/ops/pallas_probe.py:66",
+        "max_abs_err": 0,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -280,22 +496,21 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    kernels = ["grouped_sums", "locate_sorted"]
     t0 = time.perf_counter()
-    build.build_all(["grouped_sums"])
-    log(f"build: grouped_sums in {time.perf_counter() - t0:.1f} s")
-    log(build.log_path("grouped_sums").read_text().strip())
+    build.build_all(kernels)
+    log(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s")
+    for name in kernels:
+        log(build.log_path(name).read_text().strip())
 
     k1 = check_grouped_sums(dev)
     main_path = run_main_path()
     k1["launches"] = main_path["launches"]
-    not_ported = [
-        {
-            "name": "locate_sorted_pallas",
-            "replaces": "trino_tpu/ops/pallas_probe.py:66",
-            "status": "not ported yet (mesh slice)",
-        }
-    ]
-    log(json.dumps({"kernels": [k1], "not_ported": not_ported}))
+    capture: dict = {}
+    mesh_path = run_mesh_path(capture)
+    k2 = check_locate_sorted(dev, capture)
+    k2["launches"] = mesh_path["launches"]
+    log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)
     log(
         json.dumps(

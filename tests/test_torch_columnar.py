@@ -336,7 +336,9 @@ def test_concat_batches_unifies_dictionaries():
 # -- the copied TPC-H generator ---------------------------------------------------
 
 
-@pytest.mark.parametrize("table", ["lineitem", "orders"])
+@pytest.mark.parametrize(
+    "table", ["lineitem", "orders", "customer", "supplier", "nation", "region"]
+)
 def test_tpch_generator_pages_identical(table):
     from trino_tpu.connectors.tpch import TpchConnector as JTpch
     from trino_tpu.connectors.api import TableHandle as JHandle

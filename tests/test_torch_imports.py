@@ -64,6 +64,23 @@ def test_runner_without_device_needs_cuda():
     assert LocalQueryRunner(device="cpu").device == torch.device("cpu")
 
 
+def test_mesh_runner_without_device_needs_cuda():
+    from trino_tpu_torch.parallel import DistributedQueryRunner
+    from trino_tpu_torch.parallel.spmd import WorkerMesh
+
+    if torch.cuda.is_available():
+        assert DistributedQueryRunner().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DistributedQueryRunner()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            WorkerMesh(4)
+    r = DistributedQueryRunner(n_workers=4, device="cpu")
+    assert r.wm.device == torch.device("cpu") and r.wm.n == 4
+    with pytest.raises(NotImplementedError, match="multi-card mesh"):
+        WorkerMesh(2, ["cuda:0", "cuda:1"])
+
+
 def test_resolve_device_rejects_other_devices():
     from trino_tpu_torch.device import resolve_device
 

@@ -1,4 +1,4 @@
-"""The port's grouped-sums kernel module (trino_tpu_torch/ops/grouped_sums.py)
+"""The port's kernel modules: the grouped-sums kernel (trino_tpu_torch/ops/grouped_sums.py)
 against the JAX package's Pallas kernel (run in interpret mode, as
 tests/test_pallas_agg.py runs it) and its XLA formulation.
 
@@ -110,3 +110,169 @@ def test_launch_plan_fits_shared_memory(n, g, k):
     if g * kt * gs._WARPS * rows_per_step * 4 <= gs._SMEM_BUDGET:
         # every warp row slot gets a private accumulator (no contention)
         assert copies == gs._WARPS * rows_per_step
+
+
+# -- K2: the sorted-build probe (ops/locate_sorted.py) -------------------------
+#
+# The port's plain version, `locate_sorted_reference`, against the JAX
+# package's Pallas kernel `locate_sorted_pallas` (interpret mode, as
+# tests/test_pallas_probe.py runs it) and both packages' `_locate_sorted`,
+# bit-exact.  The Pallas grid covers whole blocks only (`p_cap // block`), so
+# a probe length that is not a multiple of 1024 runs there with a block that
+# divides it; the JAX `_locate_sorted` takes every length as it is.
+
+from trino_tpu.ops.join import _locate_sorted as jax_locate_sorted  # noqa: E402
+from trino_tpu.ops.pallas_probe import (  # noqa: E402
+    locate_sorted_pallas,
+    probe_kernel_eligible as jax_probe_kernel_eligible,
+)
+from trino_tpu_torch.ops import join as tjoin  # noqa: E402
+from trino_tpu_torch.ops import locate_sorted as ls  # noqa: E402
+
+_I64 = np.iinfo(np.int64)
+
+
+def _sorted_plane(rng, cap_b, n_match, lo, hi, dtype=np.int64):
+    """The runner's invariant: matchable keys sorted in [0, n_match), the
+    tail padded with the dtype's largest value."""
+    keys = np.sort(rng.integers(lo, hi, n_match)).astype(dtype)
+    pad = np.full(cap_b - n_match, np.iinfo(dtype).max, dtype=dtype)
+    return np.concatenate([keys, pad])
+
+
+def _probe_case(name):
+    """(build, n_match, probe, nomatch, cap_b, pallas block)."""
+    rng = np.random.default_rng(_PROBE_CASES.index(name) + 1)
+    if name == "dups_misses":  # heavy duplicate runs, keys outside the build
+        b = _sorted_plane(rng, 512, 389, 0, 64)
+        return b, 389, rng.integers(-4, 72, 2048), rng.random(2048) < 0.15, 512, 1024
+    if name == "all_nomatch":
+        b = _sorted_plane(rng, 512, 389, 0, 64)
+        return b, 389, rng.integers(0, 64, 2048), np.ones(2048, bool), 512, 1024
+    if name == "n_match_0":
+        return np.full(16, _I64.max), 0, np.arange(64), np.zeros(64, bool), 16, 1024
+    if name == "ragged_p":  # 1500 = 3 x 500: not a multiple of 1024
+        b = _sorted_plane(rng, 4096, 3000, -1000, 1000)
+        return b, 3000, rng.integers(-1100, 1100, 1500), rng.random(1500) < 0.1, 4096, 500
+    if name == "small_p":  # one block shorter than 1024
+        b = _sorted_plane(rng, 4096, 3000, -1000, 1000)
+        return b, 3000, rng.integers(-1100, 1100, 100), np.zeros(100, bool), 4096, 1024
+    if name == "int64_extremes":
+        b = np.array([_I64.min, _I64.min, -1, 0, 5, _I64.max - 1, _I64.max, _I64.max])
+        p = np.array([_I64.min, _I64.max, 0, -1, 7, _I64.max - 1, 3, _I64.min + 1])
+        return b, 8, p, np.array([0, 0, 0, 0, 0, 0, 0, 1], bool), 8, 1024
+    if name == "multi_block":  # 4 grid steps of 256 rows on the TPU side
+        b = _sorted_plane(rng, 128, 100, 0, 1000)
+        return b, 100, rng.integers(0, 1000, 1024), np.zeros(1024, bool), 128, 256
+    raise KeyError(name)
+
+
+_PROBE_CASES = [
+    "dups_misses", "all_nomatch", "n_match_0", "ragged_p", "small_p",
+    "int64_extremes", "multi_block",
+]
+
+
+def _jax_probe(build, n_match, probe, nomatch, cap_b, block):
+    b = jnp.asarray(build.astype(np.int64))
+    p = jnp.asarray(probe.astype(np.int64))
+    no = jnp.asarray(nomatch)
+    ps, pc = locate_sorted_pallas(
+        b, n_match, p, no, cap_b=cap_b, interpret=True, block=min(block, len(probe))
+    )
+    xs, xc = jax_locate_sorted(
+        [jnp.asarray(build)], jnp.asarray(n_match, jnp.int64), [jnp.asarray(probe)],
+        no, cap_b=cap_b,
+    )
+    return (np.asarray(ps), np.asarray(pc)), (np.asarray(xs), np.asarray(xc))
+
+
+@pytest.mark.parametrize("case", _PROBE_CASES)
+def test_locate_sorted_reference_bit_exact_with_pallas(case):
+    build, n_match, probe, nomatch, cap_b, block = _probe_case(case)
+    (ps, pc), (xs, xc) = _jax_probe(build, n_match, probe, nomatch, cap_b, block)
+    rs, rc = ls.locate_sorted_reference(
+        torch.from_numpy(build), torch.tensor(n_match), torch.from_numpy(probe),
+        torch.from_numpy(nomatch), cap_b=cap_b,
+    )
+    for got in ((rs, rc),):
+        np.testing.assert_array_equal(got[0].numpy(), ps)
+        np.testing.assert_array_equal(got[1].numpy(), pc)
+    np.testing.assert_array_equal(ps, xs)
+    np.testing.assert_array_equal(pc, xc)
+    assert rs.dtype == rc.dtype == torch.int64
+    # the multi-plane form of the port's search gives the same bits
+    ts, tc = tjoin._locate_sorted(
+        [torch.from_numpy(build)], n_match, [torch.from_numpy(probe)],
+        torch.from_numpy(nomatch), cap_b=cap_b,
+    )
+    assert torch.equal(ts, rs) and torch.equal(tc, rc)
+
+
+def test_locate_sorted_int32_planes_widened():
+    """int32 build and probe planes: the wrapper's int64 view (the kernel's
+    type) and the int32 plain search agree with the JAX kernel over the
+    widened planes."""
+    rng = np.random.default_rng(5)
+    build = _sorted_plane(rng, 1024, 900, -50, 50, np.int32)
+    probe = rng.integers(-60, 60, 3072).astype(np.int32)
+    nomatch = rng.random(3072) < 0.05
+    (ps, pc), (xs, xc) = _jax_probe(build, 900, probe, nomatch, 1024, 1024)
+    args = (torch.from_numpy(build), torch.tensor(900), torch.from_numpy(probe),
+            torch.from_numpy(nomatch))
+    for fn in (ls.locate_sorted, ls.locate_sorted_reference):
+        s, c = fn(*args, cap_b=1024)
+        np.testing.assert_array_equal(s.numpy(), ps)
+        np.testing.assert_array_equal(c.numpy(), pc)
+    np.testing.assert_array_equal(ps, xs)
+    np.testing.assert_array_equal(pc, xc)
+
+
+def test_locate_sorted_wrapper_routes_cpu_tensors_to_reference():
+    build, n_match, probe, nomatch, cap_b, _ = _probe_case("dups_misses")
+    before = ls.locate_sorted.launches
+    s, c = ls.locate_sorted(
+        torch.from_numpy(build), n_match, torch.from_numpy(probe),
+        torch.from_numpy(nomatch), cap_b=cap_b,
+    )
+    assert ls.locate_sorted.launches == before  # no kernel on the CPU
+    assert s.shape == c.shape == (len(probe),)
+
+
+@pytest.mark.parametrize(
+    "build, probe, nomatch",
+    [
+        (torch.zeros(8, dtype=torch.float64), torch.zeros(4, dtype=torch.int64),
+         torch.zeros(4, dtype=torch.bool)),
+        (torch.zeros(8, dtype=torch.int64), torch.zeros(4, dtype=torch.bool),
+         torch.zeros(4, dtype=torch.bool)),
+        (torch.zeros(8, 2, dtype=torch.int64), torch.zeros(4, dtype=torch.int64),
+         torch.zeros(4, dtype=torch.bool)),
+        (torch.zeros(8, dtype=torch.int64), torch.zeros(4, dtype=torch.int64),
+         torch.zeros(3, dtype=torch.bool)),
+        (torch.zeros(8, dtype=torch.int64), torch.zeros(4, dtype=torch.int64),
+         torch.zeros(4, dtype=torch.uint8)),
+    ],
+)
+def test_locate_sorted_rejects_what_the_kernel_does_not_take(build, probe, nomatch):
+    with pytest.raises((TypeError, ValueError)):
+        ls.locate_sorted(build, 1, probe, nomatch, cap_b=8)
+
+
+def test_probe_kernel_eligible_matches_jax():
+    i = np.arange(8, dtype=np.int64)
+    i32 = np.arange(8, dtype=np.int32)
+    i8 = np.arange(8, dtype=np.int8)
+    f = np.arange(8, dtype=np.float64)
+    cases = [
+        ([i], [i]), ([i, i], [i, i]), ([f], [f]), ([i], [f]), ([f], [i]),
+        ([i32], [i]), ([i8], [i8]), ([i], [i, i]), ([i.reshape(4, 2)], [i]),
+    ]
+    for b, p in cases:
+        want = jax_probe_kernel_eligible(
+            [jnp.asarray(x) for x in b], [jnp.asarray(x) for x in p]
+        )
+        got = ls.probe_kernel_eligible(
+            [torch.from_numpy(x) for x in b], [torch.from_numpy(x) for x in p]
+        )
+        assert got == want, (b, p)

@@ -51,6 +51,10 @@ class Batch:
             return torch.ones(self.capacity, dtype=torch.bool, device=self.device)
         return self.row_mask
 
+    def count(self) -> torch.Tensor:
+        """Device scalar: number of live rows."""
+        return self.mask().sum(dtype=torch.int64)
+
     # -- transforms ----------------------------------------------------------
 
     def filter(self, keep_mask: torch.Tensor) -> "Batch":
@@ -76,7 +80,9 @@ class Batch:
         dev = self.device
         m = self.mask()
         pos = torch.cumsum(m.to(torch.int64), 0) - 1  # target slot per live row
-        idx = torch.where(m, pos, outc)  # dead rows scatter to the spare slot
+        # dead rows, and live rows past out_capacity (the JAX package's
+        # scatter mode="drop"), go to the spare slot
+        idx = torch.where(torch.logical_and(m, pos < outc), pos, outc)
         n = m.sum()
         # inverse permutation: for each output slot, which input row
         inv = torch.zeros(outc + 1, dtype=torch.int64, device=dev).scatter_(

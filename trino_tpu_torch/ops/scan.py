@@ -88,6 +88,24 @@ class ScanOperator:
             return b
         return b.to(self.device, non_blocking=True)
 
+    def host_batches(self) -> list:
+        """The split's padded host batches (the mesh scan stacks them per
+        worker itself), served from and kept in the host tier."""
+        from trino_tpu_torch.runtime.buffer_pool import POOL
+
+        key = self._cache_key()
+        if key is not None:
+            host = POOL.get_host(key)
+            if host is not None:
+                return list(host)
+        src = self.connector.page_source(
+            self.split, self.column_names, max_rows_per_page=self.page_rows
+        )
+        out = [page_to_batch(page, self.column_types) for page in src.pages()]
+        if key is not None:
+            POOL.put_host(key, out)
+        return out
+
     def batches(self):
         from trino_tpu_torch.runtime.buffer_pool import POOL
 

@@ -6,10 +6,13 @@ sql/planner/LocalExecutionPlanner.java:516,600).  Each plan node becomes a
 are rewritten to positional InputRef channels.  Every operator runs on the
 planner's device.
 
-Ported nodes: TableScan, Values, Filter, Project, Aggregation (with the
-filter/projection fused into the aggregation's per-batch step), Sort, TopN,
-Limit and Output.  Any other node raises NotImplementedError naming it.
-Memory budgets and their partition-wave machinery are not ported yet.
+Ported nodes: TableScan (with the dynamic filters join builds register),
+Values, Filter, Project, Aggregation (with the filter/projection fused into
+the aggregation's per-batch step), Join (inner, left, right as a flipped
+left, full), Sort, TopN, Limit and Output.  Any other node raises
+NotImplementedError naming it (the semi join and the cross join among
+them).  Memory budgets and their partition-wave machinery are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -18,12 +21,15 @@ from typing import Iterable
 
 import torch
 
+from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import Batch
 from trino_tpu_torch.connectors.api import CatalogManager
-from trino_tpu_torch.expr.ir import Expr, InputRef, SymbolRef, visit
+from trino_tpu_torch.expr import ExprCompiler
+from trino_tpu_torch.expr.ir import Expr, InputRef, Literal, SymbolRef, visit
 from trino_tpu_torch.ops.aggregation import AggregationOperator, AggSpec
-from trino_tpu_torch.ops.common import SortKey
+from trino_tpu_torch.ops.common import SortKey, next_pow2
 from trino_tpu_torch.ops.filter_project import FilterProjectOperator
+from trino_tpu_torch.ops.join import HashJoinOperator
 from trino_tpu_torch.ops.scan import ScanOperator
 from trino_tpu_torch.ops.sort import LimitOperator, OrderByOperator, TopNOperator
 from trino_tpu_torch.ops.values import ValuesOperator
@@ -56,6 +62,9 @@ class PhysicalPlan:
     def identity_projections(self) -> list:
         return [InputRef(i, s.type) for i, s in enumerate(self.symbols)]
 
+    def types(self) -> list:
+        return [s.type for s in self.symbols]
+
 
 def session_budget(properties) -> int:
     """Per-query session budget in bytes: the smallest nonzero of
@@ -82,6 +91,9 @@ class LocalExecutionPlanner:
         self.device = device
         self.target_splits = target_splits
         self.properties = properties or SessionProperties()
+        #: build-side key ranges registered by inner-join builds, keyed by
+        #: the probe symbol they prune (DynamicFilterService role)
+        self.dynamic_filters: dict = {}
         if session_budget(self.properties):
             raise NotImplementedError(
                 "query memory budgets (partition waves and spill): not ported yet"
@@ -145,11 +157,27 @@ class LocalExecutionPlanner:
 
                 feed = prefetch_iter(feed, depth=prefetch_depth)
         plan = PhysicalPlan(feed, [s for s, _ in node.assignments])
-        if node.pushed_predicate is not None:
+        pred_expr = node.pushed_predicate
+        # dynamic filters registered by upstream join builds (ranges over
+        # this scan's output symbols) fuse into the scan's filter step
+        dyn = []
+        for s, _ in node.assignments:
+            rng = self.dynamic_filters.get(s.name)
+            if rng is not None:
+                dyn.append(_range_expr(s, *rng))
+        if dyn:
+            from trino_tpu_torch.expr.ir import and_
+
+            pred_expr = and_(*(([pred_expr] if pred_expr is not None else []) + dyn))
+        if pred_expr is not None:
             fp = FilterProjectOperator(
-                plan.rewrite(node.pushed_predicate), plan.identity_projections()
+                plan.rewrite(pred_expr), plan.identity_projections()
             )
             plan = PhysicalPlan(fp.process(plan.stream), plan.symbols)
+        if dyn:
+            # dynamic filters are usually very selective; compact so the
+            # smaller live set shrinks every downstream shape
+            plan = PhysicalPlan(_compact_stream(plan.stream), plan.symbols)
         return plan
 
     def _visit_ValuesNode(self, node: P.ValuesNode) -> PhysicalPlan:
@@ -244,6 +272,63 @@ class LocalExecutionPlanner:
         feed = src.stream if fuse else pre.process(src.stream)
         return PhysicalPlan(op.process(feed), node.outputs)
 
+    # -- joins ----------------------------------------------------------------
+
+    def _visit_JoinNode(self, node: P.JoinNode) -> PhysicalPlan:
+        if node.kind == "cross":
+            raise NotImplementedError("nested-loop (cross) join: not ported yet")
+        if node.kind == "right":
+            flipped = P.JoinNode(
+                "left", node.right, node.left,
+                [(r, l) for l, r in node.criteria], node.filter, node.distribution,
+            )
+            out = self._visit_JoinNode(flipped)
+            # restore left ++ right symbol order
+            order = [out.channel(s.name) for s in node.outputs]
+            proj = FilterProjectOperator(
+                None, [InputRef(c, out.symbols[c].type) for c in order]
+            )
+            return PhysicalPlan(proj.process(out.stream), node.outputs)
+
+        build = self.plan(node.right)
+        build_batches = list(build.stream)
+        if node.kind == "inner":
+            # dynamic filtering: build-side key ranges prune the probe scan
+            # (registered before the probe subtree is planned)
+            for lsym, rsym in node.criteria:
+                rng = _host_minmax(build_batches, build.channel(rsym.name))
+                if rng is not None:
+                    self.dynamic_filters[lsym.name] = rng
+        probe = self.plan(node.left)
+        # the probe feed starts decoding now, overlapping the build side's
+        # indexing; planned AFTER the build drain so dynamic filters apply
+        from trino_tpu_torch.runtime.prefetch import eager_prefetch
+
+        probe = PhysicalPlan(eager_prefetch(probe.stream, depth=2), probe.symbols)
+        out_symbols = probe.symbols + build.symbols
+        probe_keys = [probe.channel(l.name) for l, _ in node.criteria]
+        build_keys = [build.channel(r.name) for _, r in node.criteria]
+        residual = None
+        if node.filter is not None:
+            res_expr = PhysicalPlan(iter(()), out_symbols).rewrite(node.filter)
+
+            def residual(batch: Batch, _e=res_expr):
+                return ExprCompiler(batch).filter_mask(_e)
+
+        op = HashJoinOperator(
+            node.kind,
+            probe_keys,
+            build_keys,
+            build.types(),
+            probe_types=probe.types(),
+            residual=residual,
+        )
+        op.set_build(build_batches, self.device)
+        return PhysicalPlan(op.process(probe.stream), out_symbols)
+
+    def _visit_SemiJoinNode(self, node) -> PhysicalPlan:
+        raise NotImplementedError("semi join: not ported yet")
+
     # -- ordering -------------------------------------------------------------
 
     def _sort_keys(self, plan: PhysicalPlan, orderings) -> list:
@@ -308,3 +393,83 @@ def build_agg_inputs(node: "P.AggregationNode", src) -> tuple:
         proj.append(arg)
         input_types.append(arg.type)
     return proj, specs, input_types
+
+
+def supports_uniform_distinct(node: "P.AggregationNode") -> bool:
+    """The DISTINCT shape the JAX package's pre-grouping and distributed
+    repartition paths can express: every aggregate DISTINCT over one shared
+    argument list, no FILTER clauses.  The fragmenter consults it; DISTINCT
+    execution itself is not ported yet."""
+    distincts = [a for _, a in node.aggregations if a.distinct]
+    return bool(distincts) and (
+        len(distincts) == len(node.aggregations)
+        and len({tuple(x.key() for x in a.args) for a in distincts}) == 1
+        and all(a.filter is None for a in distincts)
+    )
+
+
+def _host_minmax(batches, channel: int):
+    """(lo, hi) of a materialized column's live+valid values, or None when
+    the domain is empty or unfilterable (dictionary codes are not portable
+    across scans; long-decimal limb planes and booleans have no useful
+    scalar range).  The reduction runs on the device and three scalars come
+    back per batch in one transfer."""
+    lo = hi = None
+    for b in batches:
+        c = b.columns[channel]
+        if c.dictionary is not None or c.data.ndim > 1 or c.data.dtype == torch.bool:
+            return None
+        data = c.data
+        if data.is_floating_point():
+            big, small = float("inf"), float("-inf")
+        else:
+            info = torch.iinfo(data.dtype)
+            big, small = info.max, info.min
+        live = b.mask()
+        if c.valid is not None:
+            live = torch.logical_and(live, c.valid)
+        # an any-live flag, not a count: a count in a narrow key dtype wraps
+        packed = torch.stack(
+            [
+                torch.where(live, data, big).min(),
+                torch.where(live, data, small).max(),
+                live.any().to(data.dtype),
+            ]
+        ).cpu().numpy()
+        if packed[2] == 0:
+            continue
+        blo, bhi = packed[0], packed[1]
+        lo = blo if lo is None else min(lo, blo)
+        hi = bhi if hi is None else max(hi, bhi)
+    if lo is None:
+        return None
+    return (lo, hi)
+
+
+def _range_expr(sym, lo, hi) -> Expr:
+    from decimal import Decimal
+
+    from trino_tpu_torch.expr.ir import and_, comparison
+
+    t = sym.type
+    if isinstance(t, T.DecimalType):
+        lo_v = Decimal(int(lo)) / t.scale_factor
+        hi_v = Decimal(int(hi)) / t.scale_factor
+    elif t.np_dtype.kind == "f":
+        lo_v, hi_v = float(lo), float(hi)
+    else:
+        lo_v, hi_v = int(lo), int(hi)
+    return and_(
+        comparison(">=", sym.ref(), Literal(lo_v, t)),
+        comparison("<=", sym.ref(), Literal(hi_v, t)),
+    )
+
+
+def _compact_stream(stream):
+    for b in stream:
+        n = b.num_rows_host()
+        cap = next_pow2(max(n, 1), floor=1024)
+        if cap >= b.capacity:
+            yield b
+            continue
+        yield b.compact_device(out_capacity=cap)

@@ -60,6 +60,12 @@ class LocalQueryRunner:
 
     # -- planning -------------------------------------------------------------
 
+    def create_plan(self, sql: str) -> OutputNode:
+        stmt = parse_statement(sql)
+        if not isinstance(stmt, ast.SelectStatement):
+            raise NotImplementedError(f"statement: {type(stmt).__name__}")
+        return self.plan_query(stmt.query)
+
     def plan_query(self, query: ast.Query) -> OutputNode:
         if query.recursive:
             raise NotImplementedError("WITH RECURSIVE: not ported yet")
@@ -98,8 +104,12 @@ class LocalQueryRunner:
             list(plan.column_names), rows, [s.type for s in plan.symbols]
         )
 
+    def _run_query(self, query: ast.Query) -> MaterializedResult:
+        """Plan and run one query (the seam the mesh runner overrides)."""
+        return self._execute_plan(self.plan_query(query))
+
     def _exec_SelectStatement(self, stmt: ast.SelectStatement) -> MaterializedResult:
-        return self._execute_plan(self.plan_query(stmt.query))
+        return self._run_query(stmt.query)
 
     # -- session statements ---------------------------------------------------
 

@@ -1,14 +1,20 @@
 """Static-analysis verification subsystem — the part the port's planner
-runs (port of trino_tpu/verify).
+and mesh fragmenter run (port of trino_tpu/verify).
 
-  * plan sanity checkers (`check_plan`), run by the optimizer after
-    analysis, after each fixpoint iteration, and after pruning;
+  * plan sanity checkers (`check_plan` / `check_subplan`), run by the
+    optimizer after analysis, after each fixpoint iteration, after pruning,
+    and by the fragmenter after fragmentation;
+  * partitioning checks (`partitioning.py`): every distributed join and
+    aggregation is co-located on its keys;
+  * collective-uniformity pass (`collectives.py`): each distributed
+    fragment's collective sequence is statically enumerated and proven
+    divergence-free;
   * numeric-safety licensing (`numeric.py` + `ranges.py`): range
     certificates that license exact single-plane i64 decimal sums;
   * capacity certificates (`capacity.py`): join/group cardinality proofs.
 
-The fragment checks, the device-residency verifier, the collective and
-schedule passes and the lock-graph tools are not ported yet.
+The device-residency verifier, the collective-schedule licenses
+(`schedule.py`) and the lock-graph tools are not ported yet.
 
 Enforcement of the plan checkers follows the `verify_plan` session property
 (strict | warn | off; default strict under pytest, warn elsewhere).
@@ -19,6 +25,7 @@ from trino_tpu_torch.verify.plan_checker import (
     MODES,
     PlanViolation,
     check_plan,
+    check_subplan,
     enforce,
     resolve_mode,
 )
@@ -28,6 +35,7 @@ __all__ = [
     "MODES",
     "PlanViolation",
     "check_plan",
+    "check_subplan",
     "enforce",
     "resolve_mode",
 ]

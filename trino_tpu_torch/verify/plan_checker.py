@@ -581,4 +581,58 @@ def check_subplan(sub) -> list:
     RemoteSourceNode names an existing child fragment, and the declared
     remote symbols match the child fragment root's outputs name-for-name
     with consistent dtypes."""
-    raise NotImplementedError("fragment checks: the fragmenter is not ported yet")
+    from trino_tpu_torch.planner.fragmenter import RemoteSourceNode, SubPlan
+
+    ctx = _Ctx()
+    frags: dict = {}
+
+    def register(s: SubPlan):
+        if s.fragment.id in frags:
+            ctx.fail(
+                "duplicate-fragment-id", s.fragment.root,
+                f"fragment id {s.fragment.id} appears twice",
+            )
+        else:
+            frags[s.fragment.id] = s.fragment
+        for c in s.children:
+            register(c)
+
+    register(sub)
+    for fragment in frags.values():
+        ctx.violations.extend(check_plan(fragment.root))
+        for node in P.walk(fragment.root):
+            if not isinstance(node, RemoteSourceNode):
+                continue
+            child = frags.get(node.fragment_id)
+            if child is None:
+                ctx.fail(
+                    "dangling-remote-source", node,
+                    f"references unknown fragment {node.fragment_id}",
+                )
+                continue
+            child_out = child.root.outputs
+            if [s.name for s in node.symbols] != [s.name for s in child_out]:
+                ctx.fail(
+                    "remote-symbol-mismatch", node,
+                    f"declares {[s.name for s in node.symbols]} but fragment "
+                    f"{node.fragment_id} outputs "
+                    f"{[s.name for s in child_out]}",
+                )
+            else:
+                for mine, theirs in zip(node.symbols, child_out):
+                    if not _compat(mine.type, theirs.type):
+                        ctx.fail(
+                            "remote-symbol-mismatch", node,
+                            f"'{mine.name}' declared {mine.type.name} but "
+                            f"fragment {node.fragment_id} produces "
+                            f"{theirs.type.name}",
+                        )
+            declared = {s.name for s in node.symbols}
+            for s in node.partition_symbols:
+                if s.name not in declared:
+                    ctx.fail(
+                        "exchange-key-missing", node,
+                        f"partition symbol '{s.name}' not in the remote "
+                        "source's outputs",
+                    )
+    return ctx.violations

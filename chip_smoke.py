@@ -9,10 +9,12 @@ catches nothing and never falls back to the CPU):
   1. the card's name and power limit (nvidia-smi) and the torch/CUDA versions;
   2. build every kernel of the path from trino_tpu_torch/csrc with nvcc
      (one process per source, started together), with the build seconds and
-     ptxas's register/shared-memory report;
+     ptxas's register/shared-memory report, and fail on any register spill;
   3. hold the grouped-sums kernel to its plain PyTorch version on the card,
-     at the main path's shape and at the edges, and time kernel, plain
-     version, a PyTorch library yardstick and the memory bound;
+     at the main path's shape and at the edges (ragged and sub-tile row
+     counts, rows whose bytes are not a multiple of 16, unaligned inputs),
+     and time kernel (back to back, and per launch with the L2 flushed),
+     plain version, a PyTorch library yardstick and the memory bound;
   4. the single-device aggregation path: TPC-H Q1, Q6 and Q1-over-DOUBLE
      (with `pallas_agg` on, the grouped-sums kernel's path) at sf1 through
      LocalQueryRunner on the card, cold and warm, with wall time, lineitem
@@ -21,16 +23,21 @@ catches nothing and never falls back to the CPU):
      time); every result is checked against the port's own CPU run
      (device="cpu") of the same query;
   5. the join and mesh path: TPC-H Q3 at sf1 on a DistributedQueryRunner of
-     4 logical workers on the card with `pallas_probe` on (the sorted-probe
-     kernel's path) and with default knobs, and through LocalQueryRunner on
-     the card, each cold and warm, with the same readings as phase 4 and
-     the sorted-probe kernel's launches; every result is checked against
-     the port's CPU LocalQueryRunner at sf1;
+     4 logical workers on the card with `pallas_probe` on and with default
+     knobs (both run the sorted-probe kernel on the card, and each run must
+     launch it), and through LocalQueryRunner on the card, each cold and
+     warm, with the same readings as phase 4 and the sorted-probe kernel's
+     launches; every result is checked against the port's CPU
+     LocalQueryRunner at sf1;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
-     (duplicate runs and misses, all rows nomatch, n_match = 0, ragged and
-     small probe lengths, keys at INT64_MIN/MAX, an int32 plane), and time
-     kernel, plain version, the torch.searchsorted yardstick and the bound;
+     (duplicate runs and misses, runs crossing window edges and runs longer
+     than several windows, all rows nomatch, n_match in {0, 1, S - 1,
+     S + 1} and not a multiple of S, a plane whose length is not a multiple
+     of S, ragged and small probe lengths, keys at INT64_MIN/MAX, an int32
+     plane, build planes large enough for S = 16 and S = 512), and time
+     kernel (back to back, and per launch with the L2 flushed), plain
+     version, the torch.searchsorted yardstick and the bound;
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -45,6 +52,7 @@ sorted-probe kernel: bit-exact.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +76,56 @@ group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"""
 
 def log(*args):
     print(*args, flush=True)
+
+
+def cuda_ms_l2_flushed(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one fn() launch whose inputs start outside the
+    L2: before each launch a 128 MB scratch tensor (2.5x the 50 MB L2) is
+    written, then CUDA events bracket that launch alone.  The same
+    device-side sleep as `cuda_ms` lets the host queue every launch first."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = [
+        (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        for _ in range(reps)
+    ]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    for i, (start, end) in enumerate(events):
+        flush.fill_(i & 0xFF)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
+
+
+def time_kernel(name: str, fn, bound_ms: float) -> dict:
+    """Both times of one kernel call and their shares of the bound."""
+    ms = cuda_ms(fn)
+    flushed = cuda_ms_l2_flushed(fn)
+    log(
+        f"{name}: kernel_ms={ms!r} (bound share {bound_ms / ms:.3f}) "
+        f"ms_l2_flushed={flushed!r} (bound share {bound_ms / flushed:.3f}) "
+        f"bound_ms={bound_ms!r}"
+    )
+    return {"ms": ms, "ms_l2_flushed": flushed}
+
+
+def check_ptxas(names) -> None:
+    """ptxas's report of every kernel function: registers, shared memory,
+    and no spill stores or loads."""
+    from trino_tpu_torch.kernels import build
+
+    for name in names:
+        report = build.log_path(name).read_text()
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+        if not spills:
+            raise AssertionError(f"{name}: no ptxas report in the build log")
+        if any(int(a) or int(b) for a, b in spills):
+            raise AssertionError(f"{name}: ptxas reports register spills:\n{report}")
+        log(f"ptxas {name}: {len(spills)} functions, no spills")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -105,19 +163,28 @@ def check_grouped_sums(dev) -> dict:
     from trino_tpu_torch.ops import grouped_sums as gs
 
     shapes = [
-        # (name, N, G, K, live fraction): the main path's per-batch shape
-        # (Q1-double: 2**20-row scan batches, 12 group slots, 11 columns),
-        # then the edges
-        ("main", 1 << 20, 12, 11, 0.78),
-        ("g1", 2048, 1, 1, 0.7),
-        ("g512", 2048, 512, 11, 0.7),
-        ("g512_k32", 8192, 512, 32, 0.7),
-        ("k200_tiled", 4096, 512, 200, 0.7),
-        ("all_masked", 1 << 20, 12, 11, 0.0),
+        # (name, N, G, K, live fraction, row offset): the main path's
+        # per-batch shape (Q1-double: 2**20-row scan batches, 12 group
+        # slots, 11 columns), then the edges.  The staged tiles are 512
+        # rows; a row offset of 1 makes every input start off a 16-byte
+        # boundary (read in place).
+        ("main", 1 << 20, 12, 11, 0.78, 0),
+        ("g1", 2048, 1, 1, 0.7, 0),
+        ("g512", 2048, 512, 11, 0.7, 0),
+        ("g512_k32", 8192, 512, 32, 0.7, 0),
+        ("k200_tiled", 4096, 512, 200, 0.7, 0),
+        ("all_masked", 1 << 20, 12, 11, 0.0, 0),
+        ("ragged_n", (1 << 20) + 77, 12, 11, 0.78, 0),
+        ("sub_tile_n", 300, 12, 11, 0.78, 0),
+        ("one_tile_plus_1", 513, 12, 11, 0.78, 0),
+        ("k3_rows_not_16b", 100_003, 12, 3, 0.78, 0),
+        ("k5_rows_not_16b", 4099, 7, 5, 0.78, 0),
+        ("unaligned", 100_000, 12, 11, 0.78, 1),
     ]
     main = None
-    for name, n, g, k, live in shapes:
-        gids, mask, values = grouped_sums_inputs(n, g, k, live, seed=n + g + k, dev=dev)
+    for name, n, g, k, live, offset in shapes:
+        gids, mask, values = grouped_sums_inputs(n + offset, g, k, live, seed=n + g + k, dev=dev)
+        gids, mask, values = gids[offset:], mask[offset:], values[offset:]
         out = gs.grouped_sums(gids, mask, values, g)
         torch.cuda.synchronize()
         ref = gs.grouped_sums_reference(gids, mask, values, g)
@@ -138,7 +205,6 @@ def check_grouped_sums(dev) -> dict:
             main = (n, g, k, gids, mask, values, max_abs_err)
 
     n, g, k, gids, mask, values, max_abs_err = main
-    kernel_ms = cuda_ms(lambda: gs.grouped_sums(gids, mask, values, g))
     plain_ms = cuda_ms(lambda: gs.grouped_sums_reference(gids, mask, values, g))
     onehot = torch.logical_and(
         gids[:, None] == torch.arange(g, device=dev, dtype=gids.dtype)[None, :],
@@ -152,10 +218,14 @@ def check_grouped_sums(dev) -> dict:
     nbytes = n * (4 + 1) + live_rows * 4 * k + 4 * g * k
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = live_rows * k / F32_FLOPS * 1e3  # one f32 add per live value
+    bound_ms = max(bytes_ms, ops_ms)
+    times = time_kernel(
+        "grouped_sums main", lambda: gs.grouped_sums(gids, mask, values, g), bound_ms
+    )
     log(
-        f"grouped_sums main: kernel_ms={kernel_ms!r} plain_ms={plain_ms!r} "
+        f"grouped_sums main: plain_ms={plain_ms!r} "
         f"library_ms={library_ms!r} (one-hot f32 matmul, TF32 off) "
-        f"bound_ms={max(bytes_ms, ops_ms)!r} ({nbytes} bytes)"
+        f"bound_ms={bound_ms!r} ({nbytes} bytes, {live_rows} live rows)"
     )
     return {
         "name": "grouped_sums",
@@ -163,9 +233,9 @@ def check_grouped_sums(dev) -> dict:
         "source": "trino_tpu_torch/csrc/grouped_sums.cu",
         "replaces": "trino_tpu/ops/pallas_agg.py:62",
         "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
+        **times,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
     }
@@ -287,11 +357,53 @@ def run_main_path() -> dict:
 # -- phase 5: the join and mesh path ------------------------------------------
 
 
+def recording_probe(capture: dict):
+    """A stand-in for the mesh join's call of the sorted-probe wrapper: it
+    passes every call through (the wrapper alone counts the launch), notes
+    the launch shapes in capture["shapes"] and, while capture["keep"] is
+    set, keeps copies of the inputs of the largest launch in
+    capture["inputs"]."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+
+    kernel = mesh_runner.locate_sorted
+
+    def recording(build, n_match, probe, nomatch, cap_b):
+        out = kernel(build, n_match, probe, nomatch, cap_b=cap_b)
+        capture.setdefault("shapes", set()).add(
+            (probe.shape[0], build.shape[0], cap_b)
+        )
+        size = probe.shape[0] * max(build.shape[0], 1)
+        if capture.get("keep") and size > capture.get("size", -1):
+            capture.update(
+                size=size,
+                inputs=(build.clone(), n_match.clone(), probe.clone(),
+                        nomatch.clone(), cap_b),
+            )
+        return out
+
+    return kernel, recording
+
+
+def capture_probe_inputs(mesh, sql: str, capture: dict) -> None:
+    """One untimed run of `sql` on `mesh` that copies the inputs of its
+    largest sorted-probe launch into capture["inputs"]."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+
+    kernel, recording = recording_probe(capture)
+    capture["keep"] = True
+    mesh_runner.locate_sorted = recording
+    try:
+        mesh.execute(sql)
+    finally:
+        mesh_runner.locate_sorted = kernel
+        capture["keep"] = False
+
+
 def run_mesh_path(capture: dict) -> dict:
-    """TPC-H Q3 at sf1: the 4-worker mesh with the sorted-probe kernel, the
-    mesh with default knobs (the plain search), and the local runner (the
-    direct-address join).  `capture` receives the inputs of the largest
-    sorted-probe launch."""
+    """TPC-H Q3 at sf1: the 4-worker mesh with `pallas_probe` on and with
+    default knobs (on the card both take the sorted-probe kernel), and the
+    local runner (the direct-address join).  `capture` receives the inputs
+    of the largest sorted-probe launch."""
     from trino_tpu_torch.connectors.tpch.queries import QUERIES
     from trino_tpu_torch.ops import locate_sorted as ls
     from trino_tpu_torch.parallel.runner import DistributedQueryRunner
@@ -314,26 +426,7 @@ def run_mesh_path(capture: dict) -> dict:
 
     import trino_tpu_torch.parallel.runner as mesh_runner
 
-    kernel = mesh_runner.locate_sorted
-    keep_inputs = False  # copies are made only in an untimed run at the end
-
-    def recording(build, n_match, probe, nomatch, cap_b):
-        """The mesh join's call of the kernel wrapper, passed through; notes
-        the launch shapes and, when `keep_inputs`, keeps copies of the
-        inputs of the largest launch (the wrapper alone counts it)."""
-        out = kernel(build, n_match, probe, nomatch, cap_b=cap_b)
-        capture.setdefault("shapes", set()).add(
-            (probe.shape[0], build.shape[0], cap_b)
-        )
-        size = probe.shape[0] * max(build.shape[0], 1)
-        if keep_inputs and size > capture.get("size", -1):
-            capture.update(
-                size=size,
-                inputs=(build.clone(), n_match.clone(), probe.clone(),
-                        nomatch.clone(), cap_b),
-            )
-        return out
-
+    kernel, recording = recording_probe(capture)
     results = {}
     mesh_runner.locate_sorted = recording
     ls.locate_sorted.launches = 0  # every kernel count, just before the path
@@ -346,7 +439,7 @@ def run_mesh_path(capture: dict) -> dict:
             res = r.execute(sql)  # rows come back to the host: synchronized
             wall = time.perf_counter() - t0
             walls.append(wall)
-            if name == "q3_mesh_kernel" and ls.locate_sorted.launches == before:
+            if name.startswith("q3_mesh") and ls.locate_sorted.launches == before:
                 raise AssertionError(f"{name} {attempt}: no locate_sorted launch")
             ex = getattr(r, "last_stage_executor", None)
             log(
@@ -361,9 +454,9 @@ def run_mesh_path(capture: dict) -> dict:
     for name, r in runs:
         profile_warm(name, r, sql)
     launches = ls.locate_sorted.launches  # read just after the path
-    keep_inputs = True
-    kernel_mesh.execute(sql)  # untimed, uncounted: copies phase 6's inputs
     mesh_runner.locate_sorted = kernel
+    # untimed, and after the count was read: copies phase 6's inputs
+    capture_probe_inputs(kernel_mesh, sql, capture)
     log(f"mesh path: locate_sorted launches={launches} "
         f"shapes (P, build rows, cap_b)={sorted(capture.get('shapes', ()))}")
     if launches <= 0:
@@ -405,6 +498,25 @@ def probe_edge_inputs(dev):
     cases.append(("int64_extremes", edge, 8, np.array([i64.min, i64.max, 0, -1, 7, i64.max - 1, 3]), np.zeros(7, bool), 8))
     b = sorted_build(1024, 900, -50, 50, np.int32)
     cases.append(("int32_planes", b, 900, rng.integers(-60, 60, 3000).astype(np.int32), rng.random(3000) < 0.05, 1024))
+    # the splitter tier (S = 8 at these planes): runs of ~10 equal keys
+    # that cross window edges, a run of 100 equal keys (12 windows), and
+    # n_match at 1, S - 1, S + 1 and not a multiple of S
+    b = sorted_build(4096, 3000, 0, 300)
+    cases.append(("runs_cross_windows", b, 3000, rng.integers(-5, 305, 8192), rng.random(8192) < 0.1, 4096))
+    keys = np.sort(np.concatenate([np.full(100, 7), rng.integers(-40, 40, 900)]))
+    b = np.concatenate([keys, np.full(24, i64.max)])
+    cases.append(("run_of_100", b, 1000, rng.integers(-45, 45, 4096), np.zeros(4096, bool), 1024))
+    for n_match in (1, 7, 9, 1003):
+        b = sorted_build(1024, n_match, -20, 20)
+        cases.append((f"n_match_{n_match}", b, n_match, rng.integers(-25, 25, 2048), rng.random(2048) < 0.1, 1024))
+    b = sorted_build(1003, 1003, -400, 400)  # the last window is ragged
+    cases.append(("plane_not_multiple_of_s", b, 1003, rng.integers(-410, 410, 2048), np.zeros(2048, bool), 1003))
+    # larger planes: S = 16 (vector windows of 16 keys, two rows a thread)
+    # and S = 512 (windows searched in device memory)
+    b = sorted_build(1 << 17, 100_001, 0, 20_000)
+    cases.append(("s16_cap_2e17", b, 100_001, rng.integers(-10, 20_010, 1 << 16), rng.random(1 << 16) < 0.2, 1 << 17))
+    b = sorted_build(1 << 22, 3_000_001, 0, 1_000_000)
+    cases.append(("s512_cap_2e22", b, 3_000_001, rng.integers(-10, 1_000_010, 1 << 16), rng.random(1 << 16) < 0.2, 1 << 22))
     out = []
     for name, build, n_match, probe, nomatch, cap_b in cases:
         out.append((
@@ -433,11 +545,11 @@ def check_locate_sorted(dev, capture: dict) -> dict:
             bad = int(((start != rs) | (count != rc)).sum())
             raise AssertionError(f"locate_sorted {name}: {bad} rows differ from the plain version")
         log(f"locate_sorted check {name}: P={p.shape[0]} build={b.shape[0]} "
-            f"n_match={int(nm)} matched_rows={int((count > 0).sum())} bit-exact ok")
+            f"n_match={int(nm)} S={ls.launch_plan(max(cb, b.shape[0]), p.shape[0], 132)['s']} "
+            f"matched_rows={int((count > 0).sum())} max_run={int(count.max())} bit-exact ok")
 
     n = int(n_match)
     p_rows = probe.shape[0]
-    kernel_ms = cuda_ms(lambda: ls.locate_sorted(build, n_match, probe, nomatch, cap_b=cap_b))
     plain_ms = cuda_ms(lambda: ls.locate_sorted_reference(build, n_match, probe, nomatch, cap_b=cap_b))
     prefix = build[:n]
     probe64 = probe.to(torch.int64)
@@ -460,11 +572,18 @@ def check_locate_sorted(dev, capture: dict) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # two binary searches of ceil(log2(n_match + 1)) compares per live row
     ops_ms = live * 2 * max(1, (n + 1).bit_length()) / F32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    times = time_kernel(
+        "locate_sorted main",
+        lambda: ls.locate_sorted(build, n_match, probe, nomatch, cap_b=cap_b),
+        bound_ms,
+    )
     log(
         f"locate_sorted main: P={p_rows} live={live} build={build.shape[0]} n_match={n} "
-        f"kernel_ms={kernel_ms!r} plain_ms={plain_ms!r} "
+        f"plan={ls.launch_plan(cap_b, p_rows, torch.cuda.get_device_properties(dev).multi_processor_count)} "
+        f"plain_ms={plain_ms!r} "
         f"library_ms={library_ms!r} (torch.searchsorted lower+upper, masked) "
-        f"bound_ms={max(bytes_ms, ops_ms)!r} ({nbytes} bytes)"
+        f"bound_ms={bound_ms!r} ({nbytes} bytes)"
     )
     return {
         "name": "locate_sorted",
@@ -472,9 +591,9 @@ def check_locate_sorted(dev, capture: dict) -> dict:
         "source": "trino_tpu_torch/csrc/locate_sorted.cu",
         "replaces": "trino_tpu/ops/pallas_probe.py:66",
         "max_abs_err": 0,
-        "ms": kernel_ms,
+        **times,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
     }
@@ -502,6 +621,7 @@ def main() -> int:
     log(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         log(build.log_path(name).read_text().strip())
+    check_ptxas(kernels)
 
     k1 = check_grouped_sums(dev)
     main_path = run_main_path()

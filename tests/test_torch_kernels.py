@@ -95,21 +95,49 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gids, mask, values, g):
 
 @pytest.mark.parametrize(
     "n, g, k", [(1 << 20, 12, 11), (2048, 1, 1), (2048, 512, 11), (8192, 512, 32),
-                (4096, 512, 200), (1 << 24, 512, 3)]
+                (4096, 512, 200), (1 << 24, 512, 3), (100, 12, 11), (1000, 12, 3),
+                (5000, 7, 5), (1 << 20, 1, 1000)]
 )
-def test_launch_plan_fits_shared_memory(n, g, k):
-    plan = gs.launch_plan(n, g, k, sm_count=132)
-    kt, copies = plan["kt"], plan["copies"]
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+def test_launch_plan_fits_shared_memory(n, g, k, aligned):
+    plan = gs.launch_plan(n, g, k, sm_count=132, aligned=aligned)
+    kt, copies, rows = plan["kt"], plan["copies"], plan["tile_rows"]
     assert 1 <= kt <= k
     assert copies >= 1
     assert copies * g * kt * 4 <= gs._SMEM_BUDGET
-    staged = gs._TILE_ROWS * (4 * k + 5) if kt == k else 0
-    assert plan["smem"] == copies * g * kt * 4 + staged <= gs._SM_SMEM - 1024
+    acc = -(-copies * g * kt * 4 // gs._ALIGN) * gs._ALIGN
+    ring = plan["stages"] * (-(-plan["stage_bytes"] // gs._ALIGN) * gs._ALIGN)
+    assert plan["smem"] == gs._BARRIER_BYTES + acc + ring <= gs._SM_SMEM - 1024
+    assert 1 <= plan["stages"] <= gs._MAX_STAGES
     assert 1 <= plan["grid_x"] <= gs._BLOCKS_PER_SM * 132
+    # the ring: tiles of a multiple of 16 rows, so each of the three bulk
+    # copies (values, group ids, masks) is a multiple of 16 bytes
+    assert rows % 16 == 0 and 0 <= rows <= gs._TILE_ROWS
+    assert plan["stage_bytes"] == rows * (4 * k + 5)
+    for nbytes in (rows * k * 4, rows * 4, rows):
+        assert nbytes % 16 == 0
+    # staged exactly when one accumulator column tile covers K and the
+    # inputs are 16-byte aligned (and a 16-row tile fits)
+    if not aligned or kt < k:
+        assert rows == 0
+    elif (n, g, k) in ((1 << 20, 12, 11), (2048, 512, 11), (8192, 512, 32)):
+        assert rows >= 16
     rows_per_step = 32 // kt if kt <= 32 else 1
     if g * kt * gs._WARPS * rows_per_step * 4 <= gs._SMEM_BUDGET:
         # every warp row slot gets a private accumulator (no contention)
         assert copies == gs._WARPS * rows_per_step
+
+
+def test_launch_plan_main_shape():
+    """Q1-double's batch: a private [12][11] copy per row slot (two slots
+    of 11 lanes per warp, 16 consumer warps), 512-row tiles in a
+    three-stage ring, two blocks per SM of the H100's 132."""
+    plan = gs.launch_plan(1 << 20, 12, 11, sm_count=132)
+    assert plan["copies"] == 2 * gs._WARPS == 32
+    assert plan["tile_rows"] == 512 and plan["stages"] == 3
+    assert plan["stage_bytes"] == 512 * 49
+    assert plan["grid_x"] == 2 * 132
+    assert 2 * (plan["smem"] + 1024) <= gs._SM_SMEM
 
 
 # -- K2: the sorted-build probe (ops/locate_sorted.py) -------------------------
@@ -276,3 +304,52 @@ def test_probe_kernel_eligible_matches_jax():
             [torch.from_numpy(x) for x in b], [torch.from_numpy(x) for x in p]
         )
         assert got == want, (b, p)
+
+
+@pytest.mark.parametrize(
+    "cap_b",
+    [1, 2, 7, 8, 9, 100, 4096, 65536, 98296, 98304, 98305, 1 << 17, 1 << 20,
+     1 << 22, (1 << 22) + 3, 1 << 24],
+)
+def test_locate_sorted_launch_plan(cap_b):
+    plan = ls.launch_plan(cap_b, 1 << 20, sm_count=132)
+    s, log_s = plan["s"], plan["log_s"]
+    # S a power of two >= 8, the smallest whose splitters fit the budget
+    assert s == 1 << log_s and s >= 8
+    n_max = -(-cap_b // s)  # the splitters of n_match = cap_b
+    assert 8 * (n_max + (n_max & 1)) <= ls._SPLITTER_BUDGET
+    if s > 8:
+        half = -(-cap_b // (s // 2))
+        assert 8 * (half + (half & 1)) > ls._SPLITTER_BUDGET
+    # every n_match <= cap_b has its splitters staged: the scratch and the
+    # shared memory hold ceil(n_match / S) keys, rounded up to an even
+    # count (16-byte copies)
+    for n_match in {0, 1, s - 1, s, s + 1, cap_b - 1, cap_b}:
+        if 0 <= n_match <= cap_b:
+            n_spl = -(-n_match // s)
+            assert n_spl + (n_spl & 1) <= plan["smem"] // 8 <= plan["splitters"]
+    assert plan["splitters"] >= ls._MIN_SPLITTERS and plan["splitters"] % 2 == 0
+    assert plan["smem"] <= ls._SPLITTER_BUDGET <= ls._SM_SMEM - 1024
+    assert plan["rows"] == ls._ROWS.get(s, 1)
+    assert 1 <= plan["grid"] <= ls._BLOCKS_PER_SM * 132
+    assert 1 <= plan["gather_grid"]
+
+
+def test_locate_sorted_launch_plan_main_shape():
+    """The mesh Q3's largest launch: a 65,536-row build plane takes S = 8
+    (8,192 splitters, 64 KB), three blocks per SM; 2^20 probe rows in
+    1024-row chunks leave none of the 396 blocks idle."""
+    plan = ls.launch_plan(65536, 1 << 20, sm_count=132)
+    assert (plan["s"], plan["smem"], plan["grid"]) == (8, 65536, 396)
+    assert ls.launch_plan(65536, 1000, sm_count=132)["grid"] == 1
+
+
+def test_locate_sorted_alignment_check_raises():
+    """The kernel reads 16-byte windows of the build plane: the wrapper's
+    check refuses a plane that does not start on a 16-byte boundary."""
+    plane = torch.zeros(64, dtype=torch.int64)
+    assert plane.data_ptr() % 16 == 0
+    ls.check_aligned(plane)
+    ls.check_aligned(plane[2:])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ls.check_aligned(plane[1:])

@@ -268,6 +268,40 @@ def test_unported_mesh_settings_raise(setting):
         r.execute(QUERIES[3])
 
 
+@pytest.mark.parametrize("pallas_probe", [False, True], ids=["default", "pallas_probe"])
+def test_cpu_mesh_join_routing_follows_pallas_probe(port_mesh, monkeypatch, pallas_probe):
+    """On the card every kernel-eligible mesh join takes the sorted-probe
+    kernel; on the CPU `pallas_probe` still decides: off, the mesh join
+    calls `_locate_sorted` and never `locate_sorted`; on, the reverse for
+    Q3's two single-key bigint joins."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+
+    calls = {"locate_sorted": 0, "_locate_sorted": 0}
+
+    def counting(name):
+        fn = getattr(mesh_runner, name)
+
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(mesh_runner, name, counting(name))
+    port_mesh.execute(f"set session pallas_probe = {str(pallas_probe).lower()}")
+    try:
+        assert len(port_mesh.execute(QUERIES[3]).rows) > 0
+    finally:
+        port_mesh.execute("set session pallas_probe = false")
+    used, unused = (
+        ("locate_sorted", "_locate_sorted") if pallas_probe
+        else ("_locate_sorted", "locate_sorted")
+    )
+    assert calls[used] > 0
+    assert calls[unused] == 0
+
+
 def test_mesh_query_frees_its_stage_outputs(port_mesh):
     """Every stage output points back at its executor; the executor drops
     them when the query ends, so no device memory waits for the garbage

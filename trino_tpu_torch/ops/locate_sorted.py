@@ -15,18 +15,21 @@ On the card `locate_sorted` launches the CUDA C++ kernel in
 
   * Design: the TPU kernel holds the whole build plane in VMEM for every
     1024-row probe block and runs bit_length(cap_b) fixed iterations.  On
-    Hopper one thread takes one probe row (grid-stride loop) and runs both
-    binary searches as `while (lo < hi)` loops (the same bounds), reading
-    the build plane through the read-only cache; a 2^18-row plane (2 MB)
-    stays in the 50 MB L2.  `n_match` is read on the card: the wrapper
-    never synchronises to learn it, so the mesh's deferred chain is not
-    stalled.
-  * Bound: memory in principle — P nomatch flags and the keys of the
-    L live rows read (P + 8 L bytes; a nomatch row's key is never read),
-    P * 16 written, plus n_match * 8 bytes of build keys once (at most
-    ~28 MB at P = 2^20, n_match = 2^18: ~8 us at 3.35 TB/s) — but each
-    live row makes 2 * log2(n_match) dependent L2 loads, so expect
-    latency to bound it.
+    Hopper a first small kernel gathers every S-th key of the sorted prefix
+    (the splitters) into a scratch array; each block of the main kernel
+    stages them in shared memory, and each live probe row binary-searches
+    the splitters there, then reads the one aligned window of S build keys
+    that holds its lower bound (16-byte vector loads at S = 8 or 16) and
+    counts the keys below and equal to its own in registers.  A run of
+    equal keys that crosses the window's end searches the splitters again
+    for its end.  Four probe rows per thread run in lock step over a
+    persistent grid.  `n_match` is read on the card: the wrapper never
+    synchronises to learn it, so the mesh's deferred chain is not stalled.
+    `launch_plan` picks S, the shared memory and the grid from `cap_b`.
+  * Bound: memory — P nomatch flags and the keys of the L live rows read
+    (P + 8 L bytes: the function need not read a nomatch row's key), P * 16 written,
+    plus n_match * 8 bytes of build keys once (24.6 MB at the mesh Q3's
+    largest launch: 7.3 us at 3.35 TB/s).
 
 On a CPU tensor it runs `locate_sorted_reference`, the plain PyTorch
 version (the port's `ops.join._locate_sorted` over one plane, the
@@ -40,10 +43,27 @@ import ctypes
 
 import torch
 
-#: threads per block (csrc/locate_sorted.cu kThreads)
+#: threads per block of the main kernel and of the splitter gather
+#: (csrc/locate_sorted.cu kThreads and its gather launch)
 _THREADS = 256
-#: resident blocks per SM the grid-stride loop is sized for
-_BLOCKS_PER_SM = 8
+_GATHER_THREADS = 256
+#: probe rows per thread of the main kernel, by window S (the kernel's R;
+#: 1 for every larger S)
+_ROWS = {8: 4, 16: 2}
+#: shared memory for the staged splitters: 12,288 keys.  S is the smallest
+#: power of two >= 8 whose splitters of a cap_b-row plane fit it.
+_SPLITTER_BUDGET = 96 * 1024
+#: blocks per SM the persistent grid is sized for (each stages the
+#: splitters once).  At 86 registers a thread two are resident at a time;
+#: the third splits the probe rows finer, and the card measured it ~5%
+#: faster than two (PERF.md).
+_BLOCKS_PER_SM = 3
+#: the splitter scratch holds at least this many keys: rows without a
+#: window read 16 keys there instead of the build plane
+_MIN_SPLITTERS = 16
+#: shared memory of one SM usable by blocks (H100: 227 KB, less 1 KB the
+#: runtime reserves per resident block)
+_SM_SMEM = 227 * 1024
 
 
 def _is_int_plane(t: torch.Tensor) -> bool:
@@ -83,6 +103,48 @@ def _widen(plane: torch.Tensor) -> torch.Tensor:
     return plane if plane.dtype == torch.int64 else plane.to(torch.int64)
 
 
+def launch_plan(cap_b: int, p: int, sm_count: int,
+                splitter_budget: int = _SPLITTER_BUDGET,
+                blocks_per_sm: int = _BLOCKS_PER_SM) -> dict:
+    """Launch geometry for a build plane of `cap_b` rows and P probe rows:
+    the window S = 2**log_s (the smallest power of two >= 8 whose
+    ceil(cap_b / S) splitters fit `splitter_budget` bytes), the splitter
+    scratch's length (an even count, at least _MIN_SPLITTERS), the main
+    kernel's dynamic shared memory, its persistent grid and the gather's
+    grid.  Any n_match <= cap_b has at most ceil(cap_b / S) splitters."""
+    cap = max(1, int(cap_b))
+    log_s = 3
+    while True:
+        n_spl = -(-cap >> log_s)
+        n_even = n_spl + (n_spl & 1)
+        if 8 * n_even <= splitter_budget:
+            break
+        log_s += 1
+    s = 1 << log_s
+    smem = 8 * n_even
+    rows = _ROWS.get(s, 1)
+    per_sm = max(1, min(blocks_per_sm, _SM_SMEM // (smem + 1024)))
+    chunks = -(-max(1, p) // (_THREADS * rows))
+    return {
+        "log_s": log_s,
+        "s": s,
+        "splitters": max(_MIN_SPLITTERS, n_even),
+        "smem": smem,
+        "rows": rows,
+        "grid": max(1, min(per_sm * sm_count, chunks)),
+        "gather_grid": max(1, min(-(-n_spl // _GATHER_THREADS), 4 * sm_count)),
+    }
+
+
+def check_aligned(plane: torch.Tensor) -> None:
+    """The kernel reads the build plane's windows as 16-byte vectors."""
+    if plane.data_ptr() % 16:
+        raise ValueError(
+            "locate_sorted needs a 16-byte aligned build plane "
+            f"(data_ptr {plane.data_ptr():#x})"
+        )
+
+
 def locate_sorted(build, n_match, probe, nomatch, cap_b: int):
     """(start, count) int64 [P] of each probe key's run in build[:n_match]."""
     if not (_is_int_plane(build) and _is_int_plane(probe)):
@@ -110,20 +172,32 @@ def locate_sorted(build, n_match, probe, nomatch, cap_b: int):
         raise TypeError(f"n_match must be an int64 tensor on {dev}")
     if not (build.is_contiguous() and probe.is_contiguous() and nomatch.is_contiguous()):
         raise ValueError("locate_sorted needs contiguous planes")
+    check_aligned(build)
+    p = probe.shape[0]
+    if p == 0:
+        empty = torch.empty(0, dtype=torch.int64, device=dev)
+        return empty, empty.clone()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = launch_plan(max(int(cap_b), build.shape[0]), p, sms)
+    return _launch(build, nm, probe, nomatch, plan)
+
+
+def _launch(build, nm, probe, nomatch, plan: dict):
+    """Both kernels on the current stream, for a checked int64 build plane,
+    a one-element n_match tensor and a launch plan."""
+    dev = probe.device
     p = probe.shape[0]
     start = torch.empty(p, dtype=torch.int64, device=dev)
     count = torch.empty(p, dtype=torch.int64, device=dev)
-    if p == 0:
-        return start, count
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(-(-p // _THREADS), sms * _BLOCKS_PER_SM))
+    splitters = torch.empty(plan["splitters"], dtype=torch.int64, device=dev)
     fn = _library().locate_sorted_i64
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            build.data_ptr(), nm.data_ptr(), probe.data_ptr(),
-            nomatch.data_ptr(), p, grid, start.data_ptr(), count.data_ptr(),
-            stream,
+            build.data_ptr(), nm.data_ptr(), build.shape[0], plan["log_s"],
+            splitters.data_ptr(), plan["gather_grid"], probe.data_ptr(),
+            nomatch.data_ptr(), p, plan["grid"], plan["smem"],
+            start.data_ptr(), count.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"locate_sorted kernel launch failed: cudaError {err}")
@@ -141,6 +215,8 @@ def _library():
     fn = lib.locate_sorted_i64
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, p, p, p]
+        i = ctypes.c_int
+        ll = ctypes.c_longlong
+        fn.argtypes = [p, p, ll, i, p, i, p, p, ll, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return lib

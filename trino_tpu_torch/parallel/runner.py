@@ -22,9 +22,13 @@ step onto the `_Dist`; a chain runs at the next materialization boundary
 pool's device tier, so a warm mesh query moves no table data to the card.
 
 The mesh join (`_x_JoinNode`) sorts each worker's build shard and locates
-every probe row's run of matching build rows; with `pallas_probe` on and a
-single integer key plane per side that search is the hand-written Hopper
-kernel of ops/locate_sorted.py, otherwise the port's `_locate_sorted`.
+every probe row's run of matching build rows.  On the card, a join with a
+single integer key plane per side takes the hand-written Hopper kernel of
+ops/locate_sorted.py whatever `pallas_probe` says (the kernel and the plain
+search are bit-exact there); other keys take the port's `_locate_sorted`.
+On the CPU `pallas_probe` decides, as in the JAX package: on, the kernel
+module's plain version; off, `_locate_sorted`.  The property stays
+accepted, and stays in the join's capacity-history key, for parity.
 
 Not ported (each raises NotImplementedError when a session asks for it):
 fault tolerance and task retries, memory-budget waves, bucketed table
@@ -956,10 +960,10 @@ class StageExecutor:
             # binary-search the probe keys against it
             sb, canon, n_match = _sort_build_device(bb, bk)
             pc, pn = _canon_probe_device(pb, pk, canon)
-            if use_kernel and probe_kernel_eligible(canon, pc):
+            if (use_kernel or pn.is_cuda) and probe_kernel_eligible(canon, pc):
                 # the sorted-probe kernel (ops/locate_sorted.py): on the
-                # card a hand-written CUDA kernel, on the CPU its plain
-                # version
+                # card a hand-written CUDA kernel, always; on the CPU its
+                # plain version, under pallas_probe
                 start, count = locate_sorted(canon[0], n_match, pc[0], pn, cap_b=cap_b)
             else:
                 start, count = _locate_sorted(canon, n_match, pc, pn, cap_b=cap_b)

@@ -29,6 +29,15 @@ catches nothing and never falls back to the CPU):
      warm, with the same readings as phase 4 and the sorted-probe kernel's
      launches; every result is checked against the port's CPU
      LocalQueryRunner at sf1;
+ 5b. the semi-join, cross-join and conditional-form path: TPC-H Q4, Q11,
+     Q12, Q18, Q19 and Q21 at sf1 through LocalQueryRunner on the card, and
+     Q4, Q18, Q21 and Q11 (its cross join in the coordinator's local
+     engine) on the 4-worker mesh with default knobs, each cold and warm,
+     with the readings of phase 5; every mesh run of a semi-join query must
+     launch the sorted-probe kernel from a semi join; one profiled warm run
+     each of the mesh Q18 and Q21; each launch's P, n_match and window S;
+     every result is checked against the port's CPU LocalQueryRunner at sf1
+     (the CPU reference's time printed);
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -37,7 +46,9 @@ catches nothing and never falls back to the CPU):
      of S, ragged and small probe lengths, keys at INT64_MIN/MAX, an int32
      plane, build planes large enough for S = 16 and S = 512), and time
      kernel (back to back, and per launch with the L2 flushed), plain
-     version, the torch.searchsorted yardstick and the bound;
+     version, the torch.searchsorted yardstick and the bound; also bit-exact
+     at the inputs of the largest and of the smallest-n_match semi-join
+     launch of phase 5b, and timed at the largest;
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -45,8 +56,8 @@ Tolerances: integers, decimals and strings exact.  Kernel sums: counts
 exact, |kernel - plain| <= 5e-5 * (sum of |values| in the cell), the f32
 summation bound of the kernel (~530 sequential additions * 2**-24).  Q1 over
 DOUBLE with the f32 kernel against the CPU's f64 path: relative 5e-5 on
-doubles (all summed values are non-negative), counts exact.  The
-sorted-probe kernel: bit-exact.
+doubles (all summed values are non-negative), counts exact; every other
+double relative 1e-9.  The sorted-probe kernel: bit-exact.
 """
 
 import json
@@ -65,6 +76,12 @@ F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 LINEITEM_SF1_ROWS = 6_001_215
 KERNEL_RTOL = 5e-5
 MESH_WORKERS = 4
+DOUBLE_RTOL = 1e-9
+#: phase 5b: the local queries, and the mesh queries (the first three hold
+#: semi joins, Q11 a cross join)
+SEMI_LOCAL_QIDS = (4, 11, 12, 18, 19, 21)
+SEMI_MESH_QIDS = (4, 18, 21, 11)
+SEMI_JOIN_QIDS = (4, 18, 21)
 
 Q1_DOUBLE = """select l_returnflag, l_linestatus,
        sum(cast(l_quantity as double)), sum(cast(l_extendedprice as double)),
@@ -473,6 +490,146 @@ def run_mesh_path(capture: dict) -> dict:
     return {"launches": launches}
 
 
+# -- phase 5b: semi joins, cross joins and the conditional forms ---------------
+
+
+def _in_semi_join() -> bool:
+    """Whether the running sorted-probe call comes from a mesh semi join:
+    the frame that called the mesh's probe search (the `search` closure of
+    `StageExecutor._probe_search`) is a `_x_SemiJoinNode` closure.  The
+    walk up the stack finds the search by its qualified name (Python 3.11
+    or later), not by a fixed depth.  Should the port's calls change shape
+    so that no semi-join caller is found, phase 5b's check that every mesh
+    run of a semi-join query launches the kernel from a semi join fails."""
+    frame = sys._getframe(1)
+    search = "_probe_search.<locals>"
+    while frame is not None and search not in frame.f_code.co_qualname:
+        frame = frame.f_back
+    while frame is not None and search in frame.f_code.co_qualname:
+        frame = frame.f_back
+    return frame is not None and "_x_SemiJoinNode.<locals>" in frame.f_code.co_qualname
+
+
+def semi_recording_probe(record: dict):
+    """A stand-in for the mesh's call of the sorted-probe wrapper that
+    passes every call through (the wrapper alone counts the launch) and
+    counts the launches made from a semi join in record["semi"].  While
+    record["keep"] is set it also notes each semi-join launch's P, n_match
+    (a host read) and cap_b in record["launches"], and keeps copies of the
+    inputs of the largest launch and of the smallest-n_match one."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+
+    kernel = mesh_runner.locate_sorted
+
+    def recording(build, n_match, probe, nomatch, cap_b):
+        out = kernel(build, n_match, probe, nomatch, cap_b=cap_b)
+        if not _in_semi_join():
+            return out
+        record["semi"] = record.get("semi", 0) + 1
+        if record.get("keep"):
+            nm = int(n_match)
+            inputs = (build.clone(), n_match.clone(), probe.clone(), nomatch.clone(), cap_b)
+            record.setdefault("launches", []).append(
+                (record.get("query"), probe.shape[0], build.shape[0], cap_b, nm)
+            )
+            size = probe.shape[0] * max(build.shape[0], 1)
+            if size > record.get("largest_size", -1):
+                record.update(largest_size=size, largest=inputs)
+            if nm < record.get("min_n_match", math.inf):
+                record.update(min_n_match=nm, smallest=inputs)
+        return out
+
+    return kernel, recording
+
+
+def run_semi_cross_path(record: dict) -> dict:
+    """Phase 5b: the six queries through the local runner on the card and
+    four of them on the 4-worker mesh, cold and warm, each checked against
+    the port's CPU run at sf1.  `record` receives the semi-join launches'
+    shapes and the inputs phase 6 checks the kernel on."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    runs = [(f"q{q}_local", q, local) for q in SEMI_LOCAL_QIDS]
+    runs += [(f"q{q}_mesh", q, mesh) for q in SEMI_MESH_QIDS]
+    kernel, recording = semi_recording_probe(record)
+    results = {}
+    mesh_runner.locate_sorted = recording
+    ls.locate_sorted.launches = 0  # every kernel count, just before the path
+    try:
+        for name, q, r in runs:
+            walls = []
+            for attempt in ("cold", "warm", "warm"):
+                before = ls.locate_sorted.launches
+                semi_before = record.get("semi", 0)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = r.execute(QUERIES[q])  # rows come back to the host
+                wall = time.perf_counter() - t0
+                walls.append(wall)
+                semi = record.get("semi", 0) - semi_before
+                if r is mesh and q in SEMI_JOIN_QIDS and semi == 0:
+                    raise AssertionError(f"{name} {attempt}: no semi-join locate_sorted launch")
+                ex = getattr(r, "last_stage_executor", None)
+                log(
+                    f"{name} {attempt}: wall_s={wall!r} "
+                    f"lineitem_rows_per_s={LINEITEM_SF1_ROWS / wall!r} "
+                    f"locate_sorted_launches={ls.locate_sorted.launches - before} "
+                    f"semi_join_launches={semi} "
+                    f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                    f"memory_allocated_after={torch.cuda.memory_allocated()} "
+                    f"rows={len(res.rows)}"
+                    + ("" if ex is None or r is not mesh else f" mesh_events={ex.counters}")
+                )
+            results[name] = (q, res, walls[0], min(walls[1:]))
+        for q in (18, 21):
+            profile_warm(f"q{q}_mesh", mesh, QUERIES[q])
+    finally:
+        mesh_runner.locate_sorted = kernel
+    launches = ls.locate_sorted.launches  # read just after the path
+    record["semi_path"] = record.get("semi", 0)
+    log(f"semi/cross path: locate_sorted launches={launches} "
+        f"from semi joins={record['semi_path']}")
+    if launches <= 0:
+        raise AssertionError("the semi/cross path never launched locate_sorted")
+    # untimed, after the count was read: every semi-join launch's shape, and
+    # the inputs phase 6 checks the kernel on
+    mesh_runner.locate_sorted = recording
+    record["keep"] = True
+    try:
+        for q in SEMI_JOIN_QIDS:
+            record["query"] = f"q{q}"
+            mesh.execute(QUERIES[q])
+    finally:
+        mesh_runner.locate_sorted = kernel
+        record["keep"] = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for query, p, rows, cap_b, nm in record.get("launches", []):
+        log(f"semi-join launch {query}: P={p} build_rows={rows} cap_b={cap_b} "
+            f"n_match={nm} S={ls.launch_plan(max(cap_b, rows), p, sms)['s']}")
+    for name, (q, res, cold, warm) in results.items():
+        log(f"{name}: cold_s={cold!r} warm_s={warm!r} "
+            f"lineitem_rows_per_s={LINEITEM_SF1_ROWS / warm!r}")
+    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    for q in SEMI_LOCAL_QIDS:
+        t0 = time.perf_counter()
+        expected = cpu.execute(QUERIES[q])
+        cpu_s = time.perf_counter() - t0
+        if not expected.rows:
+            raise AssertionError(f"q{q}: the CPU reference returned no rows")
+        for name in (f"q{q}_local", f"q{q}_mesh"):
+            if name in results:
+                rows_match(results[name][1].rows, expected.rows, float_rtol=DOUBLE_RTOL)
+        log(f"q{q}: local{' and mesh' if q in SEMI_MESH_QIDS else ''} match the CPU run "
+            f"({len(expected.rows)} rows, cpu wall_s={cpu_s!r}); first row {expected.rows[0]}")
+    return {"launches": launches}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -530,13 +687,33 @@ def probe_edge_inputs(dev):
     return out
 
 
-def check_locate_sorted(dev, capture: dict) -> dict:
+def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
+    """(bound_ms, bound_by, bytes) of one sorted-probe call: every nomatch
+    flag read and start/count written once, the probe key of live rows only
+    (a nomatch row's key is never read), and min(n_match, live) keys of the
+    sorted prefix (each live row needs a build key at its bound, and no key
+    is needed twice: a prefix longer than the live rows is not read whole);
+    against two binary searches of ceil(log2(n_match + 1)) compares per
+    live row."""
+    n = int(n_match)
+    live = int((~nomatch).sum())
+    nbytes = probe.shape[0] * (1 + 16) + live * 8 + min(n, live) * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = live * 2 * max(1, (n + 1).bit_length()) / F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes
+
+
+def check_locate_sorted(dev, capture: dict, semi: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
         raise AssertionError("no sorted-probe launch was captured on the mesh path")
+    if "largest" not in semi or "smallest" not in semi:
+        raise AssertionError("no semi-join sorted-probe launch was captured")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
-    cases = [("main", build, n_match, probe, nomatch, cap_b)] + probe_edge_inputs(dev)
+    cases = [("main", build, n_match, probe, nomatch, cap_b)]
+    cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
+    cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
         torch.cuda.synchronize()
@@ -548,10 +725,28 @@ def check_locate_sorted(dev, capture: dict) -> dict:
             f"n_match={int(nm)} S={ls.launch_plan(max(cb, b.shape[0]), p.shape[0], 132)['s']} "
             f"matched_rows={int((count > 0).sum())} max_run={int(count.max())} bit-exact ok")
 
-    n = int(n_match)
-    p_rows = probe.shape[0]
-    plain_ms = cuda_ms(lambda: ls.locate_sorted_reference(build, n_match, probe, nomatch, cap_b=cap_b))
-    prefix = build[:n]
+    main = time_probe_inputs("main", dev, capture["inputs"])
+    semi_largest = time_probe_inputs("semi_largest", dev, semi["largest"])
+    keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {
+        "name": "locate_sorted",
+        "route": "cuda",
+        "source": "trino_tpu_torch/csrc/locate_sorted.cu",
+        "replaces": "trino_tpu/ops/pallas_probe.py:66",
+        "max_abs_err": 0,
+        **{k: main[k] for k in keys},
+        "semi_join_inputs": semi_largest,
+    }
+
+
+def time_probe_inputs(name: str, dev, inputs) -> dict:
+    """The kernel (back to back and L2-flushed), its plain version, the
+    torch.searchsorted yardstick (first checked against the plain version)
+    and the bound at one launch's inputs."""
+    from trino_tpu_torch.ops import locate_sorted as ls
+
+    build, n_match, probe, nomatch, cap_b = inputs
+    prefix = build[: int(n_match)]
     probe64 = probe.to(torch.int64)
 
     def library():
@@ -562,41 +757,33 @@ def check_locate_sorted(dev, capture: dict) -> dict:
     lib_start, lib_count = library()
     rs, rc = ls.locate_sorted_reference(build, n_match, probe, nomatch, cap_b=cap_b)
     if not (torch.equal(lib_start, rs) and torch.equal(lib_count, rc)):
-        raise AssertionError("the searchsorted yardstick disagrees with the plain version")
-    library_ms = cuda_ms(library)
-    live = int((~nomatch).sum())
-    # every nomatch flag read and start/count written once, the probe key of
-    # live rows only (a nomatch row's key is never read), the sorted prefix
-    # of the build plane read once
-    nbytes = p_rows * (1 + 16) + live * 8 + n * 8
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    # two binary searches of ceil(log2(n_match + 1)) compares per live row
-    ops_ms = live * 2 * max(1, (n + 1).bit_length()) / F32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+        raise AssertionError(f"{name}: the searchsorted yardstick disagrees with the plain version")
+    bound_ms, bound_by, nbytes = locate_sorted_bound(build, n_match, probe, nomatch)
     times = time_kernel(
-        "locate_sorted main",
+        f"locate_sorted {name}",
         lambda: ls.locate_sorted(build, n_match, probe, nomatch, cap_b=cap_b),
         bound_ms,
     )
-    log(
-        f"locate_sorted main: P={p_rows} live={live} build={build.shape[0]} n_match={n} "
-        f"plan={ls.launch_plan(cap_b, p_rows, torch.cuda.get_device_properties(dev).multi_processor_count)} "
-        f"plain_ms={plain_ms!r} "
-        f"library_ms={library_ms!r} (torch.searchsorted lower+upper, masked) "
-        f"bound_ms={bound_ms!r} ({nbytes} bytes)"
-    )
-    return {
-        "name": "locate_sorted",
-        "route": "cuda",
-        "source": "trino_tpu_torch/csrc/locate_sorted.cu",
-        "replaces": "trino_tpu/ops/pallas_probe.py:66",
-        "max_abs_err": 0,
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ls.launch_plan(max(cap_b, build.shape[0]), probe.shape[0], sms)
+    out = {
         **times,
-        "plain_ms": plain_ms,
+        "plain_ms": cuda_ms(
+            lambda: ls.locate_sorted_reference(build, n_match, probe, nomatch, cap_b=cap_b)
+        ),
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "bound_by": bound_by,
+        "library_ms": cuda_ms(library),
+        "bytes": nbytes,
+        "p": probe.shape[0],
+        "live": int((~nomatch).sum()),
+        "build": build.shape[0],
+        "n_match": int(n_match),
+        "s": plan["s"],
     }
+    log(f"locate_sorted {name}: {out} plan={plan} "
+        f"(library: torch.searchsorted lower+upper, masked)")
+    return out
 
 
 def main() -> int:
@@ -628,8 +815,14 @@ def main() -> int:
     k1["launches"] = main_path["launches"]
     capture: dict = {}
     mesh_path = run_mesh_path(capture)
-    k2 = check_locate_sorted(dev, capture)
-    k2["launches"] = mesh_path["launches"]
+    semi: dict = {}
+    semi_path = run_semi_cross_path(semi)
+    k2 = check_locate_sorted(dev, capture, semi)
+    k2["launches"] = mesh_path["launches"] + semi_path["launches"]
+    k2["launches_by_path"] = {
+        "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
+        "semi_cross_from_semi_joins": semi["semi_path"],
+    }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)
     log(

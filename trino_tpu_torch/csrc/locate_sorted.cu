@@ -41,9 +41,10 @@
 //     the caller never synchronises with the card to learn it.
 //
 // Bound: the function must read P nomatch flags, the probe keys of the L
-// live rows and n_match * 8 bytes of build keys once, and write P * 16
-// bytes: P * 17 + L * 8 + n_match * 8 bytes, ~24.6 MB (7.3 us at 3.35 TB/s)
-// at the mesh Q3's largest launch.  A live row now costs ~13 shared-memory
+// live rows and min(n_match, L) build keys (each live row needs a key at
+// its bound, none twice) once, and write P * 16 bytes:
+// P * 17 + L * 8 + min(n_match, L) * 8 bytes, ~24.6 MB (7.3 us at
+// 3.35 TB/s) at the mesh Q3's largest launch.  A live row now costs ~13 shared-memory
 // loads and one or two L2 sector loads, against ~32 dependent L2 loads
 // before, so the kernel is meant to be bound by its streams of probe keys
 // and results, not by search latency.

@@ -7,8 +7,10 @@ eagerly over whole columns of one batch; dictionary-dependent parts
 
 Null semantics follow SQL three-valued logic: functions are null-in/null-out
 unless registered otherwise; AND is Kleene; filters keep rows where the
-predicate is TRUE (not null).  Ported special forms: AND, BETWEEN, CAST;
-the others raise NotImplementedError by name.
+predicate is TRUE (not null).  Ported special forms: AND and OR (Kleene),
+NOT, IS NULL, IF and searched CASE (limb planes for long decimals, merged
+dictionaries for varchar), COALESCE, NULLIF, IN, BETWEEN, CAST and TRY.
+ARRAY, SUBSCRIPT, ROW and DEREFERENCE raise NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
@@ -190,6 +193,173 @@ class ExprCompiler:
         valid = torch.logical_or(all_valid, any_false)
         return Val(value, valid, T.BOOLEAN)
 
+    def _form_or(self, f: SpecialForm) -> Val:
+        vals = [self.value(a) for a in f.args]
+        # Kleene OR over n terms: TRUE dominates, else NULL if any null
+        shp, dev = self.bshape(), self.device
+        value = torch.zeros(shp, dtype=torch.bool, device=dev)
+        any_true = torch.zeros(shp, dtype=torch.bool, device=dev)
+        all_valid = torch.ones(shp, dtype=torch.bool, device=dev)
+        for v in vals:
+            va = _valid_arr(v.valid, shp, dev)
+            d = self._bool(v, shp)
+            value = torch.logical_or(value, torch.where(va, d, False))
+            any_true = torch.logical_or(any_true, torch.logical_and(va, d))
+            all_valid = torch.logical_and(all_valid, va)
+        valid = torch.logical_or(all_valid, any_true)
+        return Val(value, valid, T.BOOLEAN)
+
+    def _form_not(self, f: SpecialForm) -> Val:
+        v = self.value(f.args[0])
+        return Val(torch.logical_not(v.data.to(torch.bool)), v.valid, T.BOOLEAN)
+
+    def _form_is_null(self, f: SpecialForm) -> Val:
+        # a row predicate: long decimals' [capacity, 2] limb planes carry
+        # per-row validity, so the row shape is kept
+        v = self.value(f.args[0])
+        return Val(
+            torch.logical_not(_valid_arr(v.valid, self.bshape(), self.device)),
+            None,
+            T.BOOLEAN,
+        )
+
+    def _cond_true(self, cond: Expr, shp) -> torch.Tensor:
+        """bool[shp]: the condition is TRUE (NULL counts as not taken)."""
+        c = self.value(cond)
+        return torch.logical_and(self._bool(c, shp), _valid_arr(c.valid, shp, self.device))
+
+    def _branch_data(self, v: Val, out_dict, out_type: T.Type, shp) -> torch.Tensor:
+        data = self._recode(v, out_dict).to(torch_dtype(out_type.np_dtype))
+        return torch.broadcast_to(data, shp)
+
+    def _long_planes(self, v: Val, scale: int, shp):
+        """(hi, lo) int64 limb planes of a value, broadcast to the row shape."""
+        from trino_tpu_torch.expr.functions import _to_planes
+
+        h, l = _to_planes(v, scale)
+        return (
+            torch.broadcast_to(h.to(torch.int64), shp),
+            torch.broadcast_to(l.to(torch.int64), shp),
+        )
+
+    def _form_if(self, f: SpecialForm) -> Val:
+        cond, then, els = f.args
+        return self._case_fold([(cond, then)], els, f.type)
+
+    def _form_case(self, f: SpecialForm) -> Val:
+        args = list(f.args)
+        default = args.pop() if len(args) % 2 == 1 else Literal(None, f.type)
+        pairs = [(args[i], args[i + 1]) for i in range(0, len(args), 2)]
+        return self._case_fold(pairs, default, f.type)
+
+    def _case_fold(self, pairs, default: Expr, out_type: T.Type) -> Val:
+        """Searched CASE as a right fold of selects: the first TRUE
+        condition's branch wins, the default where none is TRUE."""
+        shp, dev = self.bshape(), self.device
+        branches = [self.value(v) for _, v in pairs] + [self.value(default)]
+        if isinstance(out_type, T.DecimalType) and out_type.is_long:
+            return self._case_fold_long(pairs, branches, out_type, shp)
+        out_dict = self._merge_branch_dicts(branches, out_type)
+        acc = branches[-1]
+        acc_data = self._branch_data(acc, out_dict, out_type, shp)
+        acc_valid = _valid_arr(acc.valid, shp, dev)
+        for (cond_e, _), v in zip(reversed(pairs), reversed(branches[:-1])):
+            ctrue = self._cond_true(cond_e, shp)
+            acc_data = torch.where(
+                ctrue, self._branch_data(v, out_dict, out_type, shp), acc_data
+            )
+            acc_valid = torch.where(ctrue, _valid_arr(v.valid, shp, dev), acc_valid)
+        return Val(acc_data, acc_valid, out_type, out_dict)
+
+    def _case_fold_long(self, pairs, branches, out_type: T.Type, shp) -> Val:
+        """CASE/IF over long-decimal branches: select on limb planes."""
+        acc = branches[-1]
+        acc_h, acc_l = self._long_planes(acc, out_type.scale, shp)
+        acc_valid = _valid_arr(acc.valid, shp, self.device)
+        for (cond_e, _), v in zip(reversed(pairs), reversed(branches[:-1])):
+            ctrue = self._cond_true(cond_e, shp)
+            vh, vl = self._long_planes(v, out_type.scale, shp)
+            acc_h = torch.where(ctrue, vh, acc_h)
+            acc_l = torch.where(ctrue, vl, acc_l)
+            acc_valid = torch.where(ctrue, _valid_arr(v.valid, shp, self.device), acc_valid)
+        return Val(torch.stack([acc_h, acc_l], dim=-1), acc_valid, out_type)
+
+    def _merge_branch_dicts(self, vals, out_type):
+        """One dictionary for varchar branch results: the branches'
+        dictionaries merged (sorted union) when they differ."""
+        if not T.is_string_kind(out_type):
+            return None
+        dicts = [v.dictionary for v in vals if v.dictionary is not None]
+        if not dicts:
+            return None
+        merged = dicts[0]
+        for d in dicts[1:]:
+            if d is not merged and d != merged:
+                if len(merged) + len(d) > (1 << 20):
+                    # fail fast instead of letting an IF chain double its
+                    # dictionary into the gigabytes
+                    raise NotImplementedError(
+                        "string branch dictionary merge exceeds the "
+                        f"materialization bound ({len(merged)}+{len(d)})"
+                    )
+                merged = StringDictionary.from_unsorted(merged.values + d.values)
+        return merged
+
+    def _recode(self, v: Val, out_dict) -> torch.Tensor:
+        """A branch's codes in the merged dictionary's code space."""
+        if out_dict is None or v.dictionary is None or v.dictionary == out_dict:
+            return v.data
+        table = self.tensor(
+            np.fromiter(
+                (out_dict.index[x] for x in v.dictionary.values),
+                dtype=np.int32,
+                count=len(v.dictionary),
+            ),
+            torch.int32,
+        )
+        return table[v.data.to(torch.int64).clamp(0, table.shape[0] - 1)]
+
+    def _form_coalesce(self, f: SpecialForm) -> Val:
+        shp, dev = self.bshape(), self.device
+        vals = [self.value(a) for a in f.args]
+        if isinstance(f.type, T.DecimalType) and f.type.is_long:
+            # limb planes fold like _case_fold_long
+            acc = vals[-1]
+            acc_h, acc_l = self._long_planes(acc, f.type.scale, shp)
+            acc_valid = _valid_arr(acc.valid, shp, dev)
+            for v in reversed(vals[:-1]):
+                va = _valid_arr(v.valid, shp, dev)
+                vh, vl = self._long_planes(v, f.type.scale, shp)
+                acc_h = torch.where(va, vh, acc_h)
+                acc_l = torch.where(va, vl, acc_l)
+                acc_valid = torch.logical_or(va, acc_valid)
+            return Val(torch.stack([acc_h, acc_l], dim=-1), acc_valid, f.type)
+        out_dict = self._merge_branch_dicts(vals, f.type)
+        acc = vals[-1]
+        acc_data = self._branch_data(acc, out_dict, f.type, shp)
+        acc_valid = _valid_arr(acc.valid, shp, dev)
+        for v in reversed(vals[:-1]):
+            va = _valid_arr(v.valid, shp, dev)
+            acc_data = torch.where(va, self._branch_data(v, out_dict, f.type, shp), acc_data)
+            acc_valid = torch.logical_or(va, acc_valid)
+        return Val(acc_data, acc_valid, f.type, out_dict)
+
+    def _form_nullif(self, f: SpecialForm) -> Val:
+        a = self.value(f.args[0])
+        shp = self.bshape()
+        eq_true = self._cond_true(ir.comparison("=", f.args[0], f.args[1]), shp)
+        valid = torch.logical_and(
+            _valid_arr(a.valid, shp, self.device), torch.logical_not(eq_true)
+        )
+        return Val(a.data, valid, f.type, a.dictionary)
+
+    def _form_in(self, f: SpecialForm) -> Val:
+        # an OR of equalities: a string literal absent from the column's
+        # dictionary compares as a code no row carries
+        value, *items = f.args
+        eqs = [ir.comparison("=", value, it) for it in items]
+        return self._form_or(SpecialForm(Form.OR, eqs, T.BOOLEAN))
+
     def _form_between(self, f: SpecialForm) -> Val:
         v, lo, hi = f.args
         return self._form_and(
@@ -204,3 +374,9 @@ class ExprCompiler:
         from trino_tpu_torch.expr.functions import compile_cast
 
         return compile_cast(self, self.value(f.args[0]), f.type)
+
+    def _form_try(self, f: SpecialForm) -> Val:
+        # device arithmetic never traps: TRY is the identity, with the
+        # null-on-error semantics folded into the ops (division by zero
+        # gives NULL)
+        return self.value(f.args[0])

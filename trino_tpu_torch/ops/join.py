@@ -17,8 +17,9 @@ dictionaries, whose codes are not directly comparable.  The probe codes are
 recoded into the build dictionary's code space through a cached int32 table
 (absent values -> -1, which never equals a build code).
 
-The semi join (IN / EXISTS) and the nested-loop (cross) join are not ported
-yet; constructing either raises.
+The semi join (IN / EXISTS marks, with an optional residual for correlated
+EXISTS) shares the sorted build and its search; the nested-loop (cross)
+join reuses the cumsum expansion with a constant count per probe row.
 """
 
 from __future__ import annotations
@@ -586,14 +587,134 @@ class HashJoinOperator(_SortedBuildJoinBase):
 
 
 class NestedLoopJoinOperator:
-    """Cross join: not ported yet."""
+    """Cross join (reference: NestedLoopJoinOperator.java): every probe row x
+    every build row, through the same cumsum expansion with a constant
+    count per live probe row.  One host read per probe batch (its live
+    count) sizes the output; the probe rows stay on the device."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("nested-loop (cross) join: not ported yet")
+    def __init__(self, build_types: Sequence[T.Type]):
+        self.build_types = list(build_types)
+        self.build: Optional[Batch] = None
+        self._nb = 0
+
+    def set_build(self, batches: list, device) -> None:
+        self.build, self._nb = _dense_build(batches, self.build_types, device)
+
+    def _expand(self, probe: Batch, build: Batch, out_cap: int, nb: int, total_emit):
+        emit = torch.where(probe.mask(), nb, 0)
+        ids, j = _expand_ids(emit, out_cap)
+        out_live = (
+            torch.arange(out_cap, dtype=torch.int64, device=emit.device) < total_emit
+        )
+        build_row = torch.clamp(j, 0, build.capacity - 1)
+        pcols = [_take(c, ids) for c in probe.columns]
+        bcols = [_take(c, build_row) for c in build.columns]
+        return Batch(list(pcols) + list(bcols), out_live)
+
+    def process(self, stream):
+        assert self.build is not None, "set_build() before process()"
+        for probe in stream:
+            if self._nb == 0:
+                continue
+            total = probe.num_rows_host() * self._nb
+            out_cap = next_pow2(max(total, 1), floor=1024)
+            yield self._expand(
+                probe, self.build, out_cap=out_cap, nb=self._nb, total_emit=total
+            )
 
 
-class SemiJoinOperator:
-    """Semi join (IN / EXISTS marks): not ported yet."""
+class SemiJoinOperator(_SortedBuildJoinBase):
+    """Appends a boolean `mark` column: source key in the filtering side's
+    keys.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("semi join: not ported yet")
+    null_aware=True gives SQL IN null semantics: the mark is NULL when the
+    source key is NULL, or when it has no match and the filtering side
+    holds a NULL (reference: HashSemiJoinOperator + SetBuilderOperator's
+    containsNull handling).  As in the JAX package, a NULL key over an
+    empty filtering side is marked NULL too.  null_aware=False is EXISTS:
+    a plain boolean.
+
+    `residual`: optional fn(candidate Batch: source ++ filtering columns)
+    -> bool mask, the correlated EXISTS conjuncts (TPC-H Q21's
+    l2.l_suppkey <> l1.l_suppkey); a row is marked iff some key-matching
+    filtering row also passes the residual.
+    """
+
+    def __init__(
+        self,
+        source_key_channel: int,
+        filtering_key_channel: int,
+        filtering_types: Sequence[T.Type],
+        null_aware: bool = True,
+        residual=None,
+    ):
+        super().__init__([source_key_channel], [filtering_key_channel])
+        self.filtering_types = list(filtering_types)
+        self.null_aware = null_aware
+        self.residual = residual
+        self._filter_has_null = False
+
+    def set_build(self, batches: list, device) -> None:
+        build, _ = _dense_build(batches, self.filtering_types, device)
+        col = build.columns[self.build_keys[0]]
+        if col.valid is not None:
+            self._filter_has_null = bool(
+                torch.logical_and(build.mask(), torch.logical_not(col.valid)).any()
+            )
+        self._index_build(build)
+
+    def _mark_from_matched(self, probe: Batch, matched, has_null: bool) -> Batch:
+        key = probe.columns[self.probe_keys[0]]
+        key_valid = (
+            key.valid if key.valid is not None
+            else torch.ones(probe.capacity, dtype=torch.bool, device=matched.device)
+        )
+        if not self.null_aware:
+            mark_valid = None
+        elif has_null:
+            mark_valid = torch.logical_and(key_valid, matched)
+        else:
+            mark_valid = key_valid
+        mark = Column(matched, T.BOOLEAN, mark_valid)
+        return Batch(list(probe.columns) + [mark], probe.row_mask)
+
+    def _mark_step(self, probe: Batch, count, has_null: bool) -> Batch:
+        return self._mark_from_matched(probe, count > 0, has_null)
+
+    def _mark_residual_step(
+        self, probe: Batch, build: Batch, start, count,
+        cap_b: int, out_cap: int, total_emit, has_null: bool,
+    ) -> Batch:
+        """Expand the key-matching candidate pairs, apply the residual, and
+        scatter a matched flag back to each probe row."""
+        ids, j = _expand_ids(count, out_cap)
+        dev = count.device
+        in_range = torch.logical_and(
+            j < count[ids],
+            torch.arange(out_cap, dtype=torch.int64, device=dev) < total_emit,
+        )
+        build_row = torch.clamp(start[ids] + j, 0, cap_b - 1)
+        pcols = [_take(c, ids) for c in probe.columns]
+        bcols = [_take(c, build_row, in_range) for c in build.columns]
+        candidate = Batch(list(pcols) + list(bcols), in_range)
+        keep = torch.logical_and(in_range, self.residual(candidate))
+        surv = torch.zeros(
+            probe.capacity, dtype=torch.int64, device=dev
+        ).index_add_(0, ids, keep.to(torch.int64))
+        return self._mark_from_matched(probe, surv > 0, has_null)
+
+    def process(self, stream):
+        assert self.build is not None, "set_build() before process()"
+        cap_b = self.build.capacity
+        for probe in stream:
+            start, count = self._locate_batch(probe)
+            if self.residual is None:
+                yield self._mark_step(probe, count, self._filter_has_null)
+                continue
+            total = int(count.sum())
+            out_cap = next_pow2(max(total, 1), floor=1024)
+            yield self._mark_residual_step(
+                probe, self.build, start, count,
+                cap_b=cap_b, out_cap=out_cap, total_emit=total,
+                has_null=self._filter_has_null,
+            )

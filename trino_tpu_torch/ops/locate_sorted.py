@@ -28,8 +28,9 @@ On the card `locate_sorted` launches the CUDA C++ kernel in
     `launch_plan` picks S, the shared memory and the grid from `cap_b`.
   * Bound: memory — P nomatch flags and the keys of the L live rows read
     (P + 8 L bytes: the function need not read a nomatch row's key), P * 16 written,
-    plus n_match * 8 bytes of build keys once (24.6 MB at the mesh Q3's
-    largest launch: 7.3 us at 3.35 TB/s).
+    plus min(n_match, L) * 8 bytes of build keys once (each live row needs a
+    key at its bound; 24.6 MB at the mesh Q3's largest launch: 7.3 us at
+    3.35 TB/s).
 
 On a CPU tensor it runs `locate_sorted_reference`, the plain PyTorch
 version (the port's `ops.join._locate_sorted` over one plane, the

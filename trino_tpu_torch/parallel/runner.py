@@ -30,10 +30,18 @@ On the CPU `pallas_probe` decides, as in the JAX package: on, the kernel
 module's plain version; off, `_locate_sorted`.  The property stays
 accepted, and stays in the join's capacity-history key, for parity.
 
+The mesh semi join (`_x_SemiJoinNode`) broadcasts the filtering side and
+marks each source shard against it; a semi join with a residual
+(correlated EXISTS) expands the key-matching pairs per shard instead, over
+the connector's aligned splits or, once either side has moved, both sides
+hash-placed on the key.  Both take the same probe search as the join
+(`_probe_search`), so K2 runs in every K2-eligible mesh semi join on the
+card.  A cross join runs in the coordinator's local engine.
+
 Not ported (each raises NotImplementedError when a session asks for it):
 fault tolerance and task retries, memory-budget waves, bucketed table
-layouts, the semi join, window, unnest and mark-distinct nodes, DISTINCT and
-holistic aggregates on the mesh, `resize_mesh`, membership heartbeats,
+layouts, window, unnest and mark-distinct nodes, DISTINCT and holistic
+aggregates on the mesh, `resize_mesh`, membership heartbeats,
 prewarm, the per-fragment profile and the compile observatory.  The
 collective-schedule license (verify/schedule.py) is not ported either: the
 executor dispatches strictly lazily, which the JAX package defines as the
@@ -57,6 +65,7 @@ from trino_tpu_torch.ops.common import SortKey, next_pow2
 from trino_tpu_torch.ops.filter_project import FilterProjectOperator
 from trino_tpu_torch.ops.join import (
     HashJoinOperator,
+    SemiJoinOperator,
     _canon_probe_device,
     _locate_sorted,
     _sort_build_device,
@@ -113,16 +122,21 @@ class _Dist:
     worker.  `cap` tracks the trailing row capacity through deferred
     shape-changing steps.  `placements` carries the partitioning property
     (symbol-name tuples the rows are exchange-hash-placed on), so a
-    repartition of already-placed data is elided."""
+    repartition of already-placed data is elided.  `realigned` records that
+    rows were moved off the connector's default split alignment (an
+    exchange, a partitioned join, a host re-stack): the residual semi join
+    marks per shard only while both sides keep that alignment."""
 
     def __init__(self, stacked: Batch, symbols: list, ex=None, pending=(),
-                 cap: Optional[int] = None, placements: tuple = ()):
+                 cap: Optional[int] = None, placements: tuple = (),
+                 realigned: bool = False):
         self._stacked = stacked
         self.symbols = list(symbols)
         self.ex = ex
         self.pending = list(pending)
         self.cap = cap if cap is not None else trailing_cap(stacked)
         self.placements = tuple(placements)
+        self.realigned = realigned
 
     @property
     def stacked(self) -> Batch:
@@ -146,6 +160,7 @@ class _Dist:
             self.pending + [(key_part, step)],
             cap if cap is not None else self.cap,
             placements,
+            self.realigned,
         )
 
     def channel(self, name: str) -> int:
@@ -274,8 +289,11 @@ class StageExecutor:
         out = [v.cpu().numpy() for v in vals]
         return out if len(out) > 1 else out[0]
 
-    def _dist(self, stacked: Batch, symbols: list, placements: tuple = ()) -> _Dist:
-        return _Dist(stacked, symbols, ex=self, placements=placements)
+    def _dist(self, stacked: Batch, symbols: list, placements: tuple = (),
+              realigned: bool = False) -> _Dist:
+        return _Dist(
+            stacked, symbols, ex=self, placements=placements, realigned=realigned
+        )
 
     def _run_chain(self, stacked: Batch, pending: list) -> Batch:
         """Run a deferred step chain once per worker."""
@@ -509,7 +527,7 @@ class StageExecutor:
             bs = stacked.stacked
             if trailing_cap(bs) > 64:
                 bs = self._compact_live(bs, "broadcast_compact")
-            return self._dist(ex.broadcast(bs, self.wm), stacked.symbols)
+            return self._dist(ex.broadcast(bs, self.wm), stacked.symbols, realigned=True)
         if node.exchange_kind == "repartition":
             names = tuple(s.name for s in node.partition_symbols)
             # runtime exchange elision: the producing fragment's output is
@@ -535,7 +553,7 @@ class StageExecutor:
         stacked = stack_batches([host] + [None] * (self.wm.n - 1), self.wm)
         # a coordinator batch re-entered the mesh mid-query
         self.bump("host_restack")
-        return self._dist(stacked, result.symbols)
+        return self._dist(stacked, result.symbols, realigned=True)
 
     # -- distributed node execution -------------------------------------------
 
@@ -762,7 +780,8 @@ class StageExecutor:
         )
         return self._dist(
             out, node.outputs,
-            placements=((tuple(s.name for s in node.group_symbols),))
+            placements=((tuple(s.name for s in node.group_symbols),)),
+            realigned=True,
         )
 
     def _colocated_agg(self, node: P.AggregationNode, src: _Dist) -> _Dist:
@@ -907,10 +926,10 @@ class StageExecutor:
             residual=residual,
         )
         cap_b = trailing_cap(build_stacked)
+        search, use_kernel = self._probe_search()
         jkey = (
             node.kind, tuple(pk), tuple(bk), cap_b,
-            _sig(probe.symbols), _sig(build.symbols), residual_key,
-            bool(self.properties.get("pallas_probe")),
+            _sig(probe.symbols), _sig(build.symbols), residual_key, use_kernel,
         )
         # capacity-history discriminator: two queries can share the join
         # signature while filtering the probe differently
@@ -918,7 +937,7 @@ class StageExecutor:
         probe_stacked = probe.stacked
         probe_types = [s.type for s in probe.symbols]
         locate, device_emit_total, expand = self._join_step_fns(
-            node, op, pk, bk, cap_b, probe_types
+            node, op, pk, bk, cap_b, probe_types, search
         )
         # proof-licensed capacity: a certificate sealed for THIS mesh width
         # licenses a fixed expand capacity; anything else takes the runtime
@@ -936,12 +955,31 @@ class StageExecutor:
             out, out_symbols,
             placements=join_output_placements(
                 probe.placements, node.criteria, node.kind
-            )
+            ),
+            realigned=probe.realigned or node.distribution != "broadcast",
         )
 
-    def _join_step_fns(self, node, op, pk, bk, cap_b: int, probe_types):
+    def _probe_search(self):
+        """(search, use_kernel): the mesh's probe search over one worker's
+        sorted build shard, fn(build canon, n_match, probe canon, probe
+        nomatch, cap_b) -> (start, count), and the `pallas_probe` value it
+        captured.  A single integer key plane per side takes the
+        sorted-probe kernel (ops/locate_sorted.py): on the card the
+        hand-written CUDA kernel, always; on the CPU its plain version, under
+        `pallas_probe`.  Other keys take `_locate_sorted`.  Every closure
+        that captures `search` keys its step cache on `use_kernel`."""
+        use_kernel = bool(self.properties.get("pallas_probe"))
+
+        def search(canon, n_match, pc, pn, cap_b: int):
+            if (use_kernel or pn.is_cuda) and probe_kernel_eligible(canon, pc):
+                return locate_sorted(canon[0], n_match, pc[0], pn, cap_b=cap_b)
+            return _locate_sorted(canon, n_match, pc, pn, cap_b=cap_b)
+
+        return search, use_kernel
+
+    def _join_step_fns(self, node, op, pk, bk, cap_b: int, probe_types, search):
         """(locate, device_emit_total, expand) per-worker closures for one
-        build capacity."""
+        build capacity; `search` is `_probe_search`'s."""
 
         def device_emit_total(pb: Batch, count):
             """Per-worker emitted-row total, on the device."""
@@ -953,20 +991,12 @@ class StageExecutor:
             )
             return emit.sum(dtype=torch.int64)
 
-        use_kernel = bool(self.properties.get("pallas_probe"))
-
         def locate(pb: Batch, bb: Batch):
             # per-shard PagesHash analog: sort THIS shard's build once, then
             # binary-search the probe keys against it
             sb, canon, n_match = _sort_build_device(bb, bk)
             pc, pn = _canon_probe_device(pb, pk, canon)
-            if (use_kernel or pn.is_cuda) and probe_kernel_eligible(canon, pc):
-                # the sorted-probe kernel (ops/locate_sorted.py): on the
-                # card a hand-written CUDA kernel, always; on the CPU its
-                # plain version, under pallas_probe
-                start, count = locate_sorted(canon[0], n_match, pc[0], pn, cap_b=cap_b)
-            else:
-                start, count = _locate_sorted(canon, n_match, pc, pn, cap_b=cap_b)
+            start, count = search(canon, n_match, pc, pn, cap_b)
             return sb, start, count
 
         def expand(pb: Batch, sb: Batch, start, count, total, out_cap: int):
@@ -1145,13 +1175,132 @@ class StageExecutor:
                 )
         return out
 
+    def _x_SemiJoinNode(self, node: P.SemiJoinNode) -> _Dist:
+        """IN / EXISTS marks on the mesh.  Without a residual the filtering
+        side is broadcast and every worker marks its source shard against
+        the whole build; with one (correlated EXISTS) the candidate pairs
+        are expanded per shard, which needs key-matching rows co-located."""
+        if isinstance(node.source, RemoteSourceNode):
+            src = self._to_stacked(self._raw_remote(node.source))
+        else:
+            src = self._exec(node.source)
+        assert isinstance(node.filtering, RemoteSourceNode)
+        filt = self._to_stacked(self._raw_remote(node.filtering))
+        fk = [filt.channel(node.filtering_key.name)]
+        sk = [src.channel(node.source_key.name)]
+        src, filt = self._unify_key_dicts(src, sk, filt, fk)
+        sk, fk = sk[0], fk[0]
+        search, use_kernel = self._probe_search()
+        filtering_types = [s.type for s in filt.symbols]
+
+        def global_has_null(stacked: Batch) -> bool:
+            """Whether any worker's live filtering rows hold a NULL key: one
+            host read per semi join."""
+            fcol = stacked.columns[fk]
+            if fcol.valid is None:
+                return False
+            return bool(
+                self._host_pull(
+                    torch.logical_and(stacked.mask(), torch.logical_not(fcol.valid)).any()
+                )
+            )
+
+        if node.filter is not None:
+            expr = PhysicalPlan(iter(()), src.symbols + filt.symbols).rewrite(node.filter)
+
+            def residual(batch: Batch, _e=expr):
+                return ExprCompiler(batch).filter_mask(_e)
+
+            op = SemiJoinOperator(
+                sk, fk, filtering_types, null_aware=node.null_aware, residual=residual
+            )
+            # per-shard marking needs key-matching pairs co-located.  With
+            # no placements both sides keep the connector's aligned range
+            # splits (the JAX package's contract); once either side is
+            # hash-placed or has moved, every side that is not placed on
+            # exactly the key is hash-placed on it too
+            src_placed = any(t == (node.source_key.name,) for t in src.placements)
+            filt_placed = any(t == (node.filtering_key.name,) for t in filt.placements)
+            if self.colocate and (
+                src_placed or filt_placed or src.realigned or filt.realigned
+            ):
+                if src_placed:
+                    self.bump("exchange_elided")
+                else:
+                    src = self._repartition_side(src, [sk])
+                if filt_placed:
+                    self.bump("exchange_elided")
+                else:
+                    filt = self._repartition_side(filt, [fk])
+            filt_stacked = filt.stacked
+            has_null = global_has_null(filt_stacked)
+            cap_b = trailing_cap(filt_stacked)
+            skey = (
+                sk, fk, cap_b, node.null_aware, has_null, expr.key(),
+                _sig(src.symbols), _sig(filt.symbols), use_kernel,
+            )
+            src_fp = tuple(k for k, _ in src.pending)
+            src_stacked = src.stacked
+
+            def locate(pb: Batch, bb: Batch):
+                sb, canon, n_match = _sort_build_device(bb, [fk])
+                pc, pn = _canon_probe_device(pb, [sk], canon)
+                start, count = search(canon, n_match, pc, pn, cap_b)
+                return sb, start, count
+
+            def device_total(pb: Batch, count):
+                return count.sum(dtype=torch.int64)
+
+            def mark(pb: Batch, sb: Batch, start, count, total, out_cap: int):
+                return op._mark_residual_step(
+                    pb, sb, start, count, cap_b=cap_b, out_cap=out_cap,
+                    total_emit=total, has_null=has_null,
+                )
+
+            out = self._sized_expansion(
+                ("semi",) + skey, src_stacked, filt_stacked, locate,
+                device_total, mark, stats_key=("semi",) + skey + (src_fp,),
+            )
+            return self._dist(
+                out, src.symbols + [node.mark], placements=src.placements,
+                realigned=src.realigned,
+            )
+
+        op = SemiJoinOperator(sk, fk, filtering_types, null_aware=node.null_aware)
+        bcast = ex.broadcast(filt.stacked, self.wm)
+        self.bump("broadcast")
+        cap_b = trailing_cap(bcast)
+        has_null = global_has_null(bcast)
+
+        def build_mark():
+            def mark_step(pb: Batch, bb: Batch) -> Batch:
+                _, canon, n_match = _sort_build_device(bb, [fk])
+                pc, pn = _canon_probe_device(pb, [sk], canon)
+                _, count = search(canon, n_match, pc, pn, cap_b)
+                return op._mark_step(pb, count, has_null)
+
+            return mark_step
+
+        mark = cached_spmd_step(
+            self.wm,
+            ("semi_mark", sk, fk, cap_b, node.null_aware, has_null,
+             _sig(src.symbols), _sig(filt.symbols), use_kernel),
+            build_mark,
+        )
+        out = mark(src.stacked, bcast)
+        return self._dist(
+            out, src.symbols + [node.mark], placements=src.placements,
+            realigned=src.realigned,
+        )
+
     def _repartition_side(self, side: _Dist, chans: list) -> _Dist:
         """Hash-place one operand on `chans`."""
         stacked = ex.repartition(side.stacked, chans, self.wm)
         self.bump("repartition_collective")
         return self._dist(
             stacked, side.symbols,
-            placements=((tuple(side.symbols[c].name for c in chans),))
+            placements=((tuple(side.symbols[c].name for c in chans),)),
+            realigned=True,
         )
 
     # -- ordering / limiting (partial steps; merge happens at the exchange) ---

@@ -9,10 +9,11 @@ planner's device.
 Ported nodes: TableScan (with the dynamic filters join builds register),
 Values, Filter, Project, Aggregation (with the filter/projection fused into
 the aggregation's per-batch step), Join (inner, left, right as a flipped
-left, full), Sort, TopN, Limit and Output.  Any other node raises
-NotImplementedError naming it (the semi join and the cross join among
-them).  Memory budgets and their partition-wave machinery are not ported
-yet.
+left, full, and cross as a nested loop), SemiJoin (IN and EXISTS marks,
+with a residual over source ++ filtering symbols), Sort, TopN, Limit and
+Output.  Any other node raises NotImplementedError naming it (window,
+unnest and mark-distinct among them), as do DISTINCT aggregates.  Memory
+budgets and their partition-wave machinery are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +30,11 @@ from trino_tpu_torch.expr.ir import Expr, InputRef, Literal, SymbolRef, visit
 from trino_tpu_torch.ops.aggregation import AggregationOperator, AggSpec
 from trino_tpu_torch.ops.common import SortKey, next_pow2
 from trino_tpu_torch.ops.filter_project import FilterProjectOperator
-from trino_tpu_torch.ops.join import HashJoinOperator
+from trino_tpu_torch.ops.join import (
+    HashJoinOperator,
+    NestedLoopJoinOperator,
+    SemiJoinOperator,
+)
 from trino_tpu_torch.ops.scan import ScanOperator
 from trino_tpu_torch.ops.sort import LimitOperator, OrderByOperator, TopNOperator
 from trino_tpu_torch.ops.values import ValuesOperator
@@ -276,7 +281,11 @@ class LocalExecutionPlanner:
 
     def _visit_JoinNode(self, node: P.JoinNode) -> PhysicalPlan:
         if node.kind == "cross":
-            raise NotImplementedError("nested-loop (cross) join: not ported yet")
+            left = self.plan(node.left)
+            right = self.plan(node.right)
+            op = NestedLoopJoinOperator(right.types())
+            op.set_build(list(right.stream), self.device)
+            return PhysicalPlan(op.process(left.stream), left.symbols + right.symbols)
         if node.kind == "right":
             flipped = P.JoinNode(
                 "left", node.right, node.left,
@@ -326,8 +335,27 @@ class LocalExecutionPlanner:
         op.set_build(build_batches, self.device)
         return PhysicalPlan(op.process(probe.stream), out_symbols)
 
-    def _visit_SemiJoinNode(self, node) -> PhysicalPlan:
-        raise NotImplementedError("semi join: not ported yet")
+    def _visit_SemiJoinNode(self, node: P.SemiJoinNode) -> PhysicalPlan:
+        src = self.plan(node.source)
+        filt = self.plan(node.filtering)
+        residual = None
+        if node.filter is not None:
+            # correlated EXISTS conjuncts over source ++ filtering symbols
+            combined = PhysicalPlan(iter(()), src.symbols + filt.symbols)
+            res_expr = combined.rewrite(node.filter)
+
+            def residual(batch: Batch, _e=res_expr):
+                return ExprCompiler(batch).filter_mask(_e)
+
+        op = SemiJoinOperator(
+            src.channel(node.source_key.name),
+            filt.channel(node.filtering_key.name),
+            filt.types(),
+            null_aware=node.null_aware,
+            residual=residual,
+        )
+        op.set_build(list(filt.stream), self.device)
+        return PhysicalPlan(op.process(src.stream), src.symbols + [node.mark])
 
     # -- ordering -------------------------------------------------------------
 

@@ -38,6 +38,16 @@ catches nothing and never falls back to the CPU):
      each of the mesh Q18 and Q21; each launch's P, n_match and window S;
      every result is checked against the port's CPU LocalQueryRunner at sf1
      (the CPU reference's time printed);
+  5c. the scalar-function and DISTINCT path: TPC-H Q2, Q7, Q8, Q9, Q10, Q13,
+     Q14, Q15, Q16, Q17, Q20 and Q22 at sf1 through LocalQueryRunner on the
+     card and on the 4-worker mesh with default knobs, each cold and twice
+     warm, with wall time, rows/s, peak device memory and the sorted-probe
+     kernel's launches (every mesh run of a query with a sorted-probe join
+     must launch it); one profiled warm run each of the local Q13 and the
+     mesh Q9 and Q16; then, untimed, each mesh query's largest launch
+     (P, cap_b, n_match, S) and the host time of Q13's LIKE table with the
+     size of its dictionary; every result is checked against the port's CPU
+     LocalQueryRunner at sf1;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -48,11 +58,12 @@ catches nothing and never falls back to the CPU):
      kernel (back to back, and per launch with the L2 flushed), plain
      version, the torch.searchsorted yardstick and the bound; also bit-exact
      at the inputs of the largest and of the smallest-n_match semi-join
-     launch of phase 5b, and timed at the largest;
+     launch of phase 5b, and timed at the largest; bit-exact and timed at
+     the inputs of the largest launch of phase 5c;
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
-Tolerances: integers, decimals and strings exact.  Kernel sums: counts
+Tolerances: integers, decimals, dates and strings exact.  Kernel sums: counts
 exact, |kernel - plain| <= 5e-5 * (sum of |values| in the cell), the f32
 summation bound of the kernel (~530 sequential additions * 2**-24).  Q1 over
 DOUBLE with the f32 kernel against the CPU's f64 path: relative 5e-5 on
@@ -82,6 +93,12 @@ DOUBLE_RTOL = 1e-9
 SEMI_LOCAL_QIDS = (4, 11, 12, 18, 19, 21)
 SEMI_MESH_QIDS = (4, 18, 21, 11)
 SEMI_JOIN_QIDS = (4, 18, 21)
+#: phase 5c: the scalar-function and DISTINCT slice's queries, and Q10 and
+#: Q15 (ported earlier, first run on the card here), locally and on the mesh
+FUNC_QIDS = (2, 7, 8, 9, 10, 13, 14, 15, 16, 17, 20, 22)
+#: the phase 5c mesh queries that hold a join the sorted-probe kernel takes
+#: (Q22's only join is the cross join with its scalar subquery)
+FUNC_PROBE_QIDS = (2, 7, 8, 9, 10, 13, 14, 15, 16, 17, 20)
 
 Q1_DOUBLE = """select l_returnflag, l_linestatus,
        sum(cast(l_quantity as double)), sum(cast(l_extendedprice as double)),
@@ -630,6 +647,151 @@ def run_semi_cross_path(record: dict) -> dict:
     return {"launches": launches}
 
 
+# -- phase 5c: the scalar functions and DISTINCT aggregates ---------------------
+
+
+def shape_recording_probe(record: dict):
+    """A stand-in for the mesh's call of the sorted-probe wrapper that passes
+    every call through (the wrapper alone counts the launch), notes each
+    launch's (P, cap_b, n_match, S) under record["query"] in
+    record["shapes"], and keeps copies of the inputs of the largest launch
+    in record["largest"].  n_match is a host read, so it runs only in the
+    untimed capture runs."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch.ops import locate_sorted as ls
+
+    kernel = mesh_runner.locate_sorted
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def recording(build, n_match, probe, nomatch, cap_b):
+        out = kernel(build, n_match, probe, nomatch, cap_b=cap_b)
+        s = ls.launch_plan(max(cap_b, build.shape[0]), probe.shape[0], sms)["s"]
+        record.setdefault("shapes", {}).setdefault(record["query"], []).append(
+            (probe.shape[0], cap_b, int(n_match), s)
+        )
+        size = probe.shape[0] * max(build.shape[0], 1)
+        if size > record.get("largest_size", -1):
+            record.update(
+                largest_size=size, largest_query=record["query"],
+                largest=(build.clone(), n_match.clone(), probe.clone(),
+                         nomatch.clone(), cap_b),
+            )
+        return out
+
+    return kernel, recording
+
+
+def like_table_seconds(runner, sql: str) -> list:
+    """One untimed run of `sql` that times every LIKE/regexp table the host
+    builds over a dictionary: [(dictionary entries, seconds)]."""
+    from trino_tpu_torch.columnar.dictionary import StringDictionary
+
+    original = StringDictionary.predicate_table
+    calls = []
+
+    def timed(self, fn):
+        t0 = time.perf_counter()
+        out = original(self, fn)
+        calls.append((len(self), time.perf_counter() - t0))
+        return out
+
+    StringDictionary.predicate_table = timed
+    try:
+        runner.execute(sql)
+    finally:
+        StringDictionary.predicate_table = original
+    return calls
+
+
+def run_function_path(record: dict) -> dict:
+    """Phase 5c: the twelve queries through the local runner on the card and
+    on the 4-worker mesh, cold and warm, each checked against the port's
+    CPU run at sf1.  Every mesh run of a query with a sorted-probe join
+    must launch the kernel.  `record` receives each mesh query's launch
+    shapes (an untimed capture run per query, after the count was read)."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    runs = [(f"q{q}_local", q, local) for q in FUNC_QIDS]
+    runs += [(f"q{q}_mesh", q, mesh) for q in FUNC_QIDS]
+    results = {}
+    per_query = {}
+    ls.locate_sorted.launches = 0  # every kernel count, just before the path
+    for name, q, r in runs:
+        walls = []
+        for attempt in ("cold", "warm", "warm"):
+            before = ls.locate_sorted.launches
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = r.execute(QUERIES[q])  # rows come back to the host
+            wall = time.perf_counter() - t0
+            walls.append(wall)
+            launched = ls.locate_sorted.launches - before
+            if r is mesh:
+                per_query[q] = launched
+                if q in FUNC_PROBE_QIDS and launched == 0:
+                    raise AssertionError(f"{name} {attempt}: no locate_sorted launch")
+            log(
+                f"{name} {attempt}: wall_s={wall!r} "
+                f"lineitem_rows_per_s={LINEITEM_SF1_ROWS / wall!r} "
+                f"locate_sorted_launches={launched} "
+                f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                f"memory_allocated_after={torch.cuda.memory_allocated()} "
+                f"rows={len(res.rows)}"
+                + ("" if r is not mesh else f" mesh_events={r.last_stage_executor.counters}")
+            )
+        results[name] = (q, res, walls[0], min(walls[1:]))
+    profile_warm("q13_local", local, QUERIES[13])
+    for q in (9, 16):
+        profile_warm(f"q{q}_mesh", mesh, QUERIES[q])
+    launches = ls.locate_sorted.launches  # read just after the path
+    log(f"function/distinct path: locate_sorted launches={launches}")
+    if launches <= 0:
+        raise AssertionError("the function/distinct path never launched locate_sorted")
+    # untimed, after the count was read: each mesh query's launch shapes, and
+    # the host time of Q13's LIKE table
+    kernel, recording = shape_recording_probe(record)
+    mesh_runner.locate_sorted = recording
+    try:
+        for q in FUNC_PROBE_QIDS:
+            record["query"] = f"q{q}"
+            mesh.execute(QUERIES[q])
+    finally:
+        mesh_runner.locate_sorted = kernel
+    for q in FUNC_PROBE_QIDS:
+        shapes = record.get("shapes", {}).get(f"q{q}", [])
+        largest = max(shapes, key=lambda t: t[0] * max(t[1], 1), default=None)
+        log(f"q{q}_mesh sorted-probe launches={per_query[q]} "
+            f"largest (P, cap_b, n_match, S)={largest}")
+    for runner_name, r in (("local", local), ("mesh", mesh)):
+        calls = like_table_seconds(r, QUERIES[13])
+        log(f"q13 {runner_name} LIKE tables on the host: calls={len(calls)} "
+            f"dictionary_entries={[n for n, _ in calls]} "
+            f"seconds={sum(t for _, t in calls)!r}")
+        if not calls:
+            raise AssertionError("q13 built no LIKE table")
+    for name, (q, res, cold, warm) in results.items():
+        log(f"{name}: cold_s={cold!r} warm_s={warm!r} "
+            f"lineitem_rows_per_s={LINEITEM_SF1_ROWS / warm!r}")
+    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    for q in FUNC_QIDS:
+        t0 = time.perf_counter()
+        expected = cpu.execute(QUERIES[q])
+        cpu_s = time.perf_counter() - t0
+        if not expected.rows:
+            raise AssertionError(f"q{q}: the CPU reference returned no rows")
+        for name in (f"q{q}_local", f"q{q}_mesh"):
+            rows_match(results[name][1].rows, expected.rows, float_rtol=DOUBLE_RTOL)
+        log(f"q{q}: local and mesh match the CPU run ({len(expected.rows)} rows, "
+            f"cpu wall_s={cpu_s!r}); first row {expected.rows[0]}")
+    return {"launches": launches, "per_query": per_query}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -703,16 +865,19 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes
 
 
-def check_locate_sorted(dev, capture: dict, semi: dict) -> dict:
+def check_locate_sorted(dev, capture: dict, semi: dict, func: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
         raise AssertionError("no sorted-probe launch was captured on the mesh path")
     if "largest" not in semi or "smallest" not in semi:
         raise AssertionError("no semi-join sorted-probe launch was captured")
+    if "largest" not in func:
+        raise AssertionError("no sorted-probe launch was captured in phase 5c")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
+    cases += [(f"function_largest_{func['largest_query']}",) + func["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -727,6 +892,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict) -> dict:
 
     main = time_probe_inputs("main", dev, capture["inputs"])
     semi_largest = time_probe_inputs("semi_largest", dev, semi["largest"])
+    func_largest = time_probe_inputs("function_largest", dev, func["largest"])
+    func_largest["query"] = func["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -736,6 +903,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict) -> dict:
         "max_abs_err": 0,
         **{k: main[k] for k in keys},
         "semi_join_inputs": semi_largest,
+        "function_path_inputs": func_largest,
     }
 
 
@@ -817,11 +985,17 @@ def main() -> int:
     mesh_path = run_mesh_path(capture)
     semi: dict = {}
     semi_path = run_semi_cross_path(semi)
-    k2 = check_locate_sorted(dev, capture, semi)
-    k2["launches"] = mesh_path["launches"] + semi_path["launches"]
+    func: dict = {}
+    func_path = run_function_path(func)
+    k2 = check_locate_sorted(dev, capture, semi, func)
+    k2["launches"] = (
+        mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
+    )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
         "semi_cross_from_semi_joins": semi["semi_path"],
+        "functions_distinct": func_path["launches"],
+        "functions_distinct_per_mesh_query": func_path["per_query"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

@@ -249,18 +249,23 @@ def test_local_join_queries_match_jax(runners, name):
     same_rows(actual.rows, expected.rows, ordered)
 
 
-#: the pieces the remaining TPC-H queries need that the port still lacks:
-#: SQL -> the words the NotImplementedError must name
+#: pieces the port still lacks (every TPC-H query runs): SQL -> the words
+#: the NotImplementedError must name
 UNPORTED = {
-    "like": ("select count(*) from part where p_name like '%green%'", "like"),
-    "year": ("select year(o_orderdate) from orders", "year"),
-    "substring": ("select substring(c_phone, 1, 2) from customer", "substr"),
-    "long_decimal_division": (
-        "select sum(l_extendedprice) / 7.0 from lineitem", "long-decimal division"
+    "timestamp_function": (
+        "select year(cast(o_orderdate as timestamp)) from orders", "timestamp"
     ),
-    "distinct_aggregate": (
-        "select count(distinct o_custkey) from orders", "DISTINCT aggregates"
+    "mod_by_long_decimal": (
+        "select o_custkey % cast(o_totalprice as decimal(30,2)) from orders",
+        "mod by a long decimal",
     ),
+    "cast_column_to_varchar": (
+        "select cast(o_custkey as varchar) from orders", "varchar on columns"
+    ),
+    "holistic_aggregate": (
+        "select o_orderstatus, array_agg(o_custkey) from orders group by 1", "array_agg"
+    ),
+    "window": ("select rank() over (order by o_custkey) from orders", "Window"),
     "array_form": ("select array[1, 2]", "special form array"),
 }
 
@@ -268,8 +273,9 @@ UNPORTED = {
 @pytest.mark.parametrize("piece", list(UNPORTED))
 def test_unported_pieces_raise(runners, piece):
     """Each piece still unported raises NotImplementedError naming it,
-    never wrong rows (the semi and cross joins now run: see
-    test_torch_semi_cross.py)."""
+    never wrong rows (LIKE, year, substr, long-decimal division and
+    DISTINCT aggregates now run: see test_torch_functions.py and
+    test_torch_distinct.py)."""
     _, port_runner = runners
     sql, name = UNPORTED[piece]
     with pytest.raises(NotImplementedError, match=name):

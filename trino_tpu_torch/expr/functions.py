@@ -1,10 +1,18 @@
 """Scalar function library (reference: operator/scalar/* plus the per-type
 operators in type/*Operators.java).
 
-Port of the part of trino_tpu/expr/functions.py that the TPC-H Q1/Q6 path
-reaches: short- and long-decimal arithmetic and rescale, comparisons
-(numeric, date and dictionary-coded strings), date + days and numeric
-casts.  Every other function raises NotImplementedError by name.
+Port of trino_tpu/expr/functions.py up to its casts: short- and
+long-decimal arithmetic (division and modulus over int128 limbs, rounded
+half away from zero), comparisons (numeric, date and dictionary-coded
+strings), the numeric functions, the civil-date functions over DATE
+values, the dictionary string functions (LIKE, the regexp family, substr,
+the case/trim/replace maps, length, strpos, concat) and the cast family.
+String functions evaluate over the dictionary on the host and gather a
+table by code on the device; every gather clamps its codes first, as the
+JAX package's ``take(mode="clip")`` does, so a NULL row's code may be
+anything.  Timestamp and time-zone values, the string/url/math/bitwise
+breadth past the casts, ``concat_ws``, arrays and maps raise
+NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -15,9 +23,11 @@ import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
+from trino_tpu_torch.columnar import StringDictionary
 from trino_tpu_torch.columnar.column import torch_dtype
 from trino_tpu_torch.expr.compiler import ExprCompiler, Val, _and_valid
 from trino_tpu_torch.expr.ir import Call
+from trino_tpu_torch.expr.strings import like_prefix, like_to_regex
 
 FUNCTIONS: dict[str, Callable] = {}
 
@@ -227,7 +237,39 @@ def _div(ctx, call, a, b):
     rt = call.type
     sa, sb = _dec_scale(a.type), _dec_scale(b.type)
     if _is_long_dec(a.type) or _is_long_dec(b.type):
-        raise NotImplementedError("long-decimal division: not ported yet")
+        if _is_float(rt) or _is_float(b.type):
+            bz = _to_float(b) == 0.0
+            valid = _and_valid(valid, torch.logical_not(bz))
+            return Val(
+                _to_float(a) / torch.where(bz, 1.0, _to_float(b)), valid, T.DOUBLE
+            )
+        if _is_long_dec(b.type):
+            raise NotImplementedError("division by a long decimal")
+        from trino_tpu_torch.types import int128 as i128
+
+        out_scale = rt.scale if isinstance(rt, T.DecimalType) else 0
+        # numerator scaled so the quotient lands at out_scale (reference:
+        # Int128Math.divideRoundUp shift arithmetic)
+        h, l = _to_planes(a, out_scale + (sb or 0))
+        bd = _i64(b.data)
+        bz = bd == 0
+        valid = _and_valid(valid, torch.logical_not(bz))
+        den = torch.where(bz, 1, bd)
+        neg_d = den < 0
+        den_abs = den.abs()
+        qh, ql, r = i128.divmod128_by_vec(h, l, den_abs)
+        # round half away from zero: the remainder carries the dividend's sign
+        round_up = (2 * r.abs()) >= den_abs
+        neg_q = (h < 0) ^ neg_d
+        one = torch.ones_like(qh)
+        bump = torch.where(round_up, torch.where(neg_q, -one, one), 0)
+        nqh, nql = i128.neg128(qh, ql)
+        qh = torch.where(neg_d, nqh, qh)
+        ql = torch.where(neg_d, nql, ql)
+        qh, ql = i128.add128(qh, ql, bump >> 63, bump)
+        if isinstance(rt, T.DecimalType) and not rt.is_long:
+            return Val(ql, valid, rt)
+        return _planes_val(qh, ql, rt, valid)
     bzero = b.data == 0
     valid = _and_valid(valid, torch.logical_not(bzero))
     if _is_float(rt):
@@ -250,6 +292,42 @@ def _div(ctx, call, a, b):
     rem = ad - qf * bd
     adjust = torch.logical_and(rem != 0, (ad < 0) ^ (bd < 0)).to(torch.int64)
     return Val((qf + adjust).to(torch_dtype(rt.np_dtype)), valid, rt)
+
+
+@register("$mod")
+def _mod(ctx, call, a, b):
+    valid = _and_valid(a.valid, b.valid)
+    if _is_long_dec(a.type) or _is_long_dec(b.type) or _is_long_dec(call.type):
+        if _is_long_dec(b.type):
+            raise NotImplementedError("mod by a long decimal")
+        from trino_tpu_torch.types import int128 as i128
+
+        s = max(_dec_scale(a.type) or 0, _dec_scale(b.type) or 0)
+        h, l = _to_planes(a, s)
+        sb = _dec_scale(b.type) or 0
+        pb = b.type.precision if isinstance(b.type, T.DecimalType) else 19
+        if pb + (s - sb) > 18:
+            # the rescaled divisor could overflow i64 (static type bound)
+            raise NotImplementedError(
+                "mod with a divisor wider than 18 digits at the common scale"
+            )
+        bd = _i64(b.data) * (10 ** (s - sb))
+        bz = bd == 0
+        valid = _and_valid(valid, torch.logical_not(bz))
+        den = torch.where(bz, 1, bd).abs()
+        _, _, r = i128.divmod128_by_vec(h, l, den)  # sign follows the dividend
+        rt = call.type
+        out_s = rt.scale if isinstance(rt, T.DecimalType) else s
+        rh, rl = i128.rescale128(*i128.widen64(r), s, out_s)
+        if isinstance(rt, T.DecimalType) and rt.is_long:
+            return _planes_val(rh, rl, rt, valid)
+        return Val(rl, valid, rt)
+    bzero = b.data == 0
+    valid = _and_valid(valid, torch.logical_not(bzero))
+    ad, bd, _ = _align_numeric(a, b)
+    bd = torch.where(bzero, torch.ones_like(bd), bd)
+    # SQL mod: the sign follows the dividend
+    return Val(torch.sign(ad) * (ad.abs() % bd.abs()), valid, call.type)
 
 
 @register("$neg")
@@ -368,16 +446,623 @@ FUNCTIONS["$ge"] = _comparison("$ge", torch.ge)
 
 
 # ---------------------------------------------------------------------------
-# dates
+# math
+
+
+def _unary_float(fn):
+    def handler(ctx, call, a):
+        return Val(fn(_to_float(a)), a.valid, T.DOUBLE)
+
+    return handler
+
+
+FUNCTIONS["sqrt"] = _unary_float(torch.sqrt)
+FUNCTIONS["cbrt"] = _unary_float(lambda x: torch.sign(x) * x.abs().pow(1.0 / 3.0))
+FUNCTIONS["exp"] = _unary_float(torch.exp)
+FUNCTIONS["ln"] = _unary_float(torch.log)
+FUNCTIONS["log10"] = _unary_float(torch.log10)
+FUNCTIONS["log2"] = _unary_float(torch.log2)
+FUNCTIONS["sin"] = _unary_float(torch.sin)
+FUNCTIONS["cos"] = _unary_float(torch.cos)
+FUNCTIONS["tan"] = _unary_float(torch.tan)
+FUNCTIONS["degrees"] = _unary_float(torch.rad2deg)
+FUNCTIONS["radians"] = _unary_float(torch.deg2rad)
+FUNCTIONS["sign"] = lambda ctx, call, a: Val(torch.sign(a.data), a.valid, call.type)
+
+
+@register("abs")
+def _abs(ctx, call, a):
+    if _is_long_dec(a.type):
+        from trino_tpu_torch.types import int128 as i128
+
+        h, l = _to_planes(a, a.type.scale)
+        nh, nl = i128.neg128(h, l)
+        neg = h < 0
+        return _planes_val(
+            torch.where(neg, nh, h), torch.where(neg, nl, l), call.type, a.valid
+        )
+    return Val(a.data.abs(), a.valid, call.type)
+
+
+@register("power")
+@register("pow")
+def _power(ctx, call, a, b):
+    return Val(
+        torch.pow(_to_float(a), _to_float(b)), _and_valid(a.valid, b.valid), T.DOUBLE
+    )
+
+
+@register("mod")
+def _mod_fn(ctx, call, a, b):
+    return _mod(ctx, call, a, b)
+
+
+def _floor_ceil_long(a: Val, out_t: T.Type, is_ceil: bool) -> Val:
+    """floor/ceil of a long decimal to scale 0 over limb planes."""
+    from trino_tpu_torch.types import int128 as i128
+
+    h, l = _to_planes(a, a.type.scale)
+    qh, ql, any_r = i128.truncdiv_pow10(h, l, a.type.scale)
+    if is_ceil:
+        adj = torch.logical_and(any_r, h >= 0).to(torch.int64)
+    else:
+        adj = -torch.logical_and(any_r, h < 0).to(torch.int64)
+    qh, ql = i128.add128(qh, ql, adj >> 63, adj)
+    if isinstance(out_t, T.DecimalType) and out_t.is_long:
+        return _planes_val(qh, ql, out_t, a.valid)
+    return Val(ql, a.valid, out_t)
+
+
+def _floor_ceil(ctx, call, a, is_ceil: bool):
+    if _is_long_dec(a.type):
+        out_t = (
+            call.type
+            if isinstance(call.type, T.DecimalType)
+            else T.DecimalType(max(a.type.precision - a.type.scale, 19), 0)
+        )
+        return _floor_ceil_long(a, out_t, is_ceil)
+    if isinstance(a.type, T.DecimalType):
+        # integer // is floor division: exactly SQL floor to scale 0
+        d = _i64(a.data)
+        d = -((-d) // a.type.scale_factor) if is_ceil else d // a.type.scale_factor
+        return Val(d, a.valid, T.DecimalType(18, 0))
+    if _is_float(a.type):
+        f = _to_float(a)
+        return Val(torch.ceil(f) if is_ceil else torch.floor(f), a.valid, T.DOUBLE)
+    return a
+
+
+@register("floor")
+def _floor(ctx, call, a):
+    return _floor_ceil(ctx, call, a, is_ceil=False)
+
+
+@register("ceil")
+@register("ceiling")
+def _ceil(ctx, call, a):
+    return _floor_ceil(ctx, call, a, is_ceil=True)
+
+
+@register("round")
+def _round(ctx, call, a, nd=None):
+    digits = 0 if nd is None else int(nd.data)  # literal digits only
+    out_t = call.type
+    if _is_long_dec(a.type):
+        from trino_tpu_torch.types import int128 as i128
+
+        s = a.type.scale
+        h, l = _to_planes(a, s)
+        h, l = i128.rescale128(h, l, s, min(s, digits))  # round half away
+        out_s = out_t.scale if isinstance(out_t, T.DecimalType) else digits
+        h, l = i128.rescale128(h, l, min(s, digits), out_s)
+        if isinstance(out_t, T.DecimalType) and out_t.is_long:
+            return _planes_val(h, l, out_t, a.valid)
+        if not isinstance(out_t, T.DecimalType):
+            return _planes_val(h, l, T.DecimalType(19, out_s), a.valid)
+        return Val(l, a.valid, out_t)
+    if isinstance(a.type, T.DecimalType):
+        s = a.type.scale
+        out_s = out_t.scale if isinstance(out_t, T.DecimalType) else digits
+        d = _rescale_decimal(_i64(a.data), s, min(s, digits))
+        d = _rescale_decimal(d, min(s, digits), out_s)
+        if not isinstance(out_t, T.DecimalType):
+            out_t = T.DecimalType(18, out_s)
+        return Val(d, a.valid, out_t)
+    f = _to_float(a)
+    m = 10.0**digits
+    # SQL rounds half away from zero (torch.round is half to even)
+    out = torch.sign(f) * torch.floor(f.abs() * m + 0.5) / m
+    if out_t.name in ("bigint", "integer") and digits == 0:
+        return Val(out.to(torch_dtype(out_t.np_dtype)), a.valid, out_t)
+    return Val(out, a.valid, T.DOUBLE)
+
+
+def _minmax(want_max: bool):
+    top = torch.maximum if want_max else torch.minimum
+
+    def handler(ctx, call, *vals):
+        valid = None
+        for v in vals:
+            valid = _and_valid(valid, v.valid)
+        if any(_is_long_dec(v.type) for v in vals):
+            from trino_tpu_torch.types import int128 as i128
+
+            s = max((_dec_scale(v.type) or 0) for v in vals)
+            ah, al = _to_planes(vals[0], s)
+            for v in vals[1:]:
+                bh, bl = _to_planes(v, s)
+                lt = i128.lt128(ah, al, bh, bl)
+                take_b = lt if want_max else ~lt
+                ah = torch.where(take_b, bh, ah)
+                al = torch.where(take_b, bl, al)
+            rt = call.type
+            if isinstance(rt, T.DecimalType) and not rt.is_long:
+                return Val(al, valid, rt)
+            return _planes_val(ah, al, rt, valid)
+        dicts = [v.dictionary for v in vals if v.dictionary is not None]
+        if dicts:
+            # recode every value into one union dictionary up front, so the
+            # codes stay comparable and the result's dictionary fits its codes
+            out_dict = dicts[0]
+            for d in dicts[1:]:
+                if d is not out_dict and d != out_dict:
+                    out_dict = StringDictionary.from_unsorted(out_dict.values + d.values)
+            datas = [ctx._recode(v, out_dict) for v in vals]
+        else:
+            out_dict = None
+            datas = [_align_numeric(v, vals[0])[0] for v in vals]
+        # one dtype for all operands, as array promotion gives (a 0-dim
+        # tensor would otherwise take the column's narrower dtype)
+        dt = datas[0].dtype
+        for d in datas[1:]:
+            dt = torch.promote_types(dt, d.dtype)
+        acc = datas[0].to(dt)
+        for d in datas[1:]:
+            acc = top(acc, d.to(dt))
+        return Val(acc, valid, call.type, out_dict)
+
+    return handler
+
+
+FUNCTIONS["greatest"] = _minmax(True)
+FUNCTIONS["least"] = _minmax(False)
+
+
+# ---------------------------------------------------------------------------
+# dates (civil calendar math on day numbers; Howard Hinnant's algorithms).
+# DATE values only: over TIMESTAMP and TIMESTAMP WITH TIME ZONE these
+# functions raise until the timestamp family is ported.
+
+
+def _civil_from_days(days):
+    z = _i64(days) + 719468
+    era = torch.where(z >= 0, z, z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y, m, d
+
+
+def _days_from_civil(y, m, d):
+    y = y - (m <= 2).to(torch.int64)
+    era = torch.where(y >= 0, y, y - 399) // 400
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def _as_days(v: Val, what: str) -> torch.Tensor:
+    if v.type is T.TIMESTAMP or v.type is T.TIMESTAMP_TZ:
+        raise NotImplementedError(f"{what} over {v.type.name}: not ported yet")
+    return _i64(v.data)
+
+
+def _const(ctx, x: int) -> torch.Tensor:
+    return ctx.tensor(x, torch.int64)
+
+
+@register("year")
+def _year(ctx, call, a):
+    y, _, _ = _civil_from_days(_as_days(a, "year"))
+    return Val(y, a.valid, T.BIGINT)
+
+
+@register("month")
+def _month(ctx, call, a):
+    _, m, _ = _civil_from_days(_as_days(a, "month"))
+    return Val(m, a.valid, T.BIGINT)
+
+
+@register("day")
+@register("day_of_month")
+def _day(ctx, call, a):
+    _, _, d = _civil_from_days(_as_days(a, "day"))
+    return Val(d, a.valid, T.BIGINT)
+
+
+@register("quarter")
+def _quarter(ctx, call, a):
+    _, m, _ = _civil_from_days(_as_days(a, "quarter"))
+    return Val((m - 1) // 3 + 1, a.valid, T.BIGINT)
+
+
+@register("day_of_week")
+@register("dow")
+def _dow(ctx, call, a):
+    d = _as_days(a, "day_of_week")
+    return Val((d + 3) % 7 + 1, a.valid, T.BIGINT)  # 1 = Monday .. 7 = Sunday
+
+
+@register("day_of_year")
+@register("doy")
+def _doy(ctx, call, a):
+    d = _as_days(a, "day_of_year")
+    y, _, _ = _civil_from_days(d)
+    jan1 = _days_from_civil(y, _const(ctx, 1), _const(ctx, 1))
+    return Val(d - jan1 + 1, a.valid, T.BIGINT)
 
 
 @register("date_add_days")
 def _date_add_days(ctx, call, a, n):
     return Val(
-        (a.data.to(torch.int64) + n.data.to(torch.int64)).to(torch.int32),
+        (_i64(a.data) + _i64(n.data)).to(torch.int32),
         _and_valid(a.valid, n.valid),
         T.DATE,
     )
+
+
+def _add_months_days(ctx, days, k):
+    """Day number + k months, the day clamped to the target month's last
+    day (shared by date_add_months, date_add and date_diff)."""
+    y, m, d = _civil_from_days(days)
+    months = y * 12 + (m - 1) + k
+    ny, nm = months // 12, months % 12 + 1
+    one = _const(ctx, 1)
+    last = _days_from_civil(
+        torch.where(nm == 12, ny + 1, ny), torch.where(nm == 12, 1, nm + 1), one
+    ) - _days_from_civil(ny, nm, one)
+    return _days_from_civil(ny, nm, torch.minimum(d, last))
+
+
+@register("date_add_months")
+def _date_add_months(ctx, call, a, n):
+    days = _add_months_days(ctx, _as_days(a, "date_add_months"), _i64(n.data))
+    return Val(days, _and_valid(a.valid, n.valid), call.type)
+
+
+@register("date_trunc_month")
+def _date_trunc_month(ctx, call, a):
+    y, m, _ = _civil_from_days(_as_days(a, "date_trunc_month"))
+    return Val(_days_from_civil(y, m, _const(ctx, 1)), a.valid, T.DATE)
+
+
+@register("date_trunc_year")
+def _date_trunc_year(ctx, call, a):
+    y, _, _ = _civil_from_days(_as_days(a, "date_trunc_year"))
+    one = _const(ctx, 1)
+    return Val(_days_from_civil(y, one, one), a.valid, T.DATE)
+
+
+@register("date_trunc")
+def _date_trunc(ctx, call, unit, v):
+    """date_trunc(unit, date) (reference: scalar/DateTimeFunctions truncate
+    family); a time unit leaves a DATE as it is."""
+    u = _literal_str(unit, "date_trunc").lower()
+    days = _as_days(v, "date_trunc")
+    if u in ("second", "minute", "hour"):
+        return Val(v.data, v.valid, call.type, v.dictionary)
+    one = _const(ctx, 1)
+    if u == "day":
+        out = days
+    elif u == "week":
+        # ISO weeks start on Monday; 1970-01-01 was a Thursday
+        out = days - (days + 3) % 7
+    elif u in ("month", "year", "quarter"):
+        y, m, _ = _civil_from_days(days)
+        if u == "month":
+            out = _days_from_civil(y, m, one)
+        elif u == "quarter":
+            out = _days_from_civil(y, ((m - 1) // 3) * 3 + 1, one)
+        else:
+            out = _days_from_civil(y, one, one)
+    else:
+        raise NotImplementedError(f"date_trunc unit {u!r}")
+    return Val(out, v.valid, call.type)
+
+
+_DAY_US = 86_400_000_000
+_TIME_UNIT_US = {
+    "millisecond": 1000,
+    "second": 1_000_000,
+    "minute": 60_000_000,
+    "hour": 3_600_000_000,
+    "day": _DAY_US,
+    "week": 7 * _DAY_US,
+}
+_MONTH_UNITS = {"month": 1, "quarter": 3, "year": 12}
+
+
+@register("date_add")
+def _date_add_general(ctx, call, unit, n, v):
+    """date_add(unit, value, date) (reference: DateTimeFunctions.addFieldValue*)."""
+    u = _literal_str(unit, "date_add").lower().rstrip("s")
+    k = _i64(n.data)
+    valid = _and_valid(v.valid, n.valid)
+    days = _as_days(v, "date_add")
+    if u in _MONTH_UNITS:
+        return Val(_add_months_days(ctx, days, k * _MONTH_UNITS[u]), valid, call.type)
+    step = _TIME_UNIT_US.get(u)
+    if step is None:
+        raise NotImplementedError(f"date_add unit {u!r}")
+    if step < _DAY_US:
+        raise TypeError(f"date_add({u!r}) on a DATE value")
+    return Val(days + k * (step // _DAY_US), valid, call.type)
+
+
+@register("date_diff")
+def _date_diff_general(ctx, call, unit, a, b):
+    """date_diff(unit, from, to): complete units between two dates,
+    truncated toward zero (reference: DateTimeFunctions.diffDate)."""
+    u = _literal_str(unit, "date_diff").lower().rstrip("s")
+    da = _as_days(a, "date_diff")
+    db = _as_days(b, "date_diff")
+    valid = _and_valid(a.valid, b.valid)
+    if u in _MONTH_UNITS:
+        ya, ma, _ = _civil_from_days(da)
+        yb, mb, _ = _civil_from_days(db)
+        months = (yb * 12 + mb) - (ya * 12 + ma)
+        # the candidate count stands only if from + months <= to (sign
+        # symmetric), so date_add and date_diff agree under month-end
+        # clamping
+        shifted = _add_months_days(ctx, da, months)
+        months = (
+            months
+            - torch.logical_and(months > 0, shifted > db).to(torch.int64)
+            + torch.logical_and(months < 0, shifted < db).to(torch.int64)
+        )
+        div = _MONTH_UNITS[u]
+        out = torch.sign(months) * (months.abs() // div) if div > 1 else months
+        return Val(out, valid, call.type)
+    step = _TIME_UNIT_US.get(u)
+    if step is None:
+        raise NotImplementedError(f"date_diff unit {u!r}")
+    diff = (db - da) * _DAY_US
+    return Val(torch.sign(diff) * (diff.abs() // step), valid, call.type)
+
+
+# ---------------------------------------------------------------------------
+# strings (dictionary tables)
+
+
+def _require_dict(v: Val, what: str) -> StringDictionary:
+    if v.dictionary is None:
+        raise TypeError(f"{what} requires a string (dictionary) value")
+    return v.dictionary
+
+
+def _literal_str(v: Val, what: str) -> str:
+    s = _string_literal_of(v)
+    if s is None:
+        raise NotImplementedError(f"{what}: pattern/argument must be a literal")
+    return s
+
+
+def _take(ctx, table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
+    """table[codes] on the device, the codes clamped into the table first
+    (a NULL row, or a literal's code, may carry any value)."""
+    t = ctx.tensor(table, torch_dtype(table.dtype))
+    return t[_i64(codes).clamp(0, t.shape[0] - 1)]
+
+
+def _dict_table(outs: list) -> tuple:
+    """(dictionary of `outs`, int32 table: input code -> output code)."""
+    nd = StringDictionary.from_unsorted(outs)
+    ix = nd.index
+    return nd, np.fromiter((ix[o] for o in outs), dtype=np.int32, count=len(outs))
+
+
+def _prefix_match(codes: torch.Tensor, d: StringDictionary, prefix: str):
+    lo, hi = d.prefix_range(prefix)
+    codes = codes.to(torch.int32)
+    return torch.logical_and(codes >= lo, codes < hi)
+
+
+@register("like")
+def _like(ctx, call, value, pattern, escape=None):
+    d = _require_dict(value, "LIKE")
+    pat = _literal_str(pattern, "LIKE")
+    esc = _literal_str(escape, "LIKE escape") if escape is not None else None
+    pfx = like_prefix(pat, esc)
+    if pfx is not None:
+        # a pure prefix pattern: a code range of the sorted dictionary
+        return Val(_prefix_match(value.data, d, pfx), value.valid, T.BOOLEAN)
+    rx = like_to_regex(pat, esc)
+    table = d.predicate_table(lambda s: rx.match(s) is not None)
+    return Val(_take(ctx, table, value.data), value.valid, T.BOOLEAN)
+
+
+@register("regexp_like")
+def _regexp_like(ctx, call, value, pattern):
+    """reference: operator/scalar/JoniRegexpFunctions.java regexpLike,
+    evaluated once per dictionary entry and gathered by code."""
+    import re
+
+    d = _require_dict(value, "regexp_like")
+    rx = re.compile(_literal_str(pattern, "regexp_like"))
+    table = d.predicate_table(lambda s: rx.search(s) is not None)
+    return Val(_take(ctx, table, value.data), value.valid, T.BOOLEAN)
+
+
+@register("regexp_extract")
+def _regexp_extract(ctx, call, value, pattern, group=None):
+    """regexp_extract(s, p[, group]); NULL where the pattern does not match."""
+    import re
+
+    d = _require_dict(value, "regexp_extract")
+    rx = re.compile(_literal_str(pattern, "regexp_extract"))
+    g = int(group.data) if group is not None else 0
+    outs, hits = [], []
+    for s in d.values:
+        m = rx.search(s)
+        outs.append("" if m is None else (m.group(g) or ""))
+        hits.append(m is not None)
+    nd, table = _dict_table(outs)
+    hit = _take(ctx, np.asarray(hits, dtype=bool), value.data)
+    return Val(
+        _take(ctx, table, value.data), _and_valid(value.valid, hit), call.type, nd
+    )
+
+
+@register("regexp_replace")
+def _regexp_replace(ctx, call, value, pattern, repl=None):
+    import re
+
+    rx = re.compile(_literal_str(pattern, "regexp_replace"))
+    r = _literal_str(repl, "regexp_replace") if repl is not None else ""
+    # SQL backreferences are $1; Python's re uses \1
+    r = re.sub(r"\$(\d+)", r"\\\1", r)
+    return _string_map(ctx, call, value, lambda s: rx.sub(r, s), "regexp_replace")
+
+
+def _string_map(ctx, call, value: Val, fn, what: str) -> Val:
+    """Map a Python string function over the dictionary: a new dictionary
+    and a code table."""
+    d = _require_dict(value, what)
+    nd, table = _dict_table([fn(s) for s in d.values])
+    return Val(_take(ctx, table, value.data), value.valid, call.type, nd)
+
+
+@register("substr")
+@register("substring")
+def _substr(ctx, call, value, start, length=None):
+    s0 = int(start.data)
+    ln = int(length.data) if length is not None else None
+
+    def fn(s: str) -> str:
+        # SQL substr is 1-based; start 0, a non-positive length, or a
+        # negative start before the beginning all give '' (reference:
+        # StringFunctions.java:280,327)
+        if s0 == 0 or (ln is not None and ln <= 0):
+            return ""
+        if s0 > 0:
+            begin = s0 - 1
+        else:
+            begin = len(s) + s0
+            if begin < 0:
+                return ""
+        return s[begin : begin + ln] if ln is not None else s[begin:]
+
+    return _string_map(ctx, call, value, fn, "substr")
+
+
+@register("upper")
+def _upper(ctx, call, value):
+    return _string_map(ctx, call, value, str.upper, "upper")
+
+
+@register("lower")
+def _lower(ctx, call, value):
+    return _string_map(ctx, call, value, str.lower, "lower")
+
+
+def _trim_fn(name: str, method):
+    def handler(ctx, call, value, chars=None):
+        cs = _literal_str(chars, name) if chars is not None else None
+        return _string_map(ctx, call, value, lambda s: method(s, cs), name)
+
+    return handler
+
+
+FUNCTIONS["trim"] = _trim_fn("trim", str.strip)
+FUNCTIONS["ltrim"] = _trim_fn("ltrim", str.lstrip)
+FUNCTIONS["rtrim"] = _trim_fn("rtrim", str.rstrip)
+
+
+@register("reverse")
+def _reverse(ctx, call, value):
+    return _string_map(ctx, call, value, lambda s: s[::-1], "reverse")
+
+
+@register("replace")
+def _replace(ctx, call, value, find, repl=None):
+    f = _literal_str(find, "replace")
+    r = _literal_str(repl, "replace") if repl is not None else ""
+    return _string_map(ctx, call, value, lambda s: s.replace(f, r), "replace")
+
+
+@register("length")
+def _length(ctx, call, value):
+    d = _require_dict(value, "length")
+    table = np.fromiter((len(s) for s in d.values), np.int64, len(d))
+    return Val(_take(ctx, table, value.data), value.valid, T.BIGINT)
+
+
+@register("strpos")
+@register("position")
+def _strpos(ctx, call, value, sub):
+    d = _require_dict(value, "strpos")
+    s = _literal_str(sub, "strpos")
+    table = np.fromiter((v.find(s) + 1 for v in d.values), np.int64, len(d))
+    return Val(_take(ctx, table, value.data), value.valid, T.BIGINT)
+
+
+@register("starts_with")
+def _starts_with(ctx, call, value, prefix):
+    d = _require_dict(value, "starts_with")
+    p = _literal_str(prefix, "starts_with")
+    return Val(_prefix_match(value.data, d, p), value.valid, T.BOOLEAN)
+
+
+@register("concat")
+@register("$concat")
+def _concat(ctx, call, *vals):
+    # SQL: concat with any NULL argument is NULL
+    if any(v.valid is False for v in vals):
+        return Val(ctx.tensor(0, torch.int32), False, call.type)
+    # at most two non-literal dictionary columns ('lit' || col || 'lit'
+    # chains, and the bounded cross product of two columns)
+    col_ix = [
+        i
+        for i, v in enumerate(vals)
+        if v.dictionary is not None and _string_literal_of(v) is None
+    ]
+    valid = None
+    for v in vals:
+        valid = _and_valid(valid, v.valid)
+    if not col_ix:
+        s = "".join(_literal_str(v, "concat") for v in vals)
+        return Val(ctx.tensor(0, torch.int32), None, call.type, StringDictionary([s]))
+    if len(col_ix) > 2:
+        raise NotImplementedError("concat of 3+ string columns")
+    pre = "".join(_literal_str(v, "concat") for v in vals[: col_ix[0]])
+    post = "".join(_literal_str(v, "concat") for v in vals[col_ix[-1] + 1 :])
+    if len(col_ix) == 1:
+        out = _string_map(ctx, call, vals[col_ix[0]], lambda s: pre + s + post, "concat")
+        return Val(out.data, valid, call.type, out.dictionary)
+    # two dictionary columns: the |da| x |db| pair dictionary is built once
+    # on the host, and each row is one gather (reference role:
+    # ConcatFunction, amortized over the dictionaries, not the rows)
+    i0, i1 = col_ix
+    a, b = vals[i0], vals[i1]
+    da, db = a.dictionary, b.dictionary
+    if len(da) * len(db) > (1 << 20):
+        raise NotImplementedError(
+            "concat of two string columns with dictionary product "
+            f"{len(da)}x{len(db)} exceeds the materialization bound"
+        )
+    mid = "".join(_literal_str(v, "concat") for v in vals[i0 + 1 : i1])
+    pairs = [pre + va + mid + vb + post for va in da.values for vb in db.values]
+    merged, table = _dict_table(pairs)
+    nb = len(db)
+    flat = _i64(a.data).clamp(0, len(da) - 1) * nb + _i64(b.data).clamp(0, nb - 1)
+    return Val(_take(ctx, table, flat), valid, call.type, merged)
 
 
 # ---------------------------------------------------------------------------
@@ -390,23 +1075,41 @@ def _int_range_valid(valid, d, np_dtype):
 
 
 def compile_cast(ctx: ExprCompiler, v: Val, to: T.Type) -> Val:
-    """Numeric casts (the JAX package's compile_cast subset on this path).
-    Out-of-range values become NULL, never wrap."""
+    """CAST (reference: the per-type cast operators).  Out-of-range values
+    and varchar that does not parse become NULL, never wrap."""
     frm = v.type
     if frm == to or frm.name == to.name:
         return Val(v.data, v.valid, to, v.dictionary)
     if to == T.UNKNOWN:
         return v
-    if T.is_string_kind(to) and v.dictionary is not None:
-        return Val(v.data, v.valid, to, v.dictionary)
-    if T.is_string_kind(to) or T.is_string_kind(frm):
-        raise NotImplementedError(f"cast {frm.name} -> {to.name}: not ported yet")
+    if T.is_string_kind(to):
+        if v.dictionary is not None:
+            return Val(v.data, v.valid, to, v.dictionary)
+        # numeric/date -> varchar happens on the host: literals only
+        if v.data.ndim == 0:
+            return Val(
+                ctx.tensor(0, torch.int32), v.valid, to,
+                StringDictionary([_render_scalar(v)]),
+            )
+        raise NotImplementedError(f"cast {frm.name} -> varchar on columns")
+    if T.is_string_kind(frm):
+        return _cast_from_varchar(ctx, v, to)
     if isinstance(to, T.DecimalType):
         if to.is_long:
             if _is_float(frm):
-                raise NotImplementedError(
-                    f"cast {frm.name} -> {to.name}: not ported yet"
-                )
+                from trino_tpu_torch.types import int128 as i128
+
+                f = _to_float(v) * to.scale_factor
+                r = torch.sign(f) * torch.floor(f.abs() + 0.5)
+                # an f64 carries 53 bits: past 2**53 the cast is lossy, as
+                # the reference's double -> decimal is
+                two64 = float(i128.TWO64)
+                h = torch.floor(r / two64)
+                lf = r - h * two64
+                # lf is the UNSIGNED low limb in [0, 2**64): shift the values
+                # with the top bit set into the signed range first
+                lf = torch.where(lf >= float(1 << 63), lf - two64, lf)
+                return _planes_val(h.to(torch.int64), lf.to(torch.int64), to, v.valid)
             return _planes_val(*_to_planes(v, to.scale), to, v.valid)
         if _is_long_dec(frm):
             # long -> short decimal: rescale in limbs, then take the low limb
@@ -449,6 +1152,8 @@ def compile_cast(ctx: ExprCompiler, v: Val, to: T.Type) -> Val:
         if digits is None or 10**digits - 1 > lim:
             valid = _and_valid(valid, torch.logical_and(d >= -lim, d <= lim))
         return Val(d * to.scale_factor, valid, to)
+    if _is_long_dec(frm) and not (_is_float(to) or to.name in T.INT_DIGITS):
+        raise NotImplementedError(f"cast {frm.name} -> {to.name}")
     if _is_float(to):
         return Val(_to_float(v).to(torch_dtype(to.np_dtype)), v.valid, to)
     if to.name in ("bigint", "integer", "smallint", "tinyint"):
@@ -486,4 +1191,77 @@ def compile_cast(ctx: ExprCompiler, v: Val, to: T.Type) -> Val:
             d = _i64(v.data)
             return Val(d.to(tdt), _int_range_valid(v.valid, d, to.np_dtype), to)
         return Val(v.data.to(tdt), v.valid, to)
+    if to is T.BOOLEAN:
+        return Val(v.data != 0, v.valid, to)
+    if frm is T.BOOLEAN:
+        return Val(v.data.to(torch_dtype(to.np_dtype)), v.valid, to)
     raise NotImplementedError(f"cast {frm.name} -> {to.name}: not ported yet")
+
+
+def _cast_from_varchar(ctx, v: Val, to: T.Type) -> Val:
+    """varchar -> numeric/decimal/date/boolean through a parse table over
+    the dictionary (NULL where an entry does not parse)."""
+    if to is T.TIMESTAMP or to is T.TIMESTAMP_TZ or to is T.TIME:
+        raise NotImplementedError(f"cast {v.type.name} -> {to.name}: not ported yet")
+    d = _require_dict(v, "cast from varchar")
+    ok = np.ones(len(d), dtype=bool)
+    if isinstance(to, T.DecimalType) and to.is_long:
+        # the scaled value needs up to 128 bits: two int64 limb planes per
+        # entry (types/int128.split_py), so a value past 18 digits is not
+        # lost to an int64 overflow
+        from trino_tpu_torch.types.int128 import split_py
+
+        table = np.zeros((len(d), 2), dtype=np.int64)
+        bound = 10**to.precision
+        for i, s in enumerate(d.values):
+            try:
+                x = _parse_scalar(s, to)
+                if not -bound < x < bound:
+                    raise ValueError("out of decimal range")
+                table[i, 0], table[i, 1] = split_py(x)
+            except (ValueError, ArithmeticError):
+                ok[i] = False
+    else:
+        table = np.zeros(len(d), dtype=to.np_dtype)
+        for i, s in enumerate(d.values):
+            try:
+                table[i] = _parse_scalar(s, to)
+            except (ValueError, ArithmeticError):
+                ok[i] = False
+    return Val(
+        _take(ctx, table, v.data), _and_valid(v.valid, _take(ctx, ok, v.data)), to
+    )
+
+
+def _render_scalar(v: Val) -> str:
+    if isinstance(v.type, T.DecimalType):
+        x = int(v.data)
+        s = v.type.scale
+        if s == 0:
+            return str(x)
+        sign = "-" if x < 0 else ""
+        x = abs(x)
+        return f"{sign}{x // 10**s}.{x % 10**s:0{s}d}"
+    # numpy's text of the literal's value, as the JAX package renders it
+    return str(v.data.cpu().numpy()[()])
+
+
+def _parse_scalar(s: str, to: T.Type):
+    s = s.strip()
+    if to.name in ("bigint", "integer", "smallint", "tinyint"):
+        return int(s)
+    if to.name in ("double", "real"):
+        return float(s)
+    if isinstance(to, T.DecimalType):
+        from decimal import Context, Decimal
+
+        c = Context(prec=60)
+        return int(Decimal(s).scaleb(to.scale, context=c).to_integral_value(context=c))
+    if to is T.DATE:
+        import datetime
+
+        y, m, d = map(int, s.split("-"))
+        return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+    if to is T.BOOLEAN:
+        return s.lower() in ("true", "t", "1")
+    raise ValueError(f"cannot parse {s!r} as {to.name}")

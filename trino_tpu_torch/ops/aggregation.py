@@ -18,9 +18,11 @@ only the per-batch group states (the TPC-H Q1 shape), folding them every
 `fold_every` batches.  (The JAX package's non-streaming mode serves the
 holistic aggregates, which are not ported.)
 
-Ported aggregates: count(*), count, sum, avg, min, max, any_value.  The
-range-positional group path and the holistic/sketch aggregates are not
-ported yet (integer group keys take the sort path).
+Ported aggregates: count(*), count, sum, avg, min, max, any_value, and
+MarkDistinctOperator (the mark column of mixed DISTINCT sets).  The
+range-positional group path, the two-input aggregates and the
+holistic/sketch aggregates are not ported yet (integer group keys take the
+sort path).
 
 Difference from the JAX package: the `pallas_agg` knob reaches the
 grouped-sums kernel (ops/grouped_sums.py) from the streaming per-batch
@@ -64,6 +66,9 @@ class AggSpec:
     #: range certificate, plan.Aggregation.sum_bound): _sum128 takes the
     #: single-plane i64 path with no runtime fits check when set
     sum_bound: Optional[int] = None
+    #: second input channel of a two-input aggregate (covar/corr, map_agg);
+    #: none of those is ported yet, so _primitives raises for them
+    arg2: Optional[int] = None
 
 
 def _primitives(spec: AggSpec):
@@ -257,6 +262,30 @@ def _pad_device(batch: Batch, cap: int) -> Batch:
         cols.append(Column(torch.cat([c.data, zeros]), c.type, valid, c.dictionary))
     mask = torch.cat([batch.mask(), torch.zeros(pad, dtype=torch.bool, device=dev)])
     return Batch(cols, mask)
+
+
+class MarkDistinctOperator:
+    """Appends a boolean column that is TRUE on the first live occurrence of
+    each distinct key combination (reference: operator/MarkDistinctOperator
+    .java + MarkDistinctHash).  A stable multi-key sort and key-change
+    flags scattered back to row order, over the whole input at once."""
+
+    def __init__(self, key_channels: Sequence[int]):
+        self.key_channels = list(key_channels)
+
+    def mark_step(self, batch: Batch) -> Batch:
+        perm = multi_key_sort_perm(batch, [SortKey(ch) for ch in self.key_channels])
+        _, _, new_group = group_ids_from_sorted(batch, perm, self.key_channels)
+        mark = torch.empty_like(new_group)
+        mark[perm] = new_group
+        return Batch(list(batch.columns) + [Column(mark, T.BOOLEAN, None)], batch.row_mask)
+
+    def process(self, stream):
+        acc = list(stream)
+        if not acc:
+            return
+        big = acc[0] if len(acc) == 1 else concat_batches(acc)
+        yield self.mark_step(_pad_device(big, next_pow2(big.capacity, floor=1)))
 
 
 class AggregationOperator:

@@ -38,10 +38,15 @@ hash-placed on the key.  Both take the same probe search as the join
 (`_probe_search`), so K2 runs in every K2-eligible mesh semi join on the
 card.  A cross join runs in the coordinator's local engine.
 
+A grouped aggregation with DISTINCT aggregates repartitions its raw rows
+on the group keys and dedupes and aggregates each worker's rows in one
+stage (`_spmd_single_stage`); a MarkDistinct marks each worker's rows over
+a source the fragmenter placed on the mark's keys.
+
 Not ported (each raises NotImplementedError when a session asks for it):
 fault tolerance and task retries, memory-budget waves, bucketed table
-layouts, window, unnest and mark-distinct nodes, DISTINCT and holistic
-aggregates on the mesh, `resize_mesh`, membership heartbeats,
+layouts, window and unnest nodes, holistic aggregates on the mesh,
+`resize_mesh`, membership heartbeats,
 prewarm, the per-fragment profile and the compile observatory.  The
 collective-schedule license (verify/schedule.py) is not ported either: the
 executor dispatches strictly lazily, which the JAX package defines as the
@@ -743,12 +748,19 @@ class StageExecutor:
         src = self._to_stacked(self._raw_remote(node.source))
         ngroups = len(node.group_symbols)
         assert ngroups, "grouped aggregation expected in distributed fragment"
-        if any(a.distinct for _, a in node.aggregations) or any(
-            a.function in PARTITIONABLE_HOLISTIC for _, a in node.aggregations
-        ):
+        holistic = [
+            a.function for _, a in node.aggregations
+            if a.function in PARTITIONABLE_HOLISTIC
+        ]
+        if holistic:
             raise NotImplementedError(
-                "DISTINCT and holistic aggregates on the mesh: not ported yet"
+                f"holistic aggregates on the mesh ({', '.join(holistic)}): not ported yet"
             )
+        if any(a.distinct for _, a in node.aggregations):
+            # repartition the raw rows on the group keys so every group is
+            # whole on one worker, then dedupe and aggregate there in one
+            # stage: no partial/merge states, no coordinator gather
+            return self._spmd_single_stage(node, src)
         states, specs, partial_op = self._agg_partial(node, src)
         final_op = self._final_op(specs, partial_op, states)
         # fused exchange: bucketize + all-to-all + the FINAL aggregation
@@ -814,6 +826,53 @@ class StageExecutor:
             placements=placements,
         )
 
+    def _spmd_single_stage(self, node: P.AggregationNode, src: _Dist) -> _Dist:
+        """Repartition on the group keys, then a per-worker single-stage
+        aggregation (the mesh's home of the DISTINCT shapes; reference:
+        single-step aggregation over hash distribution).  The dedupe
+        pre-aggregation and the aggregation run as the exchange's consumer."""
+        from trino_tpu_torch.runtime.local_planner import (
+            build_agg_inputs,
+            build_distinct_dedupe,
+        )
+
+        ngroups = len(node.group_symbols)
+        key_channels = [src.channel(s.name) for s in node.group_symbols]
+        stacked = src.stacked
+        slot_cap = ex.exchange_slot_cap(stacked, key_channels, self.wm)
+        fcap = self.wm.n * slot_cap
+        dd_proj, dd_symbols = build_distinct_dedupe(node, src)
+        dedupe = AggregationOperator(
+            list(range(len(dd_proj))), [], [e.type for e in dd_proj],
+            self.wm.device, mode="single",
+        )
+        pre_dd = FilterProjectOperator(None, dd_proj)._make_step()
+        proj, specs, input_types = build_agg_inputs(
+            node, PhysicalPlan(iter(()), dd_symbols)
+        )
+        op = AggregationOperator(
+            list(range(ngroups)), specs, input_types, self.wm.device, mode="single"
+        )
+        pre_agg = FilterProjectOperator(None, proj)._make_step()
+
+        def single_step(b: Batch) -> Batch:
+            b = dedupe._reduce_step(pre_dd(b), out_cap=fcap)
+            return op._reduce_step(pre_agg(b), out_cap=fcap)
+
+        out = ex.fused_repartition(
+            stacked, key_channels, self.wm, single_step,
+            ("agg_single", tuple(e.key() for e in dd_proj),
+             tuple(e.key() for e in proj), _spec_sig(specs), fcap,
+             _sig(src.symbols)),
+            slot_cap,
+        )
+        self.bump("repartition_collective")
+        return self._dist(
+            out, node.outputs,
+            placements=((tuple(s.name for s in node.group_symbols),)),
+            realigned=True,
+        )
+
     def _global_agg(self, node: P.AggregationNode, src: _Dist) -> PhysicalPlan:
         """Global aggregation over a distributed child: partial per worker,
         gather the single state rows, final merge on the coordinator."""
@@ -823,6 +882,22 @@ class StageExecutor:
         cap = next_pow2(gathered.capacity, floor=1)
         final = final_op._reduce_step(_pad_device(gathered, cap), out_cap=1)
         return PhysicalPlan(iter([final]), node.outputs)
+
+    def _x_MarkDistinctNode(self, node: P.MarkDistinctNode) -> _Dist:
+        """The mark per worker: the fragmenter placed the source on the
+        mark's keys, so every distinct key combination is whole on one
+        worker."""
+        from trino_tpu_torch.ops.aggregation import MarkDistinctOperator
+
+        src = self._exec(node.source)
+        chans = tuple(src.channel(s.name) for s in node.key_symbols)
+        op = MarkDistinctOperator(list(chans))
+        return src.defer(
+            ("mark_distinct", chans, _sig(src.symbols)),
+            op.mark_step,
+            symbols=node.outputs,
+            placements=src.placements,
+        )
 
     # -- joins ----------------------------------------------------------------
 

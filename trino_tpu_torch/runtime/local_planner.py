@@ -8,12 +8,13 @@ planner's device.
 
 Ported nodes: TableScan (with the dynamic filters join builds register),
 Values, Filter, Project, Aggregation (with the filter/projection fused into
-the aggregation's per-batch step), Join (inner, left, right as a flipped
-left, full, and cross as a nested loop), SemiJoin (IN and EXISTS marks,
-with a residual over source ++ filtering symbols), Sort, TopN, Limit and
-Output.  Any other node raises NotImplementedError naming it (window,
-unnest and mark-distinct among them), as do DISTINCT aggregates.  Memory
-budgets and their partition-wave machinery are not ported yet.
+the aggregation's per-batch step, FILTER clauses folded into the
+aggregate inputs, DISTINCT aggregates through a dedupe pre-aggregation),
+MarkDistinct, Join (inner, left, right as a flipped left, full, and cross
+as a nested loop), SemiJoin (IN and EXISTS marks, with a residual over
+source ++ filtering symbols), Sort, TopN, Limit and Output.  Any other
+node raises NotImplementedError naming it (window and unnest among them).
+Memory budgets and their partition-wave machinery are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,8 +27,20 @@ from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import Batch
 from trino_tpu_torch.connectors.api import CatalogManager
 from trino_tpu_torch.expr import ExprCompiler
-from trino_tpu_torch.expr.ir import Expr, InputRef, Literal, SymbolRef, visit
-from trino_tpu_torch.ops.aggregation import AggregationOperator, AggSpec
+from trino_tpu_torch.expr.ir import (
+    Expr,
+    Form,
+    InputRef,
+    Literal,
+    SpecialForm,
+    SymbolRef,
+    visit,
+)
+from trino_tpu_torch.ops.aggregation import (
+    AggregationOperator,
+    AggSpec,
+    MarkDistinctOperator,
+)
 from trino_tpu_torch.ops.common import SortKey, next_pow2
 from trino_tpu_torch.ops.filter_project import FilterProjectOperator
 from trino_tpu_torch.ops.join import (
@@ -250,14 +263,17 @@ class LocalExecutionPlanner:
         return _Sub, pred_ir
 
     def _visit_AggregationNode(self, node: P.AggregationNode) -> PhysicalPlan:
-        if any(agg.distinct for _, agg in node.aggregations):
-            raise NotImplementedError("DISTINCT aggregates: not ported yet")
-        collapsed = self._collapse_agg_source(node)
+        distinct = any(agg.distinct for _, agg in node.aggregations)
+        # the dedupe pre-aggregation reads the source's own layout, so the
+        # source chain is not folded into the aggregation under DISTINCT
+        collapsed = None if distinct else self._collapse_agg_source(node)
         if collapsed is not None:
             src, fused_pred = collapsed
         else:
             src = self.plan(node.source)
             fused_pred = None
+        if distinct:
+            src = self._distinct_preagg(node, src)
         ngroups = len(node.group_symbols)
         proj, specs, input_types = build_agg_inputs(node, src)
         pre = FilterProjectOperator(fused_pred, proj)
@@ -276,6 +292,28 @@ class LocalExecutionPlanner:
         )
         feed = src.stream if fuse else pre.process(src.stream)
         return PhysicalPlan(op.process(feed), node.outputs)
+
+    def _distinct_preagg(self, node: P.AggregationNode, src: PhysicalPlan) -> PhysicalPlan:
+        """DISTINCT aggregates through a dedupe pre-aggregation: group by
+        the group keys and the distinct arguments, then aggregate the
+        deduplicated rows (reference role: the pre-aggregation rewrites of
+        the optimizer).  Every distinct aggregate must share one argument
+        list, with no plain aggregates beside them: the optimizer rewrites
+        the other shapes to MarkDistinct plus FILTERed aggregates."""
+        if not supports_uniform_distinct(node):
+            raise NotImplementedError("mixed DISTINCT aggregate shapes")
+        proj, symbols = build_distinct_dedupe(node, src)
+        dedupe = AggregationOperator(
+            list(range(len(proj))), [], [e.type for e in proj], self.device,
+            mode="single",
+        )
+        pre = FilterProjectOperator(None, proj)
+        return PhysicalPlan(dedupe.process(pre.process(src.stream)), symbols)
+
+    def _visit_MarkDistinctNode(self, node: P.MarkDistinctNode) -> PhysicalPlan:
+        src = self.plan(node.source)
+        op = MarkDistinctOperator([src.channel(s.name) for s in node.key_symbols])
+        return PhysicalPlan(op.process(src.stream), node.outputs)
 
     # -- joins ----------------------------------------------------------------
 
@@ -392,48 +430,85 @@ class LocalExecutionPlanner:
 
 
 def build_agg_inputs(node: "P.AggregationNode", src) -> tuple:
-    """(projection exprs, AggSpecs, input types) for an AggregationNode:
-    group keys first, then one computed arg per aggregate."""
+    """(projection exprs, AggSpecs, input types) for an AggregationNode: the
+    one place the aggregate input layout is decided (group keys first, then
+    one computed arg per aggregate, a FILTER folded as IF(filter, arg,
+    NULL), a two-input aggregate taking two channels).  Shared by the local
+    planner and the mesh's aggregation paths, so their layouts agree."""
     ngroups = len(node.group_symbols)
     proj: list = [src.rewrite(s.ref()) for s in node.group_symbols]
     specs: list = []
     input_types = [s.type for s in node.group_symbols]
     for out_sym, agg in node.aggregations:
-        if len(agg.args) > 1:
-            raise NotImplementedError(f"two-input aggregate {agg.function}: not ported yet")
+        name = agg.function
+        arg = src.rewrite(agg.args[0]) if agg.args else None
         if agg.filter is not None:
-            raise NotImplementedError("aggregate FILTER clauses: not ported yet")
-        if not agg.args:
-            specs.append(AggSpec(agg.function, None, out_sym.type))
+            f = src.rewrite(agg.filter)
+            if name == "count_star":
+                name = "count"
+                arg = SpecialForm(
+                    Form.IF,
+                    [f, Literal(1, T.BIGINT), Literal(None, T.BIGINT)],
+                    T.BIGINT,
+                )
+            else:
+                arg = SpecialForm(Form.IF, [f, arg, Literal(None, arg.type)], arg.type)
+        if arg is None:
+            specs.append(AggSpec(name, None, out_sym.type))
             continue
-        arg = src.rewrite(agg.args[0])
+        ch = len(proj)
+        proj.append(arg)
+        input_types.append(arg.type)
+        arg2_ch = None
+        if len(agg.args) > 1:
+            # two-input aggregates (covar/corr y and x, map_agg key and value)
+            arg2 = src.rewrite(agg.args[1])
+            if agg.filter is not None:
+                arg2 = SpecialForm(
+                    Form.IF,
+                    [src.rewrite(agg.filter), arg2, Literal(None, arg2.type)],
+                    arg2.type,
+                )
+            arg2_ch = len(proj)
+            proj.append(arg2)
+            input_types.append(arg2.type)
         specs.append(
             AggSpec(
-                agg.function,
-                ngroups + sum(1 for s in specs if s.arg is not None),
+                name,
+                ch,
                 out_sym.type,
                 # planner range-certificate license (verify.numeric
                 # license_decimal_sums): rides the plan node so the partial
                 # and merge steps read the same proof
                 sum_bound=getattr(agg, "sum_bound", None),
+                arg2=arg2_ch,
             )
         )
-        proj.append(arg)
-        input_types.append(arg.type)
     return proj, specs, input_types
 
 
 def supports_uniform_distinct(node: "P.AggregationNode") -> bool:
-    """The DISTINCT shape the JAX package's pre-grouping and distributed
-    repartition paths can express: every aggregate DISTINCT over one shared
-    argument list, no FILTER clauses.  The fragmenter consults it; DISTINCT
-    execution itself is not ported yet."""
+    """The DISTINCT shape the dedupe pre-aggregation and the mesh's
+    single-stage path can express: every aggregate DISTINCT over one shared
+    argument list, no FILTER clauses (the fragmenter and both executors
+    consult this one predicate, so the plan and the run agree)."""
     distincts = [a for _, a in node.aggregations if a.distinct]
     return bool(distincts) and (
         len(distincts) == len(node.aggregations)
         and len({tuple(x.key() for x in a.args) for a in distincts}) == 1
         and all(a.filter is None for a in distincts)
     )
+
+
+def build_distinct_dedupe(node: "P.AggregationNode", src) -> tuple:
+    """(projection exprs, output symbols) of the DISTINCT dedupe
+    pre-aggregation: the group keys, then the (uniform) distinct argument
+    columns.  Used by the local planner and the mesh's single-stage path."""
+    args0 = next(a for _, a in node.aggregations if a.distinct).args
+    proj = [src.rewrite(s.ref()) for s in node.group_symbols]
+    proj += [src.rewrite(a) for a in args0]
+    symbols = list(node.group_symbols) + [P.Symbol(a.name, a.type) for a in args0]
+    return proj, symbols
 
 
 def _host_minmax(batches, channel: int):

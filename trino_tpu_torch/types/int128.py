@@ -244,6 +244,21 @@ def divmod128_by_vec(h, l, c):
     )
 
 
+def truncdiv_pow10(h, l, k: int):
+    """(q_hi, q_lo, any_remainder) of truncate-toward-zero division by
+    10**k, k >= 0 (stepped through <=10**9 chunks)."""
+    any_r = None
+    while k > 0:
+        step = min(k, 9)
+        h, l, r = divmod128_by_u31(h, l, 10**step)
+        nz = r != 0
+        any_r = nz if any_r is None else torch.logical_or(any_r, nz)
+        k -= step
+    if any_r is None:
+        any_r = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
+    return h, l, any_r
+
+
 def rescale128(h, l, from_scale: int, to_scale: int):
     """Multiply/divide by 10**(to-from) with round-half-away-from-zero on
     downscale (SQL decimal semantics)."""

@@ -48,6 +48,20 @@ catches nothing and never falls back to the CPU):
      (P, cap_b, n_match, S) and the host time of Q13's LIKE table with the
      size of its dictionary; every result is checked against the port's CPU
      LocalQueryRunner at sf1;
+  5d. TPC-DS without windows: the 84 TPC-DS queries that have no window
+     function at tpcds.sf1 (q72 at sf0_1, see TPCDS_SCHEMA) through
+     LocalQueryRunner on the card and on the 4-worker mesh with default
+     knobs, each cold and warm, with wall time, peak device memory and the
+     sorted-probe kernel's launches (every mesh search whose key planes
+     the kernel takes must launch it; the cold mesh run records each
+     launch's (P, cap_b, n_match, S) and keeps the largest launch's
+     inputs); one profiled warm run each of q78 (local and mesh) and q75
+     (mesh); every result is held to the port's CPU run of the same
+     query, which a child process of this script computes on its own half
+     of the cores while the card phases run, with each query's host
+     planning time (ORDER BY keys in order, rows as a multiset where the
+     ORDER BY leaves ties, keys only for the tie group a LIMIT cuts
+     through: trino_tpu_torch/testing.py);
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -59,7 +73,7 @@ catches nothing and never falls back to the CPU):
      version, the torch.searchsorted yardstick and the bound; also bit-exact
      at the inputs of the largest and of the smallest-n_match semi-join
      launch of phase 5b, and timed at the largest; bit-exact and timed at
-     the inputs of the largest launch of phase 5c;
+     the inputs of the largest launch of phases 5c and 5d;
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -99,6 +113,18 @@ FUNC_QIDS = (2, 7, 8, 9, 10, 13, 14, 15, 16, 17, 20, 22)
 #: the phase 5c mesh queries that hold a join the sorted-probe kernel takes
 #: (Q22's only join is the cross join with its scalar subquery)
 FUNC_PROBE_QIDS = (2, 7, 8, 9, 10, 13, 14, 15, 16, 17, 20)
+#: phase 5d: the TPC-DS queries with a window function (not ported yet);
+#: the other 84 run
+TPCDS_WINDOW_QIDS = frozenset({12, 20, 36, 44, 47, 49, 51, 53, 57, 63, 67, 70, 86, 89, 98})
+#: the phase 5d queries that run below sf1: q72's plan (the JAX package's
+#: join order, which the port keeps) joins catalog_sales to inventory
+#: before any filter, ~940 M rows at sf1, beyond the card's memory without
+#: the spill and wave machinery, which is not ported yet
+TPCDS_SCHEMA = {72: "sf0_1"}
+#: phase 5d's profiled warm runs: a star join over the three sales
+#: channels and their returns (local and mesh) and a union of the three
+#: channels (mesh)
+TPCDS_PROFILES = ((78, "local"), (78, "mesh"), (75, "mesh"))
 
 Q1_DOUBLE = """select l_returnflag, l_linestatus,
        sum(cast(l_quantity as double)), sum(cast(l_extendedprice as double)),
@@ -792,6 +818,231 @@ def run_function_path(record: dict) -> dict:
     return {"launches": launches, "per_query": per_query}
 
 
+# -- phase 5d: TPC-DS without windows -------------------------------------------
+
+
+def tpcds_qids() -> list:
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES
+
+    return [q for q in sorted(QUERIES) if q not in TPCDS_WINDOW_QIDS]
+
+
+def _pin_to_cores(upper: bool) -> str:
+    """Pin this process to one half of its cores (the CPU reference process
+    takes the upper half, the process driving the card the lower), with torch's
+    threads to match; on fewer than four cores nothing is pinned."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < 4:
+        return f"not pinned ({len(cores)} cores)"
+    half = len(cores) // 2
+    mine = cores[half:] if upper else cores[:half]
+    os.sched_setaffinity(0, mine)
+    torch.set_num_threads(len(mine))
+    return f"cores {mine[0]}-{mine[-1]}"
+
+
+def tpcds_cpu_reference(out_path: str) -> int:
+    """The child process: the port's CPU run (device="cpu") of every phase
+    5d query, pickled to `out_path` as {qid: (column names, type names,
+    rows, seconds, the query's ORDER BY and LIMIT, host planning
+    seconds)}.  It runs beside the card phases, on its own cores."""
+    import pickle
+
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import result_order
+
+    log(f"tpcds cpu reference: {_pin_to_cores(upper=True)}")
+    runners = {}
+    out = {}
+    for q in tpcds_qids():
+        schema = TPCDS_SCHEMA.get(q, "sf1")
+        if schema not in runners:
+            runners[schema] = LocalQueryRunner(catalog="tpcds", schema=schema, device="cpu")
+        t0 = time.perf_counter()
+        order = result_order(runners[schema].create_plan(QUERIES[q]))
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = runners[schema].execute(QUERIES[q])
+        out[q] = (res.column_names, [t.name for t in res.types], res.rows,
+                  time.perf_counter() - t0, order, plan_s)
+    with open(out_path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".part", out_path)
+    return 0
+
+
+def start_tpcds_reference(here: str):
+    """Start the CPU reference process; returns (process, result path)."""
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "tpcds_reference.pkl")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--tpcds-cpu-reference", path],
+        cwd=here,
+    )
+    return proc, path
+
+
+def wait_tpcds_reference(proc, path: str) -> dict:
+    import pickle
+    import shutil
+
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    log(f"tpcds cpu reference: exit {rc}, waited {time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"the TPC-DS CPU reference process failed with exit code {rc}")
+    with open(path, "rb") as f:
+        out = pickle.load(f)
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    return out
+
+
+def eligibility_recording_search(record: dict):
+    """(original, stand-in) for StageExecutor._probe_search: the stand-in's
+    search counts, in record["eligible"], every call whose key planes the
+    sorted-probe kernel takes (`probe_kernel_eligible`, the routing's own
+    predicate), then searches as before.  On the card every such call must
+    launch the kernel."""
+    from trino_tpu_torch.ops.locate_sorted import probe_kernel_eligible
+    from trino_tpu_torch.parallel.runner import StageExecutor
+
+    original = StageExecutor._probe_search
+
+    def probe_search(self):
+        search, use_kernel = original(self)
+
+        def counted(canon, n_match, pc, pn, cap_b: int):
+            if probe_kernel_eligible(canon, pc):
+                record["eligible"] = record.get("eligible", 0) + 1
+            return search(canon, n_match, pc, pn, cap_b)
+
+        return counted, use_kernel
+
+    return original, probe_search
+
+
+def run_tpcds_path(record: dict, reference) -> dict:
+    """Phase 5d: the 84 TPC-DS queries without a window function through the
+    local runner on the card and on the 4-worker mesh (default knobs), cold
+    and warm, each held to the port's CPU run (the reference process).  The
+    cold mesh run of each query records its sorted-probe launches' shapes
+    and keeps the inputs of the largest (one host read per launch).  Every
+    mesh search whose key planes the kernel takes must launch it: each mesh
+    run launches at least as many times as it made such searches, and a
+    query with one launches at least once."""
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner, StageExecutor
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import assert_rows_match
+
+    qids = tpcds_qids()
+    runners = {}
+
+    def runner(where: str, schema: str):
+        if (where, schema) not in runners:
+            runners[where, schema] = (
+                LocalQueryRunner(catalog="tpcds", schema=schema) if where == "local"
+                else DistributedQueryRunner(
+                    catalog="tpcds", schema=schema, n_workers=MESH_WORKERS
+                )
+            )
+        return runners[where, schema]
+
+    kernel, recording = shape_recording_probe(record)
+    original_search, eligible_search = eligibility_recording_search(record)
+    results = {}
+    per_query = {}
+    log(f"tpcds: {len(qids)} queries, local and mesh; at sf0_1 only: "
+        f"{sorted(TPCDS_SCHEMA)} (see TPCDS_SCHEMA)")
+    StageExecutor._probe_search = eligible_search
+    try:
+        _tpcds_runs(qids, runner, record, results, per_query, kernel, recording)
+    finally:
+        StageExecutor._probe_search = original_search
+    launches = ls.locate_sorted.launches  # read just after the path
+    log(f"tpcds path: locate_sorted launches={launches}")
+    if launches <= 0:
+        raise AssertionError("the TPC-DS path never launched locate_sorted")
+    for q in qids:
+        shapes = record.get("shapes", {}).get(f"q{q}", [])
+        largest = max(shapes, key=lambda t: t[0] * max(t[1], 1), default=None)
+        log(f"tpcds q{q}_mesh sorted-probe launches={per_query[q]} "
+            f"largest (P, cap_b, n_match, S)={largest}")
+    for (q, where), (res, cold, warm) in results.items():
+        log(f"tpcds q{q}_{where}: cold_s={cold!r} warm_s={warm!r} rows={len(res.rows)}")
+    expected_all = reference()
+    empty = []
+    for q in qids:
+        names, types, rows, cpu_s, order, plan_s = expected_all[q]
+        for where in ("local", "mesh"):
+            actual = results[q, where][0]
+            if actual.column_names != names or [t.name for t in actual.types] != types:
+                raise AssertionError(f"tpcds q{q}_{where}: columns differ from the CPU run")
+            try:
+                assert_rows_match(actual.rows, rows, order, float_rtol=DOUBLE_RTOL)
+            except AssertionError as e:
+                raise AssertionError(f"tpcds q{q}_{where}: {e}") from None
+        if not rows:
+            empty.append(q)
+        log(f"tpcds q{q}: local and mesh match the CPU run ({len(rows)} rows, "
+            f"cpu wall_s={cpu_s!r}, cpu plan_s={plan_s!r})")
+    log(f"tpcds: all {len(qids)} queries match the CPU run, local and mesh; "
+        f"empty results: {empty}")
+    return {"launches": launches, "per_query": per_query}
+
+
+def _tpcds_runs(qids, runner, record, results, per_query, kernel, recording) -> None:
+    """Phase 5d's timed runs: each query local, then mesh, cold and warm,
+    then the profiled warm runs."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES
+    from trino_tpu_torch.ops import locate_sorted as ls
+
+    ls.locate_sorted.launches = 0  # every kernel count, just before the path
+    for where in ("local", "mesh"):
+        for q in qids:
+            schema = TPCDS_SCHEMA.get(q, "sf1")
+            r = runner(where, schema)
+            walls = []
+            for attempt in ("cold", "warm"):
+                capture = where == "mesh" and attempt == "cold"
+                if capture:
+                    record["query"] = f"q{q}"
+                    mesh_runner.locate_sorted = recording
+                before = ls.locate_sorted.launches
+                eligible_before = record.get("eligible", 0)
+                torch.cuda.reset_peak_memory_stats()
+                try:
+                    t0 = time.perf_counter()
+                    res = r.execute(QUERIES[q])  # rows come back to the host
+                    wall = time.perf_counter() - t0
+                finally:
+                    mesh_runner.locate_sorted = kernel
+                walls.append(wall)
+                launched = ls.locate_sorted.launches - before
+                eligible = record.get("eligible", 0) - eligible_before
+                if where == "mesh":
+                    per_query[q] = launched
+                    if launched < eligible or (eligible and not launched):
+                        raise AssertionError(
+                            f"q{q} mesh {attempt}: {eligible} searches the sorted-probe "
+                            f"kernel takes, {launched} launches"
+                        )
+                log(
+                    f"tpcds q{q}_{where} {attempt} ({schema}): wall_s={wall!r} "
+                    f"locate_sorted_launches={launched} kernel_eligible_searches={eligible} "
+                    f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                    f"memory_allocated_after={torch.cuda.memory_allocated()} "
+                    f"rows={len(res.rows)}"
+                )
+            results[q, where] = (res, walls[0], walls[1])
+    for q, where in TPCDS_PROFILES:
+        profile_warm(f"tpcds_q{q}_{where}", runner(where, TPCDS_SCHEMA.get(q, "sf1")), QUERIES[q])
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -865,7 +1116,7 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes
 
 
-def check_locate_sorted(dev, capture: dict, semi: dict, func: dict) -> dict:
+def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -874,10 +1125,13 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict) -> dict:
         raise AssertionError("no semi-join sorted-probe launch was captured")
     if "largest" not in func:
         raise AssertionError("no sorted-probe launch was captured in phase 5c")
+    if "largest" not in tds:
+        raise AssertionError("no sorted-probe launch was captured in phase 5d")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
     cases += [(f"function_largest_{func['largest_query']}",) + func["largest"]]
+    cases += [(f"tpcds_largest_{tds['largest_query']}",) + tds["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -894,6 +1148,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict) -> dict:
     semi_largest = time_probe_inputs("semi_largest", dev, semi["largest"])
     func_largest = time_probe_inputs("function_largest", dev, func["largest"])
     func_largest["query"] = func["largest_query"]
+    tds_largest = time_probe_inputs("tpcds_largest", dev, tds["largest"])
+    tds_largest["query"] = tds["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -904,6 +1160,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict) -> dict:
         **{k: main[k] for k in keys},
         "semi_join_inputs": semi_largest,
         "function_path_inputs": func_largest,
+        "tpcds_inputs": tds_largest,
     }
 
 
@@ -959,10 +1216,24 @@ def main() -> int:
         raise SystemExit("chip_smoke: CUDA is not available")
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    if not os.path.isdir(os.path.join(here, "trino_tpu_torch")):
+        raise SystemExit("chip_smoke: the trino_tpu_torch package is not beside the script")
+    # phase 5d's CPU reference runs beside every card phase, on its own cores
+    reference, reference_path = start_tpcds_reference(here)
+    try:
+        return drive(here, lambda: wait_tpcds_reference(reference, reference_path))
+    finally:
+        if reference.poll() is None:
+            reference.kill()
+            reference.wait()
+
+
+def drive(here: str, tpcds_reference) -> int:
     from trino_tpu_torch.device import resolve_device
     from trino_tpu_torch.kernels import build
 
     dev = resolve_device()
+    log(f"card process: {_pin_to_cores(upper=False)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -978,24 +1249,38 @@ def main() -> int:
         log(build.log_path(name).read_text().strip())
     check_ptxas(kernels)
 
-    k1 = check_grouped_sums(dev)
-    main_path = run_main_path()
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(phase: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t
+        return out
+
+    k1 = timed("3", check_grouped_sums, dev)
+    main_path = timed("4", run_main_path)
     k1["launches"] = main_path["launches"]
     capture: dict = {}
-    mesh_path = run_mesh_path(capture)
+    mesh_path = timed("5", run_mesh_path, capture)
     semi: dict = {}
-    semi_path = run_semi_cross_path(semi)
+    semi_path = timed("5b", run_semi_cross_path, semi)
     func: dict = {}
-    func_path = run_function_path(func)
-    k2 = check_locate_sorted(dev, capture, semi, func)
+    func_path = timed("5c", run_function_path, func)
+    tds: dict = {}
+    tds_path = timed("5d", run_tpcds_path, tds, tpcds_reference)
+    k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds)
+    log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
+        + tds_path["launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
         "semi_cross_from_semi_joins": semi["semi_path"],
         "functions_distinct": func_path["launches"],
         "functions_distinct_per_mesh_query": func_path["per_query"],
+        "tpcds": tds_path["launches"],
+        "tpcds_per_mesh_query": tds_path["per_query"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)
@@ -1015,4 +1300,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tpcds-cpu-reference"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(tpcds_cpu_reference(sys.argv[2]))
     sys.exit(main())

@@ -41,6 +41,9 @@ def test_sources_exist():
     files = _sources()
     assert (ROOT / "chip_smoke.py").exists()
     assert len(files) > 40
+    tpcds = ROOT / "trino_tpu_torch" / "connectors" / "tpcds"
+    for name in ("__init__", "schema", "generator", "connector", "queries"):
+        assert tpcds / f"{name}.py" in files
 
 
 @pytest.mark.parametrize(
@@ -62,6 +65,21 @@ def test_runner_without_device_needs_cuda():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             LocalQueryRunner(device="cuda")
     assert LocalQueryRunner(device="cpu").device == torch.device("cpu")
+
+
+def test_tpcds_runners_without_device_need_cuda():
+    from trino_tpu_torch.parallel import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    if torch.cuda.is_available():
+        assert LocalQueryRunner(catalog="tpcds", schema="tiny").device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            LocalQueryRunner(catalog="tpcds", schema="tiny")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DistributedQueryRunner(catalog="tpcds", schema="tiny", n_workers=4)
+    r = LocalQueryRunner(catalog="tpcds", schema="tiny", device="cpu")
+    assert r.execute("select count(*) from store").rows == [(2,)]
 
 
 def test_mesh_runner_without_device_needs_cuda():

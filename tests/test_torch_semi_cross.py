@@ -244,7 +244,15 @@ def test_mesh_q21_three_workers_matches_jax():
     expected, actual = _run_both(jax_mesh, port_mesh, QUERIES[21], [])
     assert len(expected.rows) > 0
     _same_rows(actual.rows, expected.rows)
-    assert "repartition_collective" not in port_mesh.last_stage_executor.counters
+    # l1's l_orderkey reaches the residual semi joins as a broadcast join's
+    # build column (lineitem joined onto the orders splits), so it is off
+    # lineitem's split alignment: the first semi join hash-places both of
+    # its sides on the key, the second its filtering side (its source is
+    # placed already).  The JAX package marks per shard regardless, which
+    # loses matches when the splits do not line up (TPC-DS q94).
+    counters = port_mesh.last_stage_executor.counters
+    assert counters.get("repartition_collective") == 3
+    assert counters.get("exchange_elided", 0) >= 1
 
 
 #: a correlated EXISTS whose source was hash-placed on other keys (a

@@ -289,10 +289,12 @@ class CatalogManager:
 
 
 def default_catalogs() -> CatalogManager:
-    """The standard test/bench catalog set: tpch only (the memory,
-    blackhole and tpcds connectors are not ported yet)."""
+    """The standard test/bench catalog set: tpch and tpcds (the memory
+    and blackhole connectors are not ported yet)."""
     from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.connectors.tpcds import TpcdsConnector
 
     cm = CatalogManager()
     cm.register("tpch", TpchConnector())
+    cm.register("tpcds", TpcdsConnector())
     return cm

@@ -18,8 +18,10 @@ only the per-batch group states (the TPC-H Q1 shape), folding them every
 `fold_every` batches.  (The JAX package's non-streaming mode serves the
 holistic aggregates, which are not ported.)
 
-Ported aggregates: count(*), count, sum, avg, min, max, any_value, and
-MarkDistinctOperator (the mark column of mixed DISTINCT sets).  The
+Ported aggregates: count(*), count, sum, avg, min, max, any_value, the
+moment family (stddev_samp, stddev_pop, var_samp, var_pop: f64 sum, sum of
+squares and count states, merged by addition), and MarkDistinctOperator
+(the mark column of mixed DISTINCT sets).  The
 range-positional group path, the two-input aggregates and the
 holistic/sketch aggregates are not ported yet (integer group keys take the
 sort path).
@@ -57,7 +59,8 @@ from trino_tpu_torch.ops.common import (
 @dataclass(frozen=True)
 class AggSpec:
     """One SQL aggregate: name in {count, count_star, sum, min, max, avg,
-    any_value}, arg = input channel (None for count_star)."""
+    any_value, stddev_samp, stddev_pop, var_samp, var_pop}, arg = input
+    channel (None for count_star)."""
 
     name: str
     arg: Optional[int]
@@ -71,8 +74,13 @@ class AggSpec:
     arg2: Optional[int] = None
 
 
+#: the moment family: raw-sum states (reference: VarianceState)
+MOMENT = ("stddev_samp", "stddev_pop", "var_samp", "var_pop")
+
+
 def _primitives(spec: AggSpec):
-    """Primitive states per SQL aggregate (kinds: sum/count/min/max/any)."""
+    """Primitive states per SQL aggregate (kinds: sum/count/min/max/any,
+    and sum_f/sumsq, the f64 sum and sum of squares of the moments)."""
     if spec.name == "count_star":
         return [("count_star", None)]
     if spec.name == "count":
@@ -85,6 +93,10 @@ def _primitives(spec: AggSpec):
         return [("max", spec.arg), ("count", spec.arg)]
     if spec.name == "any_value":
         return [("any", spec.arg), ("count", spec.arg)]
+    if spec.name in MOMENT:
+        # reference: operator/aggregation VarianceState (count/mean/m2 as
+        # merged moments; here the raw-sum formulation merges by addition)
+        return [("sum_f", spec.arg), ("sumsq", spec.arg), ("count", spec.arg)]
     raise NotImplementedError(f"aggregate {spec.name}: not ported yet")
 
 
@@ -93,6 +105,8 @@ def _state_types(spec: AggSpec, input_types) -> list[T.Type]:
     for kind, arg in _primitives(spec):
         if kind in ("count", "count_star"):
             out.append(T.BIGINT)
+        elif kind in ("sum_f", "sumsq"):
+            out.append(T.DOUBLE)
         elif kind == "sum":
             t = input_types[arg]
             if isinstance(t, T.DecimalType):
@@ -108,12 +122,32 @@ def _state_types(spec: AggSpec, input_types) -> list[T.Type]:
 
 
 def _merge_primitives(spec: AggSpec):
-    """How each state column merges in FINAL/MERGE mode: counts are
-    already-reduced values and merge by adding."""
+    """How each state column merges in FINAL/MERGE mode: counts and moment
+    sums are already-reduced values and merge by adding."""
     return [
-        "sum" if kind in ("count", "count_star") else kind
+        "sum" if kind in ("count", "count_star", "sum_f", "sumsq") else kind
         for kind, _ in _primitives(spec)
     ]
+
+
+def _logical_double(d, t: T.Type):
+    """Raw device values -> logical float64 (decimal cents get descaled;
+    long-decimal limb planes are read as one 128-bit value)."""
+    if d.ndim == 2:
+        from trino_tpu_torch.types import int128 as i128
+
+        out = i128.to_float128(d[:, 0], d[:, 1])
+    else:
+        out = d.to(torch.float64)
+    if isinstance(t, T.DecimalType) and t.scale:
+        out = out / (10.0 ** t.scale)
+    return out
+
+
+def _moment_state(d, t: T.Type, kind: str):
+    """The f64 series a moment state sums: the value or its square."""
+    dl = _logical_double(d, t)
+    return dl * dl if kind == "sumsq" else dl
 
 
 def _reduce128(d, gid, nseg: int, kind: str, valid):
@@ -186,6 +220,19 @@ def _finalize(spec: AggSpec, states: list[Column]) -> Column:
     name = spec.name
     if name in ("count", "count_star"):
         return Column(states[0].data, T.BIGINT, None)
+    if name in MOMENT:
+        s, sq, cnt = states[0].data, states[1].data, states[2].data
+        n = cnt.to(torch.float64)
+        m2 = sq - torch.where(cnt > 0, s * s / n.clamp(min=1.0), 0.0)
+        m2 = m2.clamp(min=0.0)  # guard tiny negative rounding residue
+        if name in ("var_pop", "stddev_pop"):
+            var = m2 / n.clamp(min=1.0)
+            valid = cnt > 0
+        else:
+            var = m2 / (n - 1.0).clamp(min=1.0)
+            valid = cnt > 1
+        out = torch.sqrt(var) if name.startswith("stddev") else var
+        return Column(out, T.DOUBLE, valid)
     value, cnt = states[0], states[1]
     nonempty = cnt.data > 0
     out_dt = torch_dtype(spec.out_type.np_dtype)
@@ -668,6 +715,11 @@ class AggregationOperator:
             col = batch.columns[arg]
             d = col.data[perm]
             v = live if col.valid is None else torch.logical_and(live, col.valid[perm])
+            if kind in ("sum_f", "sumsq"):
+                dl = _moment_state(d, col.type, kind)
+                red = segment_reduce(dl, gid, nseg, "sum", valid=v)[:out_cap]
+                out.append(Column(red, T.DOUBLE, None))
+                continue
             if kind == "sum" and isinstance(st, T.DecimalType) and st.is_long:
                 prec = col.type.precision if isinstance(col.type, T.DecimalType) else None
                 red2 = _sum128(
@@ -716,6 +768,10 @@ class AggregationOperator:
                     col = batch.columns[arg]
                     v = live if col.valid is None else torch.logical_and(live, col.valid)
                     d = col.data
+                    if kind in ("sum_f", "sumsq"):
+                        red = _masked_reduce(_moment_state(d, col.type, kind), v, "sum")
+                        states.append(Column(red, T.DOUBLE, None))
+                        continue
                     if kind == "sum" and isinstance(st, T.DecimalType) and st.is_long:
                         prec = (
                             col.type.precision

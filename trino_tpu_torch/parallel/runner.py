@@ -108,7 +108,12 @@ from trino_tpu_torch.planner.fragmenter import (
     fragment_text,
 )
 from trino_tpu_torch.planner.functions import HOLISTIC_AGGS, PARTITIONABLE_HOLISTIC
-from trino_tpu_torch.runtime.local_planner import LocalExecutionPlanner, PhysicalPlan
+from trino_tpu_torch.planner.join_planning import collect_symbol_names
+from trino_tpu_torch.runtime.local_planner import (
+    LocalExecutionPlanner,
+    PhysicalPlan,
+    null_column,
+)
 from trino_tpu_torch.runtime.runner import LocalQueryRunner, MaterializedResult
 
 _DIST_KINDS = (SOURCE, FIXED_HASH, FIXED_ARBITRARY)
@@ -129,12 +134,14 @@ class _Dist:
     (symbol-name tuples the rows are exchange-hash-placed on), so a
     repartition of already-placed data is elided.  `realigned` records that
     rows were moved off the connector's default split alignment (an
-    exchange, a partitioned join, a host re-stack): the residual semi join
-    marks per shard only while both sides keep that alignment."""
+    exchange, a partitioned join, a host re-stack); `unaligned` names the
+    columns that left it while the rows did not (a broadcast join's build
+    columns now sit beside their probe matches): the residual semi join
+    marks per shard only while both sides' keys keep that alignment."""
 
     def __init__(self, stacked: Batch, symbols: list, ex=None, pending=(),
                  cap: Optional[int] = None, placements: tuple = (),
-                 realigned: bool = False):
+                 realigned: bool = False, unaligned: frozenset = frozenset()):
         self._stacked = stacked
         self.symbols = list(symbols)
         self.ex = ex
@@ -142,6 +149,7 @@ class _Dist:
         self.cap = cap if cap is not None else trailing_cap(stacked)
         self.placements = tuple(placements)
         self.realigned = realigned
+        self.unaligned = frozenset(unaligned)
 
     @property
     def stacked(self) -> Batch:
@@ -151,13 +159,19 @@ class _Dist:
         return self._stacked
 
     def defer(self, key_part, step, symbols=None, cap: Optional[int] = None,
-              placements: Optional[tuple] = None) -> "_Dist":
+              placements: Optional[tuple] = None,
+              unaligned: Optional[frozenset] = None) -> "_Dist":
         """Append a per-worker step lazily (a pure Batch -> Batch function;
         `key_part` fingerprints its semantics).  Placements survive
         symbol-preserving steps; a step that renames its output symbols must
-        pass the remapped `placements` (default: dropped)."""
+        pass the remapped `placements` (default: dropped) and `unaligned`
+        (default: every output column, once any input column is)."""
         if placements is None:
             placements = self.placements if symbols is None else ()
+        if unaligned is None:
+            unaligned = self.unaligned
+            if symbols is not None and unaligned:
+                unaligned = frozenset(s.name for s in symbols)
         return _Dist(
             self._stacked,
             self.symbols if symbols is None else symbols,
@@ -166,6 +180,7 @@ class _Dist:
             cap if cap is not None else self.cap,
             placements,
             self.realigned,
+            unaligned,
         )
 
     def channel(self, name: str) -> int:
@@ -295,9 +310,10 @@ class StageExecutor:
         return out if len(out) > 1 else out[0]
 
     def _dist(self, stacked: Batch, symbols: list, placements: tuple = (),
-              realigned: bool = False) -> _Dist:
+              realigned: bool = False, unaligned: frozenset = frozenset()) -> _Dist:
         return _Dist(
-            stacked, symbols, ex=self, placements=placements, realigned=realigned
+            stacked, symbols, ex=self, placements=placements, realigned=realigned,
+            unaligned=unaligned,
         )
 
     def _run_chain(self, stacked: Batch, pending: list) -> Batch:
@@ -552,6 +568,18 @@ class StageExecutor:
         if isinstance(result, _Dist):
             return result
         batches = list(result.stream)
+        if not batches and result.symbols:
+            # a coordinator fragment that produced no batch (a cross join
+            # over an empty side): one dead row of its layout, so the
+            # consuming stage sees an empty input, not a missing one.  The
+            # JAX package raises here.
+            dev = self.wm.device
+            batches = [
+                Batch(
+                    [null_column(s.type, 1, dev) for s in result.symbols],
+                    torch.zeros(1, dtype=torch.bool, device=dev),
+                )
+            ]
         host = concat_batches(batches) if batches else None
         if host is None or not host.width:
             raise NotImplementedError("empty single-fragment feed")
@@ -685,11 +713,18 @@ class StageExecutor:
             for t in src.placements
             if t and all(n in rename for n in t)
         )
+        # an output column is off the split alignment when any column it
+        # reads is
+        unaligned = frozenset(
+            s.name for s, e in node.assignments
+            if collect_symbol_names(e, set()) & src.unaligned
+        )
         return src.defer(
             ("project", tuple(e.key() for e in exprs), _sig(src.symbols)),
             step,
             symbols=[s for s, _ in node.assignments],
             placements=placements,
+            unaligned=unaligned,
         )
 
     # -- aggregation ----------------------------------------------------------
@@ -1032,6 +1067,8 @@ class StageExecutor:
                 probe.placements, node.criteria, node.kind
             ),
             realigned=probe.realigned or node.distribution != "broadcast",
+            # a broadcast build's rows join wherever their probe matches sit
+            unaligned=probe.unaligned | frozenset(s.name for s in build.symbols),
         )
 
     def _probe_search(self):
@@ -1296,9 +1333,12 @@ class StageExecutor:
             # exactly the key is hash-placed on it too
             src_placed = any(t == (node.source_key.name,) for t in src.placements)
             filt_placed = any(t == (node.filtering_key.name,) for t in filt.placements)
-            if self.colocate and (
-                src_placed or filt_placed or src.realigned or filt.realigned
-            ):
+            moved = (
+                src.realigned or filt.realigned
+                or node.source_key.name in src.unaligned
+                or node.filtering_key.name in filt.unaligned
+            )
+            if self.colocate and (src_placed or filt_placed or moved):
                 if src_placed:
                     self.bump("exchange_elided")
                 else:
@@ -1338,7 +1378,7 @@ class StageExecutor:
             )
             return self._dist(
                 out, src.symbols + [node.mark], placements=src.placements,
-                realigned=src.realigned,
+                realigned=src.realigned, unaligned=src.unaligned,
             )
 
         op = SemiJoinOperator(sk, fk, filtering_types, null_aware=node.null_aware)
@@ -1365,7 +1405,7 @@ class StageExecutor:
         out = mark(src.stacked, bcast)
         return self._dist(
             out, src.symbols + [node.mark], placements=src.placements,
-            realigned=src.realigned,
+            realigned=src.realigned, unaligned=src.unaligned,
         )
 
     def _repartition_side(self, side: _Dist, chans: list) -> _Dist:

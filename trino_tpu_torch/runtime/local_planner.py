@@ -12,7 +12,9 @@ the aggregation's per-batch step, FILTER clauses folded into the
 aggregate inputs, DISTINCT aggregates through a dedupe pre-aggregation),
 MarkDistinct, Join (inner, left, right as a flipped left, full, and cross
 as a nested loop), SemiJoin (IN and EXISTS marks, with a residual over
-source ++ filtering symbols), Sort, TopN, Limit and Output.  Any other
+source ++ filtering symbols), Union (INTERSECT, EXCEPT and ROLLUP plan
+through it), EnforceSingleRow, Exchange (a pass-through; a merge
+re-sorts), Sort, TopN, Limit and Output.  Any other
 node raises NotImplementedError naming it (window and unnest among them).
 Memory budgets and their partition-wave machinery are not ported yet.
 """
@@ -24,7 +26,7 @@ from typing import Iterable
 import torch
 
 from trino_tpu_torch import types as T
-from trino_tpu_torch.columnar import Batch
+from trino_tpu_torch.columnar import Batch, Column
 from trino_tpu_torch.connectors.api import CatalogManager
 from trino_tpu_torch.expr import ExprCompiler
 from trino_tpu_torch.expr.ir import (
@@ -418,6 +420,63 @@ class LocalExecutionPlanner:
         op = LimitOperator(node.count, getattr(node, "offset", 0))
         return PhysicalPlan(op.process(src.stream), src.symbols)
 
+    # -- shape nodes ----------------------------------------------------------
+
+    def _visit_UnionNode(self, node: P.UnionNode) -> PhysicalPlan:
+        def stream():
+            for child, mapping in zip(node.sources, node.source_symbols):
+                sub = self.plan(child)
+                exprs = []
+                for m, out in zip(mapping, node.symbols):
+                    if m.type.name == "unknown":
+                        # a NULL-literal branch column: no castable values
+                        exprs.append(Literal(None, out.type))
+                        continue
+                    e: Expr = InputRef(sub.channel(m.name), m.type)
+                    if m.type.name != out.type.name:
+                        # branch type narrower than the union's unified type
+                        # (e.g. decimal cents unioned with double): a real
+                        # CAST, not a relabel — decimals must descale
+                        e = SpecialForm(Form.CAST, [e], out.type)
+                    exprs.append(e)
+                proj = FilterProjectOperator(None, exprs)
+                yield from proj.process(sub.stream)
+
+        return PhysicalPlan(stream(), node.symbols)
+
+    def _visit_EnforceSingleRowNode(self, node: P.EnforceSingleRowNode) -> PhysicalPlan:
+        src = self.plan(node.source)
+        device = self.device
+
+        def stream():
+            total = 0
+            emitted = False
+            for b in src.stream:
+                n = b.num_rows_host()
+                total += n
+                if total > 1:
+                    raise RuntimeError("Scalar sub-query has returned multiple rows")
+                if n:
+                    emitted = True
+                    yield b
+            if not emitted:
+                # no rows: one all-NULL row, built on the planner's device
+                yield Batch(
+                    [null_column(s.type, 1, device) for s in src.symbols],
+                    torch.ones(1, dtype=torch.bool, device=device),
+                )
+
+        return PhysicalPlan(stream(), src.symbols)
+
+    def _visit_ExchangeNode(self, node: P.ExchangeNode) -> PhysicalPlan:
+        # single-process execution: exchanges are pass-through; merge
+        # exchanges re-sort to restore global order
+        src = self.plan(node.source)
+        if node.kind == "merge" and node.orderings:
+            op = OrderByOperator(self._sort_keys(src, node.orderings))
+            return PhysicalPlan(op.process(src.stream), src.symbols)
+        return PhysicalPlan(src.stream, src.symbols)
+
     def _visit_OutputNode(self, node: P.OutputNode) -> PhysicalPlan:
         src = self.plan(node.source)
         if [s.name for s in src.symbols] != [s.name for s in node.symbols]:
@@ -509,6 +568,19 @@ def build_distinct_dedupe(node: "P.AggregationNode", src) -> tuple:
     proj += [src.rewrite(a) for a in args0]
     symbols = list(node.group_symbols) + [P.Symbol(a.name, a.type) for a in args0]
     return proj, symbols
+
+
+def null_column(t: T.Type, n: int, device: torch.device) -> Column:
+    """`n` NULLs of type `t` on `device` (a long decimal as [n, 2] limbs;
+    a string kind with an empty dictionary)."""
+    from trino_tpu_torch.columnar.column import torch_dtype
+    from trino_tpu_torch.columnar.dictionary import StringDictionary
+
+    shape = (n, 2) if isinstance(t, T.DecimalType) and t.is_long else (n,)
+    data = torch.zeros(shape, dtype=torch_dtype(t.np_dtype), device=device)
+    valid = torch.zeros(n, dtype=torch.bool, device=device)
+    d = StringDictionary([]) if T.is_string_kind(t) else None
+    return Column(data, t, valid, d)
 
 
 def _host_minmax(batches, channel: int):

@@ -62,6 +62,14 @@ catches nothing and never falls back to the CPU):
      planning time (ORDER BY keys in order, rows as a multiset where the
      ORDER BY leaves ties, keys only for the tie group a LIMIT cuts
      through: trino_tpu_torch/testing.py);
+  5e. TPC-DS with windows: the 14 windowed TPC-DS queries the JAX package
+     answers (q12, q20, q36, q44, q47, q49, q53, q57, q63, q67, q70, q86,
+     q89, q98) at tpcds.sf1, run and checked as in phase 5d (the reference
+     process computes them after phase 5d's queries); the cold runs log
+     every window step (its input rows, each mesh worker's rows, the
+     long-decimal sum/avg path: licensed or limb); one profiled warm mesh
+     run of the query with the largest window input; q51 must raise the
+     JAX package's NotImplementedError, local and mesh;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -73,7 +81,8 @@ catches nothing and never falls back to the CPU):
      version, the torch.searchsorted yardstick and the bound; also bit-exact
      at the inputs of the largest and of the smallest-n_match semi-join
      launch of phase 5b, and timed at the largest; bit-exact and timed at
-     the inputs of the largest launch of phases 5c and 5d;
+     the inputs of the largest launch of phases 5c and 5d; bit-exact at
+     the largest launch of phase 5e;
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -113,9 +122,15 @@ FUNC_QIDS = (2, 7, 8, 9, 10, 13, 14, 15, 16, 17, 20, 22)
 #: the phase 5c mesh queries that hold a join the sorted-probe kernel takes
 #: (Q22's only join is the cross join with its scalar subquery)
 FUNC_PROBE_QIDS = (2, 7, 8, 9, 10, 13, 14, 15, 16, 17, 20)
-#: phase 5d: the TPC-DS queries with a window function (not ported yet);
-#: the other 84 run
+#: phase 5e: the TPC-DS queries with a window function; phase 5d runs the
+#: other 84
 TPCDS_WINDOW_QIDS = frozenset({12, 20, 36, 44, 47, 49, 51, 53, 57, 63, 67, 70, 86, 89, 98})
+#: q51 raises in the JAX package (a running max over a decimal(38,2) sum),
+#: and must raise the same error in the port, local and mesh
+TPCDS_RAISING = {
+    51: "window min/max over a long-decimal input column "
+        "(cast to decimal(18,s) or double first)",
+}
 #: the phase 5d queries that run below sf1: q72's plan (the JAX package's
 #: join order, which the port keeps) joins catalog_sales to inventory
 #: before any filter, ~940 M rows at sf1, beyond the card's memory without
@@ -821,10 +836,15 @@ def run_function_path(record: dict) -> dict:
 # -- phase 5d: TPC-DS without windows -------------------------------------------
 
 
-def tpcds_qids() -> list:
+def tpcds_qids(windowed: bool = False) -> list:
+    """Phase 5d's queries (no window function), or phase 5e's (the windowed
+    queries the JAX package answers)."""
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
 
-    return [q for q in sorted(QUERIES) if q not in TPCDS_WINDOW_QIDS]
+    return [
+        q for q in sorted(QUERIES)
+        if (q in TPCDS_WINDOW_QIDS) == windowed and q not in TPCDS_RAISING
+    ]
 
 
 def _pin_to_cores(upper: bool) -> str:
@@ -845,7 +865,8 @@ def tpcds_cpu_reference(out_path: str) -> int:
     """The child process: the port's CPU run (device="cpu") of every phase
     5d query, pickled to `out_path` as {qid: (column names, type names,
     rows, seconds, the query's ORDER BY and LIMIT, host planning
-    seconds)}.  It runs beside the card phases, on its own cores."""
+    seconds)}, then of every phase 5e query, pickled to `out_path` +
+    ".window".  It runs beside the card phases, on its own cores."""
     import pickle
 
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
@@ -854,21 +875,22 @@ def tpcds_cpu_reference(out_path: str) -> int:
 
     log(f"tpcds cpu reference: {_pin_to_cores(upper=True)}")
     runners = {}
-    out = {}
-    for q in tpcds_qids():
-        schema = TPCDS_SCHEMA.get(q, "sf1")
-        if schema not in runners:
-            runners[schema] = LocalQueryRunner(catalog="tpcds", schema=schema, device="cpu")
-        t0 = time.perf_counter()
-        order = result_order(runners[schema].create_plan(QUERIES[q]))
-        plan_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        res = runners[schema].execute(QUERIES[q])
-        out[q] = (res.column_names, [t.name for t in res.types], res.rows,
-                  time.perf_counter() - t0, order, plan_s)
-    with open(out_path + ".part", "wb") as f:
-        pickle.dump(out, f)
-    os.replace(out_path + ".part", out_path)
+    for windowed, path in ((False, out_path), (True, out_path + ".window")):
+        out = {}
+        for q in tpcds_qids(windowed):
+            schema = TPCDS_SCHEMA.get(q, "sf1")
+            if schema not in runners:
+                runners[schema] = LocalQueryRunner(catalog="tpcds", schema=schema, device="cpu")
+            t0 = time.perf_counter()
+            order = result_order(runners[schema].create_plan(QUERIES[q]))
+            plan_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = runners[schema].execute(QUERIES[q])
+            out[q] = (res.column_names, [t.name for t in res.types], res.rows,
+                      time.perf_counter() - t0, order, plan_s)
+        with open(path + ".part", "wb") as f:
+            pickle.dump(out, f)
+        os.replace(path + ".part", path)
     return 0
 
 
@@ -884,18 +906,28 @@ def start_tpcds_reference(here: str):
     return proc, path
 
 
-def wait_tpcds_reference(proc, path: str) -> dict:
+def wait_tpcds_reference(proc, path: str, windowed: bool) -> dict:
+    """The reference's phase 5d results (as soon as they are written) or
+    its phase 5e results (after the process has ended)."""
     import pickle
     import shutil
 
     t0 = time.perf_counter()
-    rc = proc.wait()
-    log(f"tpcds cpu reference: exit {rc}, waited {time.perf_counter() - t0:.1f} s")
-    if rc != 0:
+    if windowed:
+        path += ".window"
+        rc = proc.wait()
+    else:
+        while not os.path.exists(path) and proc.poll() is None:
+            time.sleep(0.5)
+        rc = proc.poll() or 0
+    log(f"tpcds cpu reference ({'5e' if windowed else '5d'}): exit {rc}, "
+        f"waited {time.perf_counter() - t0:.1f} s")
+    if rc != 0 or not os.path.exists(path):
         raise AssertionError(f"the TPC-DS CPU reference process failed with exit code {rc}")
     with open(path, "rb") as f:
         out = pickle.load(f)
-    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    if windowed:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
     return out
 
 
@@ -923,80 +955,84 @@ def eligibility_recording_search(record: dict):
     return original, probe_search
 
 
-def run_tpcds_path(record: dict, reference) -> dict:
-    """Phase 5d: the 84 TPC-DS queries without a window function through the
-    local runner on the card and on the 4-worker mesh (default knobs), cold
-    and warm, each held to the port's CPU run (the reference process).  The
+#: the TPC-DS runners of phases 5d and 5e, by (where, schema)
+_TPCDS_RUNNERS: dict = {}
+
+
+def tpcds_runner(where: str, schema: str):
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    if (where, schema) not in _TPCDS_RUNNERS:
+        _TPCDS_RUNNERS[where, schema] = (
+            LocalQueryRunner(catalog="tpcds", schema=schema) if where == "local"
+            else DistributedQueryRunner(catalog="tpcds", schema=schema, n_workers=MESH_WORKERS)
+        )
+    return _TPCDS_RUNNERS[where, schema]
+
+
+def run_tpcds_path(record: dict, reference, windowed: bool = False, windows=None) -> dict:
+    """Phase 5d (or, `windowed`, 5e): its TPC-DS queries through the local
+    runner on the card and on the 4-worker mesh (default knobs), cold and
+    warm, each held to the port's CPU run (the reference process).  The
     cold mesh run of each query records its sorted-probe launches' shapes
-    and keeps the inputs of the largest (one host read per launch).  Every
+    and keeps the inputs of the largest (one host read per launch); with
+    `windows`, the cold runs also record every window step's input.  Every
     mesh search whose key planes the kernel takes must launch it: each mesh
     run launches at least as many times as it made such searches, and a
     query with one launches at least once."""
-    from trino_tpu_torch.connectors.tpcds.queries import QUERIES
     from trino_tpu_torch.ops import locate_sorted as ls
-    from trino_tpu_torch.parallel.runner import DistributedQueryRunner, StageExecutor
-    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.parallel.runner import StageExecutor
     from trino_tpu_torch.testing import assert_rows_match
 
-    qids = tpcds_qids()
-    runners = {}
-
-    def runner(where: str, schema: str):
-        if (where, schema) not in runners:
-            runners[where, schema] = (
-                LocalQueryRunner(catalog="tpcds", schema=schema) if where == "local"
-                else DistributedQueryRunner(
-                    catalog="tpcds", schema=schema, n_workers=MESH_WORKERS
-                )
-            )
-        return runners[where, schema]
-
+    label = "tpcds window" if windowed else "tpcds"
+    qids = tpcds_qids(windowed)
     kernel, recording = shape_recording_probe(record)
     original_search, eligible_search = eligibility_recording_search(record)
     results = {}
     per_query = {}
-    log(f"tpcds: {len(qids)} queries, local and mesh; at sf0_1 only: "
-        f"{sorted(TPCDS_SCHEMA)} (see TPCDS_SCHEMA)")
+    log(f"{label}: {len(qids)} queries, local and mesh; at sf0_1 only: "
+        f"{sorted(set(TPCDS_SCHEMA) & set(qids))} (see TPCDS_SCHEMA)")
     StageExecutor._probe_search = eligible_search
     try:
-        _tpcds_runs(qids, runner, record, results, per_query, kernel, recording)
+        _tpcds_runs(qids, record, results, per_query, kernel, recording, windows)
     finally:
         StageExecutor._probe_search = original_search
     launches = ls.locate_sorted.launches  # read just after the path
-    log(f"tpcds path: locate_sorted launches={launches}")
+    log(f"{label} path: locate_sorted launches={launches}")
     if launches <= 0:
-        raise AssertionError("the TPC-DS path never launched locate_sorted")
+        raise AssertionError(f"the {label} path never launched locate_sorted")
     for q in qids:
         shapes = record.get("shapes", {}).get(f"q{q}", [])
         largest = max(shapes, key=lambda t: t[0] * max(t[1], 1), default=None)
-        log(f"tpcds q{q}_mesh sorted-probe launches={per_query[q]} "
+        log(f"{label} q{q}_mesh sorted-probe launches={per_query[q]} "
             f"largest (P, cap_b, n_match, S)={largest}")
     for (q, where), (res, cold, warm) in results.items():
-        log(f"tpcds q{q}_{where}: cold_s={cold!r} warm_s={warm!r} rows={len(res.rows)}")
-    expected_all = reference()
+        log(f"{label} q{q}_{where}: cold_s={cold!r} warm_s={warm!r} rows={len(res.rows)}")
+    expected_all = reference(windowed)
     empty = []
     for q in qids:
         names, types, rows, cpu_s, order, plan_s = expected_all[q]
         for where in ("local", "mesh"):
             actual = results[q, where][0]
             if actual.column_names != names or [t.name for t in actual.types] != types:
-                raise AssertionError(f"tpcds q{q}_{where}: columns differ from the CPU run")
+                raise AssertionError(f"{label} q{q}_{where}: columns differ from the CPU run")
             try:
                 assert_rows_match(actual.rows, rows, order, float_rtol=DOUBLE_RTOL)
             except AssertionError as e:
-                raise AssertionError(f"tpcds q{q}_{where}: {e}") from None
+                raise AssertionError(f"{label} q{q}_{where}: {e}") from None
         if not rows:
             empty.append(q)
-        log(f"tpcds q{q}: local and mesh match the CPU run ({len(rows)} rows, "
+        log(f"{label} q{q}: local and mesh match the CPU run ({len(rows)} rows, "
             f"cpu wall_s={cpu_s!r}, cpu plan_s={plan_s!r})")
-    log(f"tpcds: all {len(qids)} queries match the CPU run, local and mesh; "
+    log(f"{label}: all {len(qids)} queries match the CPU run, local and mesh; "
         f"empty results: {empty}")
     return {"launches": launches, "per_query": per_query}
 
 
-def _tpcds_runs(qids, runner, record, results, per_query, kernel, recording) -> None:
-    """Phase 5d's timed runs: each query local, then mesh, cold and warm,
-    then the profiled warm runs."""
+def _tpcds_runs(qids, record, results, per_query, kernel, recording, windows) -> None:
+    """The timed runs of phase 5d or 5e: each query local, then mesh, cold
+    and warm; phase 5d's profiled warm runs follow."""
     import trino_tpu_torch.parallel.runner as mesh_runner
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
     from trino_tpu_torch.ops import locate_sorted as ls
@@ -1005,13 +1041,15 @@ def _tpcds_runs(qids, runner, record, results, per_query, kernel, recording) -> 
     for where in ("local", "mesh"):
         for q in qids:
             schema = TPCDS_SCHEMA.get(q, "sf1")
-            r = runner(where, schema)
+            r = tpcds_runner(where, schema)
             walls = []
             for attempt in ("cold", "warm"):
                 capture = where == "mesh" and attempt == "cold"
                 if capture:
                     record["query"] = f"q{q}"
                     mesh_runner.locate_sorted = recording
+                if windows is not None:
+                    windows["query"] = (q, where) if attempt == "cold" else None
                 before = ls.locate_sorted.launches
                 eligible_before = record.get("eligible", 0)
                 torch.cuda.reset_peak_memory_stats()
@@ -1021,6 +1059,8 @@ def _tpcds_runs(qids, runner, record, results, per_query, kernel, recording) -> 
                     wall = time.perf_counter() - t0
                 finally:
                     mesh_runner.locate_sorted = kernel
+                    if windows is not None:
+                        windows["query"] = None
                 walls.append(wall)
                 launched = ls.locate_sorted.launches - before
                 eligible = record.get("eligible", 0) - eligible_before
@@ -1039,8 +1079,97 @@ def _tpcds_runs(qids, runner, record, results, per_query, kernel, recording) -> 
                     f"rows={len(res.rows)}"
                 )
             results[q, where] = (res, walls[0], walls[1])
-    for q, where in TPCDS_PROFILES:
-        profile_warm(f"tpcds_q{q}_{where}", runner(where, TPCDS_SCHEMA.get(q, "sf1")), QUERIES[q])
+    if windows is None:
+        for q, where in TPCDS_PROFILES:
+            profile_warm(
+                f"tpcds_q{q}_{where}", tpcds_runner(where, TPCDS_SCHEMA.get(q, "sf1")),
+                QUERIES[q],
+            )
+
+
+# -- phase 5e: TPC-DS with windows ----------------------------------------------
+
+
+def window_recording_step(windows: dict):
+    """(original, stand-in) for WindowOperator._window_step: while
+    windows["query"] names a (query, where) run, the stand-in notes, for
+    every step, its operator (one WindowNode; on the mesh each worker's
+    shard is one step), the live input rows and capacity (host reads), and
+    the long-decimal sum/avg paths it took (licensed "proven" or "limb")."""
+    from trino_tpu_torch.ops.aggregation import DECIMAL_FASTPATH
+    from trino_tpu_torch.ops.window import WindowOperator
+
+    original = WindowOperator._window_step
+
+    def step(self, batch):
+        key = windows.get("query")
+        if key is None:
+            return original(self, batch)
+        before = dict(DECIMAL_FASTPATH)
+        out = original(self, batch)
+        paths = {k: v - before.get(k, 0) for k, v in DECIMAL_FASTPATH.items()
+                 if v != before.get(k, 0)}
+        if not hasattr(self, "smoke_node"):
+            self.smoke_node = windows["nodes"] = windows.get("nodes", 0) + 1
+        windows.setdefault(key, {}).setdefault(self.smoke_node, []).append(
+            (int(batch.count()), batch.capacity, paths)
+        )
+        return out
+
+    return original, step
+
+
+def run_tpcds_window_path(record: dict, reference) -> dict:
+    """Phase 5e: the windowed TPC-DS queries the JAX package answers, as
+    phase 5d runs its queries, with every window step's input logged (input
+    rows, the largest worker's rows on the mesh, the long-decimal paths);
+    one profiled warm mesh run of the query with the largest window input;
+    q51 must raise the JAX package's NotImplementedError, local and mesh."""
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES
+    from trino_tpu_torch.ops.window import WindowOperator
+
+    windows: dict = {"query": None}
+    original, step = window_recording_step(windows)
+    WindowOperator._window_step = step
+    try:
+        out = run_tpcds_path(record, reference, windowed=True, windows=windows)
+    finally:
+        WindowOperator._window_step = original
+    input_rows = {}
+    for q in tpcds_qids(windowed=True):
+        for where in ("local", "mesh"):
+            nodes = windows.get((q, where), {})
+            if not nodes:
+                raise AssertionError(f"tpcds window q{q}_{where}: no window step ran")
+            for i, (node, steps) in enumerate(sorted(nodes.items())):
+                rows = [n for n, _, _ in steps]
+                paths = {}
+                for _, _, p in steps:
+                    for k, v in p.items():
+                        paths[k] = paths.get(k, 0) + v
+                log(f"tpcds window q{q}_{where} node {i}: input_rows={sum(rows)} "
+                    f"steps={len(steps)} rows_per_step={rows} "
+                    f"largest_step_rows={max(rows)} capacities={[c for _, c, _ in steps]} "
+                    f"long_decimal_paths={paths or 'none'}")
+                if where == "local":
+                    input_rows[q] = max(input_rows.get(q, 0), sum(rows))
+    largest = max(input_rows, key=input_rows.get)
+    log(f"tpcds window: the largest window input is q{largest}'s "
+        f"({input_rows[largest]} rows into one window step; predicted q67)")
+    profile_warm(f"tpcds_window_q{largest}_mesh", tpcds_runner("mesh", "sf1"), QUERIES[largest])
+    for q, message in TPCDS_RAISING.items():
+        for where in ("local", "mesh"):
+            try:
+                tpcds_runner(where, "sf1").execute(QUERIES[q])
+            except NotImplementedError as e:
+                if str(e) != message:
+                    raise AssertionError(f"tpcds q{q}_{where} raised {e!r}") from None
+                log(f"tpcds q{q}_{where}: raised NotImplementedError({message!r}) "
+                    f"as the JAX package does")
+            else:
+                raise AssertionError(f"tpcds q{q}_{where}: ran; the JAX package raises")
+    out["largest_window_query"] = largest
+    return out
 
 
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
@@ -1116,7 +1245,8 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes
 
 
-def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict) -> dict:
+def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
+                        tdw: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -1127,11 +1257,14 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict) -
         raise AssertionError("no sorted-probe launch was captured in phase 5c")
     if "largest" not in tds:
         raise AssertionError("no sorted-probe launch was captured in phase 5d")
+    if "largest" not in tdw:
+        raise AssertionError("no sorted-probe launch was captured in phase 5e")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
     cases += [(f"function_largest_{func['largest_query']}",) + func["largest"]]
     cases += [(f"tpcds_largest_{tds['largest_query']}",) + tds["largest"]]
+    cases += [(f"tpcds_window_largest_{tdw['largest_query']}",) + tdw["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -1221,7 +1354,9 @@ def main() -> int:
     # phase 5d's CPU reference runs beside every card phase, on its own cores
     reference, reference_path = start_tpcds_reference(here)
     try:
-        return drive(here, lambda: wait_tpcds_reference(reference, reference_path))
+        return drive(
+            here, lambda windowed: wait_tpcds_reference(reference, reference_path, windowed)
+        )
     finally:
         if reference.poll() is None:
             reference.kill()
@@ -1268,11 +1403,13 @@ def drive(here: str, tpcds_reference) -> int:
     func_path = timed("5c", run_function_path, func)
     tds: dict = {}
     tds_path = timed("5d", run_tpcds_path, tds, tpcds_reference)
-    k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds)
+    tdw: dict = {}
+    tdw_path = timed("5e", run_tpcds_window_path, tdw, tpcds_reference)
+    k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
-        + tds_path["launches"]
+        + tds_path["launches"] + tdw_path["launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -1281,6 +1418,8 @@ def drive(here: str, tpcds_reference) -> int:
         "functions_distinct_per_mesh_query": func_path["per_query"],
         "tpcds": tds_path["launches"],
         "tpcds_per_mesh_query": tds_path["per_query"],
+        "tpcds_window": tdw_path["launches"],
+        "tpcds_window_per_mesh_query": tdw_path["per_query"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

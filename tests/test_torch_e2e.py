@@ -105,8 +105,11 @@ def assert_same_rows(actual, expected, ordered: bool, float_rtol: float):
                     va, ve, ra, re,
                 )
             else:
-                # ints, Decimals, strings, dates, NULLs: exact, same type
+                # ints, Decimals (their scale too), strings, dates, NULLs:
+                # exact, same type
                 assert type(va) is type(ve) and va == ve, (va, ve, ra, re)
+                if isinstance(ve, Decimal):
+                    assert str(va) == str(ve), (va, ve, ra, re)
 
 
 @pytest.mark.parametrize("pallas", [False, True], ids=["default", "pallas_agg"])
@@ -158,8 +161,8 @@ def test_session_and_use_statements():
     r.execute("set session page_rows = 4096")
     assert r.properties.get("page_rows") == 4096
     assert r.execute("select count(*) from nation").rows == [(25,)]
-    # joins, semi joins and LIKE run in the port; window functions are
-    # still out of it
+    # joins, semi joins, LIKE and window functions run in the port;
+    # TABLESAMPLE is still out of it
     joined = r.execute(
         "select n_name, r_name from nation join region "
         "on n_regionkey = r_regionkey"
@@ -172,5 +175,7 @@ def test_session_and_use_statements():
     assert len(semi.rows) == 5
     liked = r.execute("select n_name from nation where n_name like 'A%'")
     assert sorted(row[0] for row in liked.rows) == ["ALGERIA", "ARGENTINA"]
-    with pytest.raises(NotImplementedError, match="Window"):
-        r.execute("select rank() over (order by n_name) from nation")
+    ranked = r.execute("select rank() over (order by n_name) from nation")
+    assert sorted(row[0] for row in ranked.rows) == list(range(1, 26))
+    with pytest.raises(NotImplementedError, match="SampleNode"):
+        r.execute("select n_name from nation tablesample bernoulli (50)")

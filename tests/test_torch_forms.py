@@ -33,6 +33,8 @@ from trino_tpu_torch.expr import ExprCompiler as TCompiler
 from trino_tpu_torch.expr import ir as tir
 from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
+from test_torch_e2e import assert_same_rows
+
 N = 257
 MODES = ["AIR", "MAIL", "RAIL", "SHIP", "TRUCK"]
 CITIES = ["LIMA", "MAIL", "OSLO", "ROME"]
@@ -204,4 +206,4 @@ def test_forms_in_sql_match_jax(runners, name):
     actual = port_runner.execute(SQL[name])
     assert actual.column_names == expected.column_names
     assert len(expected.rows) > 0
-    assert [repr(tuple(r)) for r in actual.rows] == [repr(tuple(r)) for r in expected.rows]
+    assert_same_rows(actual.rows, expected.rows, ordered=True, float_rtol=1e-9)

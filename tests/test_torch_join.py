@@ -30,6 +30,8 @@ from trino_tpu_torch.columnar import Batch as TBatch, Column as TColumn
 from trino_tpu_torch.ops import join as tjoin
 from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
+from test_torch_e2e import assert_same_rows
+
 _TYPES = {
     "bigint": (JT.BIGINT, TT.BIGINT),
     "integer": (JT.INTEGER, TT.INTEGER),
@@ -230,12 +232,9 @@ def runners():
 
 def same_rows(actual, expected, ordered: bool) -> None:
     """Exact equality of values and their Python types (Decimal scale
-    included, through repr); sorted rows when the order is not defined."""
-    a = [repr(tuple(r)) for r in actual]
-    e = [repr(tuple(r)) for r in expected]
-    if not ordered:
-        a, e = sorted(a), sorted(e)
-    assert a == e
+    included), doubles to relative 1e-9; sorted rows when the order is not
+    defined."""
+    assert_same_rows(actual, expected, ordered, float_rtol=1e-9)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -265,7 +264,7 @@ UNPORTED = {
     "holistic_aggregate": (
         "select o_orderstatus, array_agg(o_custkey) from orders group by 1", "array_agg"
     ),
-    "window": ("select rank() over (order by o_custkey) from orders", "Window"),
+    "sample": ("select o_custkey from orders tablesample bernoulli (10)", "SampleNode"),
     "array_form": ("select array[1, 2]", "special form array"),
 }
 
@@ -273,9 +272,9 @@ UNPORTED = {
 @pytest.mark.parametrize("piece", list(UNPORTED))
 def test_unported_pieces_raise(runners, piece):
     """Each piece still unported raises NotImplementedError naming it,
-    never wrong rows (LIKE, year, substr, long-decimal division and
-    DISTINCT aggregates now run: see test_torch_functions.py and
-    test_torch_distinct.py)."""
+    never wrong rows (LIKE, year, substr, long-decimal division, DISTINCT
+    aggregates and window functions now run: see test_torch_functions.py,
+    test_torch_distinct.py and test_torch_window.py)."""
     _, port_runner = runners
     sql, name = UNPORTED[piece]
     with pytest.raises(NotImplementedError, match=name):

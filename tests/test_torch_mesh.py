@@ -41,6 +41,8 @@ from trino_tpu_torch.parallel import DistributedQueryRunner
 from trino_tpu_torch.parallel import exchange as tex
 from trino_tpu_torch.parallel.spmd import WorkerMesh, shard, stack_batches
 
+from test_torch_e2e import assert_same_rows
+
 W = 4
 
 _TYPES = {
@@ -213,7 +215,7 @@ def test_mesh_queries_match_jax(jax_mesh, port_mesh, qid, settings):
     assert actual.column_names == expected.column_names
     assert len(expected.rows) > 0
     # exact values and Python types, in order (the ORDER BY keys are unique)
-    assert [repr(tuple(r)) for r in actual.rows] == [repr(tuple(r)) for r in expected.rows]
+    assert_same_rows(actual.rows, expected.rows, ordered=True, float_rtol=1e-9)
     ran_kernel_path = ls.locate_sorted_reference.launches - before
     if "pallas_probe = true" in settings:
         assert ran_kernel_path > 0
@@ -241,7 +243,7 @@ MORE_SHAPES = {
 @pytest.mark.parametrize("name", list(MORE_SHAPES))
 def test_more_mesh_shapes_match_jax(jax_mesh, port_mesh, name):
     expected, actual = _run_both(jax_mesh, port_mesh, MORE_SHAPES[name], [])
-    assert [repr(tuple(r)) for r in actual.rows] == [repr(tuple(r)) for r in expected.rows]
+    assert_same_rows(actual.rows, expected.rows, ordered=True, float_rtol=1e-9)
 
 
 def test_mesh_runner_matches_local_runner(port_mesh):

@@ -42,6 +42,8 @@ from trino_tpu_torch.ops import locate_sorted as ls
 from trino_tpu_torch.parallel import DistributedQueryRunner
 from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
+from test_torch_e2e import assert_same_rows
+
 _TYPES = {"bigint": (JT.BIGINT, TT.BIGINT), "integer": (JT.INTEGER, TT.INTEGER)}
 
 
@@ -171,9 +173,9 @@ def runners():
 
 
 def _same_rows(actual, expected) -> None:
-    """Exact values and Python types (Decimal scale included, through
-    repr), in order: every query's ORDER BY gives one order here."""
-    assert [repr(tuple(r)) for r in actual] == [repr(tuple(r)) for r in expected]
+    """Exact values and Python types (Decimal scale included), doubles to
+    relative 1e-9, in order: every query's ORDER BY gives one order here."""
+    assert_same_rows(actual, expected, ordered=True, float_rtol=1e-9)
 
 
 @pytest.mark.parametrize("qid", LOCAL_QIDS)

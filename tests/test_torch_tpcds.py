@@ -7,7 +7,7 @@ dictionary entries); so are the row counts, the table statistics the
 optimizer reads, the split layout and the global dictionaries.
 
 The query tests (tests/test_torch_tpcds_{union,rollup,setops,subquery,
-star}.py in tier-1, tests/test_torch_tpcds_slow.py marked `slow`) hold
+star,window}.py in tier-1, tests/test_torch_tpcds_slow.py marked `slow`) hold
 each query's rows through the port's LocalQueryRunner and through its
 4-worker mesh with `pallas_probe` on (the sorted-probe kernel's plain
 version must then run wherever a mesh join takes it) against ONE JAX
@@ -33,10 +33,15 @@ from trino_tpu_torch.parallel import DistributedQueryRunner
 from trino_tpu_torch.runtime.runner import LocalQueryRunner
 from trino_tpu_torch.testing import assert_rows_match, result_order
 
-#: the TPC-DS queries with a window function (the next slice)
+#: the TPC-DS queries with a window function (the eighth slice's)
 WINDOW_QIDS = frozenset({12, 20, 36, 44, 47, 49, 51, 53, 57, 63, 67, 70, 86, 89, 98})
-#: the 84 queries without one
-NO_WINDOW_QIDS = tuple(q for q in sorted(QUERIES) if q not in WINDOW_QIDS)
+#: all 99 queries
+ALL_QIDS = tuple(sorted(QUERIES))
+#: queries that raise in both packages: q51 takes a running max over a
+#: decimal(38,2) sum, and the window's min/max over a long decimal is not
+#: implemented in the JAX package (tests/KNOWN_FAILURES.md), so the port
+#: raises the same NotImplementedError
+RAISING_QIDS = frozenset({51})
 #: queries whose mesh plan has no join the sorted probe takes: q9 and q28
 #: are scalar subqueries under cross joins, q5's and q43's joins all run
 #: in coordinator fragments (over a union, over small filtered dimensions)

@@ -13,7 +13,9 @@ a seeded numpy generator, and tpcds.tiny tables.
     long decimals, where the JAX package raises, against short ones);
   * a mesh stage fed by a coordinator fragment that produced no batch;
   * a residual EXISTS on the mesh whose source key is a broadcast join's
-    build column (the JAX mesh loses a match there).
+    build column (the JAX mesh loses a match there);
+  * a partitioned FULL join on the mesh whose probe side holds a long
+    decimal (the JAX mesh fails to concatenate its unmatched rows there).
 
 Every statement runs through the port's LocalQueryRunner and its 4-worker
 mesh; rows compare under the statement's ORDER BY (or as a multiset
@@ -339,3 +341,20 @@ def test_mesh_residual_exists_over_a_broadcast_build_key(runners):
     rows = check(runners, MOVED_KEY_EXISTS)
     assert (1, 1) in rows
     assert runners["mesh"].last_stage_executor.counters.get("repartition_collective", 0) >= 2
+
+
+def test_mesh_full_join_with_a_long_decimal_probe_column(runners):
+    """A partitioned FULL join whose probe side carries a decimal(38,2) sum
+    (TPC-DS q51's shape): the unmatched build rows' probe columns are NULL
+    limb planes.  The JAX package's mesh gives them one plane and fails to
+    concatenate; the port's mesh is held to the JAX local rows."""
+    sql = (
+        "select a.k, a.s, b.k, b.s from "
+        "(select ws_item_sk k, sum(ws_sales_price) s from web_sales "
+        " where ws_item_sk < 400 group by ws_item_sk) a full outer join "
+        "(select ss_item_sk k, sum(ss_sales_price) s from store_sales "
+        " where ss_item_sk between 200 and 600 group by ss_item_sk) b on a.k = b.k"
+    )
+    assert "Join[full]" in runners["mesh"].explain_distributed(sql)
+    rows = check(runners, sql)
+    assert any(r[0] is None for r in rows) and any(r[2] is None for r in rows)

@@ -1,11 +1,13 @@
 """The port's copied planner, optimizer and fragmenter against the JAX
-package's at tpcds.tiny: every TPC-DS query without a window function
-plans to the same logical plan (the INTERSECT and EXCEPT tags, the ROLLUP
-branches and grouping() included) and to the same fragments, exchanges and
-join distributions on the 4-worker mesh.  The queries below 50 plan here,
-the rest in tests/test_torch_tpcds_plans_late.py (so that `--dist
-loadfile` puts them on two workers); q14, whose optimizer run takes about
-a minute in each package, is in tests/test_torch_tpcds_slow.py.
+package's at tpcds.tiny: every TPC-DS query plans to the same logical plan
+(the INTERSECT and EXCEPT tags, the ROLLUP branches, grouping() and the
+window nodes with their frames included) and to the same fragments,
+exchanges and join distributions on the 4-worker mesh (a partitioned
+window over a repartition on its keys, a whole-input window gathered).
+The queries below 50 plan here, the rest in
+tests/test_torch_tpcds_plans_late.py (so that `--dist loadfile` puts them
+on two workers); q14, whose optimizer run takes about a minute in each
+package, is in tests/test_torch_tpcds_slow.py.
 """
 
 import pytest
@@ -15,13 +17,13 @@ from trino_tpu.runtime.runner import LocalQueryRunner as JaxRunner
 from trino_tpu_torch.parallel import DistributedQueryRunner
 from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
-from test_torch_tpcds import NO_WINDOW_QIDS
+from test_torch_tpcds import ALL_QIDS
 
 #: planned in the slow file
 SLOW_PLAN_QIDS = frozenset({14})
 #: the queries this file plans; the late file takes the rest
-EARLY_PLAN_QIDS = [q for q in NO_WINDOW_QIDS if q < 50 and q not in SLOW_PLAN_QIDS]
-LATE_PLAN_QIDS = [q for q in NO_WINDOW_QIDS if q >= 50 and q not in SLOW_PLAN_QIDS]
+EARLY_PLAN_QIDS = [q for q in ALL_QIDS if q < 50 and q not in SLOW_PLAN_QIDS]
+LATE_PLAN_QIDS = [q for q in ALL_QIDS if q >= 50 and q not in SLOW_PLAN_QIDS]
 
 
 

@@ -1,4 +1,5 @@
-"""The rest of the 84 TPC-DS queries without a window function, marked
+"""The rest of the 99 TPC-DS queries (all but the tier-1 files' and q51,
+which raises in both packages), marked
 `slow` (tier-1 runs `-m 'not slow'`): each runs through the port's
 LocalQueryRunner and its 4-worker mesh at tpcds.tiny and is held to one JAX
 LocalQueryRunner result, as tests/test_torch_tpcds.py sets out.  The
@@ -12,19 +13,21 @@ q14's plan parity is here too (its optimizer run takes about a minute).
 
 import pytest
 
-from test_torch_tpcds import NO_WINDOW_QIDS, QueryParity, one_torch_thread  # noqa: F401 (autouse)
+from test_torch_tpcds import ALL_QIDS, RAISING_QIDS, QueryParity, one_torch_thread  # noqa: F401 (autouse)
 from test_torch_tpcds_plans import SLOW_PLAN_QIDS, check_plans, make_planners
 
 pytestmark = pytest.mark.slow
 
 #: the queries of the tier-1 files (tests/test_torch_tpcds_{union,rollup,
-#: setops,subquery,star}.py)
-TIER1_QIDS = frozenset({2, 71, 33, 74, 77, 27, 38, 87, 23, 6, 97, 7, 19, 42, 96})
-SLOW_QIDS = tuple(q for q in NO_WINDOW_QIDS if q not in TIER1_QIDS)
+#: setops,subquery,star,window}.py)
+TIER1_QIDS = frozenset(
+    {2, 71, 33, 74, 77, 27, 38, 87, 23, 6, 97, 7, 19, 42, 96, 12, 44, 47, 86}
+)
+SLOW_QIDS = tuple(q for q in ALL_QIDS if q not in TIER1_QIDS | RAISING_QIDS)
 #: the queries that return no rows at tiny
 EMPTY_AT_TINY = (
-    1, 3, 4, 8, 11, 17, 21, 24, 25, 29, 34, 37, 39, 41, 45, 46, 54, 56, 58,
-    60, 64, 68, 72, 73, 78, 82, 83, 84, 85, 91, 93,
+    1, 3, 4, 8, 11, 17, 21, 24, 25, 29, 34, 37, 39, 41, 44, 45, 46, 49, 53,
+    54, 56, 58, 60, 63, 64, 68, 72, 73, 78, 82, 83, 84, 85, 89, 91, 93,
 )
 
 

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Tabulate phase 5d (TPC-DS without windows) of a `chip_smoke.py` log.
+"""Tabulate phases 5d and 5e (TPC-DS without and with windows) of a
+`chip_smoke.py` log.
 
-    python3 chip_smoke.py > smoke.log; python3 tools/chip_log_tpcds.py smoke.log [--per-line 2]
+    python3 chip_smoke.py > smoke.log
+    python3 tools/chip_log_tpcds.py smoke.log [--per-line 2] [--phase 5d|5e]
 
 Prints a markdown table with, per query: the warm and cold walls of the
 local and the 4-worker mesh runs (seconds, as the log has them), the peak
@@ -20,6 +22,10 @@ RUN = re.compile(
 )
 
 
+#: the windowed TPC-DS queries (phase 5e's; q51 raises and has no runs)
+WINDOW_QIDS = frozenset({12, 20, 36, 44, 47, 49, 51, 53, 57, 63, 67, 70, 86, 89, 98})
+
+
 def parse(path: str) -> dict:
     runs = defaultdict(dict)
     with open(path) as f:
@@ -35,8 +41,11 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("log")
     ap.add_argument("--per-line", type=int, default=2)
+    ap.add_argument("--phase", choices=("5d", "5e"), help="one phase's queries only")
     args = ap.parse_args()
     runs = parse(args.log)
+    if args.phase:
+        runs = {q: r for q, r in runs.items() if (q in WINDOW_QIDS) == (args.phase == "5e")}
     cells = []
     for q in sorted(runs):
         r = runs[q]

@@ -10,4 +10,5 @@ torch over whole columnar batches:
   OrderByOperator               -> sort.OrderByOperator
   LimitOperator                 -> sort.LimitOperator
   ValuesOperator                -> values.ValuesOperator
+  WindowOperator                -> window.WindowOperator
 """

@@ -167,6 +167,18 @@ def _reduce128(d, gid, nseg: int, kind: str, valid):
     raise NotImplementedError(f"long decimal {kind}")
 
 
+#: the decimal-sum path choices by name (proven | limb), one count per
+#: step that takes one (the JAX package counts them per compiled program
+#: in its telemetry; torch compiles nothing, so every call counts)
+DECIMAL_FASTPATH: dict = {}
+
+
+def _note_fastpath(path: str) -> None:
+    """Record a decimal-sum path choice (the window's long-decimal sum and
+    avg note theirs)."""
+    DECIMAL_FASTPATH[path] = DECIMAL_FASTPATH.get(path, 0) + 1
+
+
 def _sum128(d, gid, nseg: int, valid, in_precision: int = None, sum_bound: int = None):
     """Exact i128 segmented sum -> [nseg, 2] limb planes.  Input is either a
     short scaled-i64 column (1-D, widened) or long planes ([n, 2]).

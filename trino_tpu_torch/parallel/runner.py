@@ -41,11 +41,12 @@ card.  A cross join runs in the coordinator's local engine.
 A grouped aggregation with DISTINCT aggregates repartitions its raw rows
 on the group keys and dedupes and aggregates each worker's rows in one
 stage (`_spmd_single_stage`); a MarkDistinct marks each worker's rows over
-a source the fragmenter placed on the mark's keys.
+a source the fragmenter placed on the mark's keys, and a window computes
+each worker's partitions over a source placed on its partition keys.
 
 Not ported (each raises NotImplementedError when a session asks for it):
 fault tolerance and task retries, memory-budget waves, bucketed table
-layouts, window and unnest nodes, holistic aggregates on the mesh,
+layouts, unnest nodes, holistic aggregates on the mesh,
 `resize_mesh`, membership heartbeats,
 prewarm, the per-fragment profile and the compile observatory.  The
 collective-schedule license (verify/schedule.py) is not ported either: the
@@ -113,6 +114,7 @@ from trino_tpu_torch.runtime.local_planner import (
     LocalExecutionPlanner,
     PhysicalPlan,
     null_column,
+    window_args,
 )
 from trino_tpu_torch.runtime.runner import LocalQueryRunner, MaterializedResult
 
@@ -934,6 +936,26 @@ class StageExecutor:
             placements=src.placements,
         )
 
+    def _x_WindowNode(self, node: P.WindowNode) -> _Dist:
+        """The window per worker: the fragmenter repartitioned the source on
+        the partition keys, so every partition is whole on one worker (a
+        window with no PARTITION BY runs in a coordinator fragment).  The
+        new columns are computed from their own row's partition, so they
+        keep the rows' alignment: `unaligned` stays the source's."""
+        from trino_tpu_torch.ops.window import WindowOperator
+
+        src = self._exec(node.source)
+        part, order, specs = window_args(node, src)
+        op = WindowOperator(part, order, specs)
+        return src.defer(
+            ("window", tuple(part), tuple(repr(k) for k in order),
+             tuple(repr(s) for s in specs), _sig(src.symbols)),
+            op.step,
+            symbols=node.outputs,
+            placements=src.placements,
+            unaligned=src.unaligned,
+        )
+
     # -- joins ----------------------------------------------------------------
 
     def _unify_key_dicts(self, a: _Dist, ak, b: _Dist, bk):
@@ -1122,20 +1144,15 @@ class StageExecutor:
             )
             if node.kind == "full":
                 # per-shard unmatched-build tail: with PARTITIONED inputs
-                # every build row lives on exactly one shard
-                from trino_tpu_torch.columnar.column import torch_dtype
-
-                dev = start.device
+                # every build row lives on exactly one shard.  Its probe
+                # columns are NULLs of the probe's shapes: a long decimal
+                # takes both limb planes (the JAX mesh gives it one, and
+                # its concatenation fails there)
                 tail_live = torch.logical_and(sb.mask(), torch.logical_not(matched))
-                ncols = [
-                    Column(
-                        torch.zeros(cap_b, dtype=torch_dtype(t.np_dtype), device=dev),
-                        t,
-                        torch.zeros(cap_b, dtype=torch.bool, device=dev),
-                        None,
-                    )
-                    for t in probe_types
-                ]
+                ncols = []
+                for t in probe_types:
+                    nc = null_column(t, cap_b, start.device)
+                    ncols.append(Column(nc.data, t, nc.valid, None))
                 out = concat_batches([out, Batch(ncols + list(sb.columns), tail_live)])
             return out
 

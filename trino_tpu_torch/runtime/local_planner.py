@@ -14,8 +14,8 @@ MarkDistinct, Join (inner, left, right as a flipped left, full, and cross
 as a nested loop), SemiJoin (IN and EXISTS marks, with a residual over
 source ++ filtering symbols), Union (INTERSECT, EXCEPT and ROLLUP plan
 through it), EnforceSingleRow, Exchange (a pass-through; a merge
-re-sorts), Sort, TopN, Limit and Output.  Any other
-node raises NotImplementedError naming it (window and unnest among them).
+re-sorts), Window, Sort, TopN, Limit and Output.  Any other
+node raises NotImplementedError naming it (unnest and sample among them).
 Memory budgets and their partition-wave machinery are not ported yet.
 """
 
@@ -397,6 +397,16 @@ class LocalExecutionPlanner:
         op.set_build(list(filt.stream), self.device)
         return PhysicalPlan(op.process(src.stream), src.symbols + [node.mark])
 
+    def _visit_WindowNode(self, node: P.WindowNode) -> PhysicalPlan:
+        from trino_tpu_torch.ops.window import WindowOperator
+
+        src = self.plan(node.source)
+        op = WindowOperator(*window_args(node, src))
+        # no memory budget reaches here (budgets raise in __init__), so the
+        # JAX package's partition-wave branch is not needed: the window
+        # sees every row of its input at once
+        return PhysicalPlan(op.process(src.stream), node.outputs)
+
     # -- ordering -------------------------------------------------------------
 
     def _sort_keys(self, plan: PhysicalPlan, orderings) -> list:
@@ -568,6 +578,35 @@ def build_distinct_dedupe(node: "P.AggregationNode", src) -> tuple:
     proj += [src.rewrite(a) for a in args0]
     symbols = list(node.group_symbols) + [P.Symbol(a.name, a.type) for a in args0]
     return proj, symbols
+
+
+def window_args(node: "P.WindowNode", src) -> tuple:
+    """(partition channels, order keys, WindowSpecs) of a WindowNode over
+    `src`'s layout (a PhysicalPlan or a mesh stage value)."""
+    from trino_tpu_torch.ops.window import WindowSpec
+
+    part = [src.channel(s.name) for s in node.partition_by]
+    order = [SortKey(src.channel(s.name), asc, nf) for s, asc, nf in node.order_by]
+    specs = []
+    for out_sym, fn in node.functions:
+        arg = src.channel(fn.args[0].name) if fn.args else None
+        default_ch = src.channel(fn.default.name) if fn.default is not None else None
+        specs.append(
+            WindowSpec(
+                fn.name if fn.name != "count_star" else "count",
+                arg,
+                out_sym.type,
+                offset=fn.offset,
+                default_channel=default_ch,
+                n_buckets=fn.n_buckets_expr or 1,
+                frame=fn.frame,
+                start_off=fn.start_off,
+                end_off=fn.end_off,
+                ignore_nulls=fn.ignore_nulls,
+                sum_bound=fn.sum_bound,
+            )
+        )
+    return part, order, specs
 
 
 def null_column(t: T.Type, n: int, device: torch.device) -> Column:

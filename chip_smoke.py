@@ -70,6 +70,24 @@ catches nothing and never falls back to the CPU):
      long-decimal sum/avg path: licensed or limb); one profiled warm mesh
      run of the query with the largest window input; q51 must raise the
      JAX package's NotImplementedError, local and mesh;
+  5f. memory budgets: at sf1, the join of orders and lineitem, the
+     aggregation of lineitem by l_orderkey, TPC-H Q18, an ORDER BY over all
+     of orders and TPC-DS q67 through LocalQueryRunner on the card, and the
+     same join, the same aggregation and TPC-H Q3 on the 4-worker mesh,
+     each unbudgeted (cold, warm) and under a budget of a quarter of its
+     unbudgeted footprint with spill to disk (cold, warm); the local join
+     also with spill off, with two waves pinned, and revoked mid-probe by a
+     shrinking pool limit.  Each budgeted run must equal the unbudgeted
+     rows, raise the wave counter of its operator, spill exactly when spill
+     is on and a spilling wave path ran, and leave no spill file and no
+     live revocable; every unbudgeted run must record no wave, no spill
+     and no revocation; every wave of a mesh wave join must launch the
+     sorted-probe kernel.  Logged: the footprint, budget, k, spill bytes,
+     warm walls, peak working set above the starting allocation, the host
+     seconds of partitioning and of copies off the card, each mesh wave's
+     launch shapes, and one profiled warm budgeted run each of the local
+     and the mesh join; last, every budgeted result against the port's CPU
+     run under the same budget (a mesh query's on the local runner);
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -133,8 +151,11 @@ TPCDS_RAISING = {
 }
 #: the phase 5d queries that run below sf1: q72's plan (the JAX package's
 #: join order, which the port keeps) joins catalog_sales to inventory
-#: before any filter, ~940 M rows at sf1, beyond the card's memory without
-#: the spill and wave machinery, which is not ported yet
+#: before any filter, ~940 M rows at sf1.  Under a 256 MiB budget with 64
+#: waves it runs locally on the card at sf1 and matches the CPU run
+#: (tools/q72_budget_probe.py), but that CPU run takes ~11 minutes of
+#: eight cores, more than this script's reference process can spare, and
+#: the mesh would hold the whole expansion on the card
 TPCDS_SCHEMA = {72: "sf0_1"}
 #: phase 5d's profiled warm runs: a star join over the three sales
 #: channels and their returns (local and mesh) and a union of the three
@@ -362,6 +383,11 @@ def profile_warm(name: str, runner, sql: str) -> None:
         f"device_events={len(events)} device_busy_s={busy_s!r} "
         f"device_idle_share={1 - busy_s / wall!r}"
     )
+    copies = {
+        way: sum(e.device_time_total for e in events if f"Memcpy {way}" in e.key) / 1e3
+        for way in ("HtoD", "DtoH", "DtoD")
+    }
+    log(f"  {name} copies device_ms={copies}")
     for e in events[:8]:
         log(
             f"  {name} device op {e.key[:70]!r}: calls={e.count} "
@@ -866,7 +892,9 @@ def tpcds_cpu_reference(out_path: str) -> int:
     5d query, pickled to `out_path` as {qid: (column names, type names,
     rows, seconds, the query's ORDER BY and LIMIT, host planning
     seconds)}, then of every phase 5e query, pickled to `out_path` +
-    ".window".  It runs beside the card phases, on its own cores."""
+    ".window", then phase 5f's queries under the budgets the card process
+    writes to `out_path` + ".budgets", pickled to `out_path` + ".memory".
+    It runs beside the card phases, on its own cores."""
     import pickle
 
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
@@ -891,6 +919,7 @@ def tpcds_cpu_reference(out_path: str) -> int:
         with open(path + ".part", "wb") as f:
             pickle.dump(out, f)
         os.replace(path + ".part", path)
+    memory_cpu_reference(out_path)
     return 0
 
 
@@ -906,27 +935,28 @@ def start_tpcds_reference(here: str):
     return proc, path
 
 
-def wait_tpcds_reference(proc, path: str, windowed: bool) -> dict:
-    """The reference's phase 5d results (as soon as they are written) or
-    its phase 5e results (after the process has ended)."""
+#: the reference process's result file of each phase, beside `out_path`
+REFERENCE_SUFFIX = {"5d": "", "5e": ".window", "5f": ".memory"}
+
+
+def wait_tpcds_reference(proc, path: str, phase: str) -> dict:
+    """The reference's results of phase 5d, 5e or 5f, as soon as they are
+    written (after 5f's, the process has ended)."""
     import pickle
     import shutil
 
     t0 = time.perf_counter()
-    if windowed:
-        path += ".window"
-        rc = proc.wait()
-    else:
-        while not os.path.exists(path) and proc.poll() is None:
-            time.sleep(0.5)
-        rc = proc.poll() or 0
-    log(f"tpcds cpu reference ({'5e' if windowed else '5d'}): exit {rc}, "
+    path += REFERENCE_SUFFIX[phase]
+    while not os.path.exists(path) and proc.poll() is None:
+        time.sleep(0.5)
+    rc = proc.wait() if phase == "5f" else (proc.poll() or 0)
+    log(f"tpcds cpu reference ({phase}): exit {rc}, "
         f"waited {time.perf_counter() - t0:.1f} s")
     if rc != 0 or not os.path.exists(path):
-        raise AssertionError(f"the TPC-DS CPU reference process failed with exit code {rc}")
+        raise AssertionError(f"the CPU reference process failed with exit code {rc}")
     with open(path, "rb") as f:
         out = pickle.load(f)
-    if windowed:
+    if phase == "5f":
         shutil.rmtree(os.path.dirname(path), ignore_errors=True)
     return out
 
@@ -1009,7 +1039,7 @@ def run_tpcds_path(record: dict, reference, windowed: bool = False, windows=None
             f"largest (P, cap_b, n_match, S)={largest}")
     for (q, where), (res, cold, warm) in results.items():
         log(f"{label} q{q}_{where}: cold_s={cold!r} warm_s={warm!r} rows={len(res.rows)}")
-    expected_all = reference(windowed)
+    expected_all = reference("5e" if windowed else "5d")
     empty = []
     for q in qids:
         names, types, rows, cpu_s, order, plan_s = expected_all[q]
@@ -1170,6 +1200,401 @@ def run_tpcds_window_path(record: dict, reference) -> dict:
                 raise AssertionError(f"tpcds q{q}_{where}: ran; the JAX package raises")
     out["largest_window_query"] = largest
     return out
+
+
+# -- phase 5f: memory budgets, partition waves and spill -----------------------
+
+MEMORY_JOIN = (
+    "select o_orderpriority, count(*) c from orders join lineitem "
+    "on o_orderkey = l_orderkey group by o_orderpriority"
+)
+MEMORY_AGG = "select l_orderkey, count(*), sum(l_quantity) from lineitem group by l_orderkey"
+MEMORY_SORT = "select o_orderkey, o_totalprice from orders order by o_totalprice desc, o_orderkey"
+MEMORY_OPERATORS = ("join", "aggregation", "window", "sort")
+#: each budget is this fraction of the query's unbudgeted footprint, so the
+#: automatic wave count comes out near 4
+MEMORY_BUDGET_FRACTION = 4
+
+
+def memory_queries() -> list:
+    """Phase 5f's queries: (name, catalog, sql, on the mesh, the operators
+    whose waves must rise under the budget)."""
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES as TPCDS
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES as TPCH
+
+    return [
+        ("join_local", "tpch", MEMORY_JOIN, False, ("join",)),
+        ("agg_local", "tpch", MEMORY_AGG, False, ("aggregation",)),
+        ("q18_local", "tpch", TPCH[18], False, ()),
+        ("sort_local", "tpch", MEMORY_SORT, False, ("sort",)),
+        ("q67_local", "tpcds", TPCDS[67], False, ("window",)),
+        ("join_mesh", "tpch", MEMORY_JOIN, True, ("join",)),
+        ("agg_mesh", "tpch", MEMORY_AGG, True, ("aggregation",)),
+        ("q3_mesh", "tpch", TPCH[3], True, ("join",)),
+    ]
+
+
+def pressure() -> dict:
+    """The memory-pressure counters: waves per operator, spill bytes,
+    revocations."""
+    from trino_tpu_torch.telemetry import metrics
+
+    out = {op: metrics.memory_waves_counter().value((op,)) for op in MEMORY_OPERATORS}
+    out["spill_bytes"] = metrics.spill_bytes_counter().value()
+    out["revocations"] = metrics.memory_revocations_counter().value()
+    return out
+
+
+def host_boundary_timers(seconds: dict):
+    """Stand-ins that time the spill tier's host work: the row hashing and
+    partitioning (serde.partition_batches, spill.host_wave_slice) and the
+    copies off the card (spill.pull_host).  Returns a function that puts
+    the originals back."""
+    from trino_tpu_torch.parallel import serde
+    from trino_tpu_torch.runtime import spill
+
+    originals = []
+
+    def wrap(module, name, bucket):
+        fn = getattr(module, name)
+        originals.append((module, name, fn))
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                seconds[bucket] = seconds.get(bucket, 0.0) + time.perf_counter() - t0
+
+        setattr(module, name, timed)
+
+    wrap(serde, "partition_batches", "partition_s")
+    wrap(spill, "host_wave_slice", "partition_s")
+    wrap(spill, "pull_host", "pull_host_s")
+
+    def restore():
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+
+    return restore
+
+
+def window_input_bytes(record: dict):
+    """(original, stand-in) for WindowOperator.process: the stand-in adds
+    the bytes of every batch a window consumes to record["bytes"]."""
+    from trino_tpu_torch.ops.window import WindowOperator
+    from trino_tpu_torch.runtime.memory import batch_bytes
+
+    original = WindowOperator.process
+
+    def process(self, stream):
+        seen: set = set()
+
+        def counted():
+            for b in stream:
+                record["bytes"] = record.get("bytes", 0) + batch_bytes(b, _seen_dicts=seen)
+                yield b
+
+        return original(self, counted())
+
+    return original, process
+
+
+def wave_recorder(waves: list):
+    """(original, stand-in) for StageExecutor._sized_expansion: the
+    stand-in notes, for every wave of a mesh wave join, the sorted-probe
+    kernel's launches in that wave's expansion and the shapes of those
+    launches [(P, cap_b, n_match on the card, S)] (n_match is read after
+    the run, so the run is not synchronized for it)."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import StageExecutor
+
+    original = StageExecutor._sized_expansion
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def sized(self, key, *args, **kw):
+        if key[0] != "join_wave":
+            return original(self, key, *args, **kw)
+        kernel = mesh_runner.locate_sorted
+        shapes = []
+
+        def recording(build, n_match, probe, nomatch, cap_b):
+            s = ls.launch_plan(max(cap_b, build.shape[0]), probe.shape[0], sms)["s"]
+            shapes.append((probe.shape[0], cap_b, n_match, s))
+            return kernel(build, n_match, probe, nomatch, cap_b=cap_b)
+
+        before = ls.locate_sorted.launches
+        mesh_runner.locate_sorted = recording
+        try:
+            out = original(self, key, *args, **kw)
+        finally:
+            mesh_runner.locate_sorted = kernel
+        waves.append((ls.locate_sorted.launches - before, shapes))
+        return out
+
+    return original, sized
+
+
+def memory_run(name, r, sql, label, spill_dir, budgeted, must_wave, mesh,
+               spill_on=True, expect=None, order=None, waves=None):
+    """One phase 5f run on the card: wall, rows, the statement's reserved
+    peak, the peak working set above the starting allocation, the waves,
+    spill bytes and revocations it added, and the host seconds of
+    partitioning and of copies off the card.  An unbudgeted run must record
+    no pressure; a budgeted one must wave (each operator of `must_wave`),
+    spill exactly when spill is on and a spilling wave path ran, and (with
+    `waves`) launch the sorted-probe kernel in every mesh join wave.  No
+    run may leave a spill file or a live revocable."""
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.runtime.spill import REVOCABLES
+    from trino_tpu_torch.testing import assert_rows_match
+
+    before = pressure()
+    host: dict = {}
+    restore = host_boundary_timers(host)
+    k2_before = ls.locate_sorted.launches
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = r.execute(sql)  # rows come back to the host: synchronized
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    peak_ws = torch.cuda.max_memory_allocated() - start
+    delta = {k: v - before[k] for k, v in pressure().items()}
+    left = os.listdir(spill_dir)
+    if left or REVOCABLES.live():
+        raise AssertionError(f"{name} {label}: left spill files {left} "
+                             f"or live revocables {REVOCABLES.live()}")
+    k = {op: delta[op] for op in MEMORY_OPERATORS if delta[op]}
+    log(f"memory {name} {label}: wall_s={wall!r} rows={len(res.rows)} "
+        f"reserved_peak_bytes={r.last_query.peak_memory} peak_working_set_bytes={peak_ws} "
+        f"waves={k} spill_bytes={delta['spill_bytes']} revocations={delta['revocations']} "
+        f"partition_host_s={host.get('partition_s', 0.0)!r} "
+        f"pull_host_s={host.get('pull_host_s', 0.0)!r} "
+        f"locate_sorted_launches={ls.locate_sorted.launches - k2_before}"
+        + (f" mesh_events={r.last_stage_executor.counters}" if mesh else ""))
+    if not budgeted:
+        if any(delta.values()):
+            raise AssertionError(f"{name} {label}: an unbudgeted run recorded {delta}")
+    else:
+        if not k:
+            raise AssertionError(f"{name} {label}: the budget forced no waves")
+        for op in must_wave:
+            if not delta[op]:
+                raise AssertionError(f"{name} {label}: no {op} waves under the budget")
+        # every wave path spills but the mesh aggregation's exchange, whose
+        # waves filter the states on the card
+        spills = spill_on and bool(delta["join"] if mesh else k)
+        if spills != (delta["spill_bytes"] > 0):
+            raise AssertionError(
+                f"{name} {label}: spill_bytes={delta['spill_bytes']} with spill "
+                f"{'on' if spill_on else 'off'} and waves {k}"
+            )
+    if waves is not None:
+        per_wave = [n for n, _ in waves]
+        if not per_wave or min(per_wave) < 1:
+            raise AssertionError(f"{name} {label}: the wave expansions launched "
+                                 f"the sorted-probe kernel {per_wave} times")
+        log(f"memory {name} {label}: sorted-probe launches per wave {per_wave}; "
+            f"launch shapes (P, cap_b, n_match, S) per wave "
+            f"{[[(p, c, int(nm), s) for p, c, nm, s in shapes] for _, shapes in waves]}")
+    if expect is not None:
+        assert_rows_match(res.rows, expect, order, float_rtol=DOUBLE_RTOL)
+    return {"res": res, "wall": wall, "peak_ws": peak_ws, "delta": delta, "host": host}
+
+
+def memory_runner(catalog: str, mesh: bool, **props):
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    r = (
+        DistributedQueryRunner(catalog=catalog, schema="sf1", n_workers=MESH_WORKERS)
+        if mesh else LocalQueryRunner(catalog=catalog, schema="sf1")
+    )
+    for k, v in props.items():
+        r.properties.set(k, v)
+    return r
+
+
+def memory_cpu_reference(out_path: str) -> None:
+    """The reference process's phase 5f part: once the card process has
+    written the budgets, the port's CPU LocalQueryRunner runs every phase 5f
+    query under its budget (a mesh query's budget on the local runner),
+    pickled to `out_path` + ".memory" as {name: (rows, seconds, the
+    pressure it recorded)}."""
+    import json as _json
+    import pickle
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch import config
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.runtime.spill import REVOCABLES
+
+    budgets_path = out_path + ".budgets"
+    while not os.path.exists(budgets_path):
+        time.sleep(0.5)
+    with open(budgets_path) as f:
+        budgets = _json.load(f)
+    spill_dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_spill_")
+    config.install_config(config.load_cluster_config({"memory.spill-dir": spill_dir}))
+    out = {}
+    for name, catalog, sql, _, _ in memory_queries():
+        cpu = LocalQueryRunner(catalog=catalog, schema="sf1", device="cpu")
+        cpu.properties.set("query_max_memory", budgets[name])
+        before = pressure()
+        t0 = time.perf_counter()
+        rows = cpu.execute(sql).rows
+        seconds = time.perf_counter() - t0
+        if os.listdir(spill_dir) or REVOCABLES.live():
+            raise AssertionError(f"memory {name} cpu: spill files or revocables left")
+        out[name] = (rows, seconds, {k: v - before[k] for k, v in pressure().items()})
+    config.reset_config()
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    with open(out_path + ".memory.part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".memory.part", out_path + ".memory")
+
+
+def run_memory_path(reference, budgets_path: str) -> dict:
+    """Phase 5f: the memory budgets on the card.  Five local queries and
+    three on the 4-worker mesh, each unbudgeted (cold, warm), which gives
+    its footprint and so its budget (written to `budgets_path` for the
+    reference process's CPU runs), then under the budget with spill to
+    disk; the local join also with spill off, with two waves pinned, and
+    revoked mid-probe by a shrinking pool limit; one profiled warm
+    budgeted run each of the local and the mesh join; last, every
+    budgeted result against the CPU run under the same budget."""
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch import config
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.ops.join import HashJoinOperator
+    from trino_tpu_torch.ops.window import WindowOperator
+    from trino_tpu_torch.parallel.runner import StageExecutor
+    from trino_tpu_torch.runtime.lifecycle import set_memory_pool_limit
+    from trino_tpu_torch.testing import assert_rows_match, result_order
+
+    spill_dir = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    config.install_config(config.load_cluster_config({"memory.spill-dir": spill_dir}))
+    queries = {q[0]: q for q in memory_queries()}
+    plain: dict = {}
+    table: dict = {}
+    ls.locate_sorted.launches = 0  # every kernel count, just before the path
+    try:
+        # unbudgeted, cold and warm: the rows every budgeted run must give,
+        # and the footprint (q67's window reserves nothing, so its input
+        # counts as its wave path would need it: twice its bytes)
+        for name, (_, catalog, sql, mesh, _) in queries.items():
+            r = memory_runner(catalog, mesh)
+            order = result_order(r.create_plan(sql))
+            window: dict = {}
+            original, counting = window_input_bytes(window)
+            WindowOperator.process = counting
+            try:
+                cold = memory_run(name, r, sql, "unbudgeted cold", spill_dir, False, (), mesh)
+            finally:
+                WindowOperator.process = original
+            warm = memory_run(name, r, sql, "unbudgeted warm", spill_dir, False, (), mesh)
+            footprint = max(r.last_query.peak_memory, 2 * window.get("bytes", 0))
+            budget = max(footprint // MEMORY_BUDGET_FRACTION, 1)
+            log(f"memory {name}: footprint_bytes={footprint} (reserved peak "
+                f"{r.last_query.peak_memory}, window input bytes {window.get('bytes', 0)}) "
+                f"budget_bytes={budget}")
+            plain[name] = {"rows": cold["res"].rows, "order": order, "warm": warm,
+                           "footprint": footprint, "budget": budget}
+        with open(budgets_path + ".part", "w") as f:
+            json.dump({n: p["budget"] for n, p in plain.items()}, f)
+        os.replace(budgets_path + ".part", budgets_path)
+
+        # under the budget, spill to disk: one run after the two unbudgeted
+        budgeted = {}
+        for name, (_, catalog, sql, mesh, must_wave) in queries.items():
+            p = plain[name]
+            r = memory_runner(catalog, mesh, query_max_memory=p["budget"])
+            waves: list = []
+            record = mesh and "join" in must_wave
+            if record:
+                original, sized = wave_recorder(waves)
+                StageExecutor._sized_expansion = sized
+            try:
+                run = memory_run(name, r, sql, "budgeted", spill_dir, True, must_wave, mesh,
+                                 expect=p["rows"], order=p["order"],
+                                 waves=waves if record else None)
+            finally:
+                if record:
+                    StageExecutor._sized_expansion = original
+            budgeted[name] = (r, run["res"].rows)
+            table[name] = {
+                "footprint_bytes": p["footprint"], "budget_bytes": p["budget"],
+                "k": {op: run["delta"][op] for op in MEMORY_OPERATORS if run["delta"][op]},
+                "spill_bytes": run["delta"]["spill_bytes"],
+                "warm_s": run["wall"], "unbudgeted_warm_s": p["warm"]["wall"],
+                "peak_working_set_bytes": run["peak_ws"],
+                "unbudgeted_peak_working_set_bytes": p["warm"]["peak_ws"],
+                "partition_host_s": run["host"].get("partition_s", 0.0),
+                "pull_host_s": run["host"].get("pull_host_s", 0.0),
+                "rows": len(run["res"].rows),
+            }
+
+        # the local join: spill off, two waves pinned, and revoked mid-probe
+        join = plain["join_local"]
+
+        def join_run(label, props, **kw):
+            r = memory_runner("tpch", False, **props)
+            return memory_run("join_local", r, MEMORY_JOIN, label, spill_dir, True, ("join",),
+                              False, expect=join["rows"], order=join["order"], **kw)
+
+        join_run("budgeted spill off", {"query_max_memory": join["budget"],
+                                        "spill_enabled": False}, spill_on=False)
+        if join_run("budgeted k=2", {"query_max_memory": join["budget"],
+                                     "memory_wave_partitions": 2})["delta"]["join"] != 2:
+            raise AssertionError("join_local k=2: not two join waves")
+        # after the first probe batch the pool limit drops to half the
+        # join's footprint, below its build's reservation: the aggregation
+        # above it reserves next, and the revoke tier spills the build
+        calls = []
+        original_batch = HashJoinOperator._join_batch
+
+        def tripping(self, pb):
+            out = original_batch(self, pb)
+            if not calls:
+                set_memory_pool_limit(join["footprint"] // 2)
+            calls.append(1)
+            return out
+
+        HashJoinOperator._join_batch = tripping
+        try:
+            revoked = join_run("revoked", {})
+        finally:
+            HashJoinOperator._join_batch = original_batch
+            set_memory_pool_limit(0)
+        if revoked["delta"]["revocations"] < 1:
+            raise AssertionError("join_local revoked: no revocation")
+        launches = ls.locate_sorted.launches  # read just after the path
+        profile_warm("memory_join_local_budgeted", budgeted["join_local"][0], MEMORY_JOIN)
+        profile_warm("memory_join_mesh_budgeted", budgeted["join_mesh"][0], MEMORY_JOIN)
+    finally:
+        config.reset_config()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+
+    # the port's CPU run under each budget, from the reference process
+    cpu = reference("5f")
+    for name, (rows, seconds, cpu_pressure) in cpu.items():
+        assert_rows_match(budgeted[name][1], rows, plain[name]["order"],
+                          float_rtol=DOUBLE_RTOL)
+        table[name]["cpu_s"] = seconds
+        log(f"memory {name}: the card's rows match the CPU run under the same budget "
+            f"({len(rows)} rows, cpu wall_s={seconds!r}, cpu pressure "
+            f"{ {k: v for k, v in cpu_pressure.items() if v} })")
+    log(f"memory path: locate_sorted launches={launches}")
+    for name, row in table.items():
+        log(f"memory table {name}: {json.dumps(row)}")
+    return {"launches": launches, "table": table}
 
 
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
@@ -1355,7 +1780,8 @@ def main() -> int:
     reference, reference_path = start_tpcds_reference(here)
     try:
         return drive(
-            here, lambda windowed: wait_tpcds_reference(reference, reference_path, windowed)
+            here, lambda phase: wait_tpcds_reference(reference, reference_path, phase),
+            reference_path + ".budgets",
         )
     finally:
         if reference.poll() is None:
@@ -1363,7 +1789,7 @@ def main() -> int:
             reference.wait()
 
 
-def drive(here: str, tpcds_reference) -> int:
+def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     from trino_tpu_torch.device import resolve_device
     from trino_tpu_torch.kernels import build
 
@@ -1405,11 +1831,12 @@ def drive(here: str, tpcds_reference) -> int:
     tds_path = timed("5d", run_tpcds_path, tds, tpcds_reference)
     tdw: dict = {}
     tdw_path = timed("5e", run_tpcds_window_path, tdw, tpcds_reference)
+    mem_path = timed("5f", run_memory_path, tpcds_reference, budgets_path)
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
-        + tds_path["launches"] + tdw_path["launches"]
+        + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -1420,6 +1847,7 @@ def drive(here: str, tpcds_reference) -> int:
         "tpcds_per_mesh_query": tds_path["per_query"],
         "tpcds_window": tdw_path["launches"],
         "tpcds_window_per_mesh_query": tdw_path["per_query"],
+        "memory": mem_path["launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

@@ -16,7 +16,10 @@ Modes mirror the reference's AggregationNode.Step:
 The operator streams: it reduces every pushed batch immediately and keeps
 only the per-batch group states (the TPC-H Q1 shape), folding them every
 `fold_every` batches.  (The JAX package's non-streaming mode serves the
-holistic aggregates, which are not ported.)
+holistic aggregates, which are not ported.)  With a memory context it
+reserves its accumulated states after every batch; over budget it folds
+first and raises only when the folded states still do not fit
+(runtime/local_planner.py then runs the aggregation in waves).
 
 Ported aggregates: count(*), count, sum, avg, min, max, any_value, the
 moment family (stddev_samp, stddev_pop, var_samp, var_pop: f64 sum, sum of
@@ -358,6 +361,7 @@ class AggregationOperator:
         fold_every: Optional[int] = None,
         use_pallas: bool = False,
         pre_step=None,
+        memory_ctx=None,
     ):
         if mode not in ("single", "partial", "final", "merge"):
             raise ValueError(f"aggregation mode: {mode}")
@@ -375,6 +379,9 @@ class AggregationOperator:
         #: (e.g. decimal products) feed the reduction of the same batch
         #: directly, never queued between operators
         self._pre = pre_step
+        #: reservation of the accumulated states (runtime/memory.py); over
+        #: budget the states fold, and what still does not fit raises
+        self.memory_ctx = memory_ctx
         self._acc: list[Batch] = []
         self._per_batch: Optional["AggregationOperator"] = None
 
@@ -847,11 +854,35 @@ class AggregationOperator:
         self._acc.append(self.reduce_batch(batch))
         if len(self._acc) >= self.fold_every:
             self._fold_states()
+        if self.memory_ctx is not None:
+            from trino_tpu_torch.runtime.memory import (
+                ExceededMemoryLimitException,
+                batches_bytes,
+            )
+
+            try:
+                self.memory_ctx.set_bytes(batches_bytes(self._acc))
+            except ExceededMemoryLimitException:
+                # folding compacts the states to their live groups, often
+                # enough to fit; pressure that survives the fold raises (the
+                # wave fallback's and the killer's signal)
+                if len(self._acc) <= 1:
+                    raise
+                self._fold_states()
+                self.memory_ctx.set_bytes(batches_bytes(self._acc))
+
+    def state_bytes(self) -> int:
+        from trino_tpu_torch.runtime.memory import batches_bytes
+
+        return batches_bytes(self._acc)
 
     def process(self, stream):
         for batch in stream:
             self.push(batch)
-        yield self.finish()
+        out = self.finish()
+        if self.memory_ctx is not None:
+            self.memory_ctx.close()
+        yield out
 
     def _fold_states(self) -> None:
         """Merge accumulated state batches into one, compacted to live size."""

@@ -344,6 +344,19 @@ class _SortedBuildJoinBase:
         self._table = None
         self._recode: dict = {}  # key index -> {id(probe_dict): (dict, table)}
 
+    def release_build(self) -> None:
+        """Drop every reference to the indexed build side (the revocation
+        hook, reference HashBuilderOperator.startMemoryRevoke: once the
+        build has been spilled, the operator lets its device tensors go so
+        the reservation it gave back is real).  The operator is unusable
+        afterwards; its caller finishes in waves against the spilled
+        build."""
+        self.build = None
+        self._build_canon = None
+        self._n_match = 0
+        self._table = None
+        self._recode = {}
+
     def _index_build(self, build: Batch) -> None:
         (
             self.build,

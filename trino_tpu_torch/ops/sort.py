@@ -3,8 +3,12 @@ LimitOperator.java).
 
 Port of trino_tpu/ops/sort.py.  TopN keeps a bounded device state: each
 pushed batch is merged with the current top-N candidates and truncated.
-The external (spilling) sort is not ported yet: ORDER BY sorts its whole
-input on the device.
+ORDER BY sorts its whole input on the device; over its memory budget it
+becomes an external sort: the accumulated batches are compacted and moved
+off the card as a run (to the filesystem through the spill tier, or host
+RAM), and the runs merge at the end in one host lexsort
+(ops/merge.py).  Array columns in spilled runs are not ported yet (the port
+has no array columns).
 """
 
 from __future__ import annotations
@@ -25,17 +29,111 @@ def _sorted(batch: Batch, keys) -> Batch:
 
 
 class OrderByOperator:
-    """Full materialized sort; emits one sorted batch."""
+    """Full materialized sort; emits one sorted batch.  With a memory
+    context it reserves its accumulation and, over budget, spills runs."""
 
-    def __init__(self, keys: Sequence[SortKey]):
+    def __init__(self, keys: Sequence[SortKey], memory_ctx=None,
+                 spill_factory=None, observer=None):
         self.keys = list(keys)
+        self.memory_ctx = memory_ctx
+        #: lazy spill store (runtime/spill.SpillManager) for over-budget
+        #: runs; None, or a factory returning None, keeps runs in host RAM
+        self._spill_factory = spill_factory
+        self._spiller = None
+        self._spiller_made = False
+        self._spill_runs = 0
+        self.observer = observer
+        self._acc: list[Batch] = []
+
+    def _get_spiller(self):
+        if not self._spiller_made:
+            self._spiller_made = True
+            if self._spill_factory is not None:
+                self._spiller = self._spill_factory()
+        return self._spiller
+
+    def _spill_chunk(self):
+        """Compact the accumulated batches to live rows and move them off
+        the device as one run: to the filesystem when a spiller is attached
+        (reference: GenericSpiller in OrderByOperator's revoke path), host
+        RAM otherwise.  Runs are not sorted one by one: the final merge is
+        a full host lexsort.  Returns the host run, or a disk-run id."""
+        from trino_tpu_torch.runtime.spill import pull_host
+
+        big = self._acc[0] if len(self._acc) == 1 else concat_batches(self._acc)
+        self._acc.clear()
+        n = big.num_rows_host()
+        host = pull_host(big.compact_device(out_capacity=next_pow2(max(n, 1), floor=1)))
+        spiller = self._get_spiller()
+        if spiller is None:
+            return host
+        run = self._spill_runs
+        self._spill_runs += 1
+        spiller.save("run", run, [host])
+        return run
+
+    def _load_runs(self, runs: list) -> list:
+        """Disk-run ids back to host batches (runs in RAM pass through)."""
+        spiller = self._spiller
+        return [spiller.load("run", r)[0] if isinstance(r, int) else r for r in runs]
 
     def process(self, stream):
-        acc = list(stream)
-        if not acc:
-            return
-        big = acc[0] if len(acc) == 1 else concat_batches(acc)
-        yield _sorted(_pad_device(big, next_pow2(big.capacity, floor=1)), self.keys)
+        """In-memory device sort; over budget an EXTERNAL sort: spill runs
+        as the budget trips, merge them at the end on the host, so device
+        memory stays bounded by one chunk."""
+        from trino_tpu_torch.runtime.memory import (
+            ExceededMemoryLimitException,
+            batches_bytes,
+        )
+        from trino_tpu_torch.runtime.spill import to_device
+
+        runs: list = []
+        device = None
+        try:
+            for b in stream:
+                device = b.device
+                self._acc.append(b)
+                if self.memory_ctx is not None:
+                    # over the whole accumulation, so a dictionary shared by
+                    # every batch counts once
+                    try:
+                        self.memory_ctx.set_bytes(batches_bytes(self._acc))
+                    except ExceededMemoryLimitException:
+                        runs.append(self._spill_chunk())
+                        self.memory_ctx.set_bytes(0)
+            if not self._acc and not runs:
+                return
+            if not runs:
+                big = self._acc[0] if len(self._acc) == 1 else concat_batches(self._acc)
+                out = _sorted(_pad_device(big, next_pow2(big.capacity, floor=1)), self.keys)
+                if self.memory_ctx is not None:
+                    self.memory_ctx.close()
+                yield out
+                return
+            if self._acc:
+                runs.append(self._spill_chunk())
+            if self.observer is not None:
+                # external-sort waves: one per run
+                self.observer.waves("sort", len(runs))
+            runs = self._load_runs(runs)
+            if len(runs) == 1:
+                # the budget tripped at the very end: sort the one run on the
+                # device, as the in-memory path would have
+                big = to_device(runs[0], device)
+                out = _sorted(_pad_device(big, next_pow2(big.capacity, floor=1)), self.keys)
+                if self.memory_ctx is not None:
+                    self.memory_ctx.close()
+                yield out
+                return
+            from trino_tpu_torch.ops.merge import merge_sorted_shards
+
+            out = merge_sorted_shards(_unify_host_dictionaries(runs), self.keys)
+            if self.memory_ctx is not None:
+                self.memory_ctx.close()
+            yield to_device(out, device)
+        finally:
+            if self._spiller is not None:
+                self._spiller.close()
 
 
 class TopNOperator:
@@ -95,6 +193,32 @@ class LimitOperator:
                 remaining = None if remaining is None else remaining - (cnt - skip)
                 skip = 0
                 yield b
+
+
+def _unify_host_dictionaries(runs: list) -> list:
+    """Host batches from different scan batches may carry their own
+    dictionaries; recode every string channel into one union dictionary so
+    code comparisons are rank comparisons again."""
+    import numpy as np
+
+    from trino_tpu_torch.columnar.dictionary import union_many
+
+    if not runs:
+        return runs
+    out = [list(r.columns) for r in runs]
+    for ch in range(runs[0].width):
+        dicts = [r.columns[ch].dictionary for r in runs]
+        if not any(d is not None for d in dicts):
+            continue
+        merged, tables = union_many(dicts)
+        for i, table in enumerate(tables):
+            c = out[i][ch]
+            data = c.data
+            if table is not None and len(table):  # an empty dictionary: all NULL
+                t = torch.from_numpy(np.asarray(table, dtype=np.int32))
+                data = t[data.to(torch.int64).clamp(0, len(table) - 1)]
+            out[i][ch] = Column(data, c.type, c.valid, merged)
+    return [Batch(cols, r.row_mask) for cols, r in zip(out, runs)]
 
 
 def _truncate(batch: Batch, cap: int) -> Batch:

@@ -44,11 +44,22 @@ stage (`_spmd_single_stage`); a MarkDistinct marks each worker's rows over
 a source the fragmenter placed on the mark's keys, and a window computes
 each worker's partitions over a source placed on its partition keys.
 
+Memory budgets: the executor holds a per-query reservation tree (on the
+shared pool while a statement runs).  A join reserves its build (raw and
+sorted copy) and an aggregation its fused exchange's output before they
+materialize; over budget the join runs in hash-partition waves
+(`_wave_join`: both stacked sides cross to the host, partition per worker
+shard, spill through the filesystem under `spill_enabled`, and every wave
+restacks onto the same alignment and runs the same locate/expand steps, so
+the sorted-probe kernel launches on every wave of every shard) and the
+aggregation's exchange runs in group-hash waves (`_wave_agg_exchange`).
+Wave and spill events count in `counters` (`memory_wave`, `spill_bytes`).
+
 Not ported (each raises NotImplementedError when a session asks for it):
-fault tolerance and task retries, memory-budget waves, bucketed table
-layouts, unnest nodes, holistic aggregates on the mesh,
-`resize_mesh`, membership heartbeats,
-prewarm, the per-fragment profile and the compile observatory.  The
+fault tolerance and task retries, bucketed table layouts, unnest nodes,
+holistic aggregates on the mesh, `resize_mesh`, membership heartbeats,
+prewarm, the per-fragment profile (`last_mesh_profile`) and the compile
+observatory.  The
 collective-schedule license (verify/schedule.py) is not ported either: the
 executor dispatches strictly lazily, which the JAX package defines as the
 same results.
@@ -84,6 +95,7 @@ from trino_tpu_torch.parallel.spmd import (
     bucket_cap,
     cached_spmd_step,
     mesh_key,
+    shard,
     stack_batches,
     trailing_cap,
     unstack_batch,
@@ -207,16 +219,12 @@ def _spec_sig(specs) -> tuple:
 
 def _check_ported_knobs(properties) -> None:
     """Raise for the session settings whose mesh paths are not ported."""
-    from trino_tpu_torch.runtime.local_planner import session_budget
-
     if properties.get("fault_tolerant_execution") or (
         str(properties.get("retry_policy")).upper() == "TASK"
     ):
         raise NotImplementedError(
             "fault-tolerant execution and task retries on the mesh: not ported yet"
         )
-    if session_budget(properties):
-        raise NotImplementedError("memory-budget waves on the mesh: not ported yet")
     if str(properties.get("table_layouts")).strip():
         raise NotImplementedError("bucketed table layouts: not ported yet")
 
@@ -241,6 +249,13 @@ class DistributedQueryRunner(LocalQueryRunner):
 
     def resize_mesh(self, n_workers: int) -> None:
         raise NotImplementedError("resize_mesh (elastic membership): not ported yet")
+
+    @property
+    def last_mesh_profile(self):
+        raise NotImplementedError(
+            "MeshProfile (the per-fragment mesh profile): not ported yet; "
+            "last_stage_executor.counters holds the event counts"
+        )
 
     # -- planning -------------------------------------------------------------
 
@@ -273,10 +288,7 @@ class DistributedQueryRunner(LocalQueryRunner):
         sub = self.create_subplan(plan)
         executor = StageExecutor(self.catalogs, self.wm, self.properties)
         self.last_stage_executor = executor
-        host = executor.run(sub)
-        rows = []
-        for batch in host.stream:
-            rows.extend(tuple(r) for r in batch.to_pylist())
+        rows = self._collect_rows(executor.run(sub).stream)
         return MaterializedResult(
             list(plan.column_names), rows, [s.type for s in plan.symbols]
         )
@@ -302,9 +314,23 @@ class StageExecutor:
         self.layouts = LayoutResolver(catalogs, properties)
         self.colocate = bool(properties.get("colocated_join"))
         self.license_caps = bool(properties.get("join_capacity_license"))
+        # per-query budget tree of the mesh path: join builds and the fused
+        # exchange's aggregation output reserve BEFORE materializing; over
+        # budget they degrade to partition waves (runtime/spill.py)
+        from trino_tpu_torch.runtime.lifecycle import query_memory_context
+        from trino_tpu_torch.runtime.spill import session_budget
 
-    def bump(self, name: str) -> None:
-        self.counters[name] = self.counters.get(name, 0) + 1
+        self.memory = query_memory_context(session_budget(properties))
+
+    def _budget(self) -> int:
+        """Effective device budget (0 = unconstrained), read at each
+        reservation so a pool limit shrunk mid-query takes effect."""
+        from trino_tpu_torch.runtime.spill import effective_budget
+
+        return effective_budget(self.properties, self.memory)
+
+    def bump(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
 
     def _host_pull(self, *vals):
         """The runner's small device -> host reads, in one transfer."""
@@ -818,20 +844,91 @@ class StageExecutor:
         if slot_cap is None:
             slot_cap = ex.exchange_slot_cap(states, chans, self.wm)
         fcap = self.wm.n * slot_cap
-
-        def final_step(b: Batch) -> Batch:
-            return final_op._reduce_step(b, out_cap=fcap)
-
-        out = ex.fused_repartition(
-            states, chans, self.wm, final_step,
-            ("agg_final", _spec_sig(specs), fcap, _sig(node.outputs)),
-            slot_cap,
+        # the fused exchange materializes a [W, fcap] output beside the
+        # input states: reserve that footprint BEFORE dispatching; over
+        # budget the exchange and the final step run in group-hash waves
+        from trino_tpu_torch.runtime import spill as _spill
+        from trino_tpu_torch.runtime.memory import (
+            ExceededMemoryLimitException,
+            batch_bytes,
         )
+
+        s_bytes = batch_bytes(states)
+        row_bytes = max(1, s_bytes // max(1, self.wm.n * cap_s))
+        need = s_bytes + self.wm.n * fcap * row_bytes
+        ctx = self.memory.child("agg_final")
+        try:
+            ctx.add_bytes(need)
+        except ExceededMemoryLimitException:
+            out = self._wave_agg_exchange(
+                node, states, chans, final_op, specs,
+                _spill.wave_count(need, self._budget(), self.properties), ctx,
+            )
+        else:
+            def final_step(b: Batch) -> Batch:
+                return final_op._reduce_step(b, out_cap=fcap)
+
+            out = ex.fused_repartition(
+                states, chans, self.wm, final_step,
+                ("agg_final", _spec_sig(specs), fcap, _sig(node.outputs)),
+                slot_cap,
+            )
+            ctx.close()
         return self._dist(
             out, node.outputs,
             placements=((tuple(s.name for s in node.group_symbols),)),
             realigned=True,
         )
+
+    def _wave_agg_exchange(self, node, states, chans, final_op, specs,
+                           n_waves: int, ctx) -> Batch:
+        """Group-hash waves of the aggregation's fused exchange
+        (HashAggregationOperator.startMemoryRevoke on the mesh): each wave
+        keeps the partial states whose exchange row hash lands in it, runs
+        the same fused repartition + final step at the wave's (smaller)
+        slot bucket, and the wave outputs concatenate.  Hashing the whole
+        group key keeps every group inside one wave, so results are exact;
+        the exchange output's peak footprint shrinks about k-fold."""
+        from trino_tpu_torch.runtime import spill as _spill
+        from trino_tpu_torch.runtime.memory import batch_bytes
+
+        _spill.PressureObserver(sink=self).waves("aggregation", n_waves)
+        cap_s = trailing_cap(states)
+        keys = tuple(chans)
+
+        def build_filter(wave):
+            def step(b: Batch) -> Batch:
+                h = ex._hash_rows(b, keys)
+                return b.filter(
+                    torch.logical_and(b.mask(), ex.unsigned_mod(h, n_waves) == wave)
+                )
+
+            return step
+
+        outs = []
+        for wave in range(n_waves):
+            fn = cached_spmd_step(
+                self.wm,
+                ("agg_wave_filter", n_waves, wave, keys, cap_s, _sig(node.outputs)),
+                lambda w=wave: build_filter(w),
+            )
+            filt = fn(states)
+            slot_w = ex.exchange_slot_cap(filt, chans, self.wm)
+            fcap_w = self.wm.n * slot_w
+            _spill.reserve_wave_working_set(ctx, batch_bytes(filt))
+
+            def final_step(b: Batch, fc=fcap_w) -> Batch:
+                return final_op._reduce_step(b, out_cap=fc)
+
+            outs.append(
+                ex.fused_repartition(
+                    filt, chans, self.wm, final_step,
+                    ("agg_final", _spec_sig(specs), fcap_w, _sig(node.outputs)),
+                    slot_w,
+                )
+            )
+        ctx.close()
+        return _concat_stacked(outs)
 
     def _colocated_agg(self, node: P.AggregationNode, src: _Dist) -> _Dist:
         """Single-stage grouped aggregation over an already-placed child (no
@@ -1068,21 +1165,42 @@ class StageExecutor:
         probe_fp = tuple(k for k, _ in probe.pending)
         probe_stacked = probe.stacked
         probe_types = [s.type for s in probe.symbols]
-        locate, device_emit_total, expand = self._join_step_fns(
-            node, op, pk, bk, cap_b, probe_types, search
+        # reserve the build's footprint (raw + sorted copy) BEFORE the
+        # expansion materializes; over budget the join degrades to
+        # hash-partition waves with spill instead of dying
+        from trino_tpu_torch.runtime import spill as _spill
+        from trino_tpu_torch.runtime.memory import (
+            ExceededMemoryLimitException,
+            batch_bytes,
         )
-        # proof-licensed capacity: a certificate sealed for THIS mesh width
-        # licenses a fixed expand capacity; anything else takes the runtime
-        # sizing path
-        cert = getattr(node, "capacity_cert", None)
-        if not (self.license_caps and cert is not None and cert.valid_for(self.wm.n)):
-            cert = None
-        out = self._sized_expansion(
-            ("join",) + jkey, probe_stacked, build_stacked,
-            locate, device_emit_total, expand, compact_probe=True,
-            stats_key=("join",) + jkey + (probe_fp,),
-            cert=cert,
-        )
+
+        ctx = self.memory.child("join_build")
+        need = 2 * batch_bytes(build_stacked)
+        try:
+            ctx.add_bytes(need)
+        except ExceededMemoryLimitException:
+            out = self._wave_join(
+                node, op, probe_stacked, build_stacked, pk, bk, jkey, probe_types,
+                search, _spill.wave_count(need, self._budget(), self.properties), ctx,
+            )
+        else:
+            locate, device_emit_total, expand = self._join_step_fns(
+                node, op, pk, bk, cap_b, probe_types, search
+            )
+            # proof-licensed capacity: a certificate sealed for THIS mesh
+            # width licenses a fixed expand capacity; anything else (a
+            # mesh shrink, the knob off, the waves above) takes the runtime
+            # sizing path
+            cert = getattr(node, "capacity_cert", None)
+            if not (self.license_caps and cert is not None and cert.valid_for(self.wm.n)):
+                cert = None
+            out = self._sized_expansion(
+                ("join",) + jkey, probe_stacked, build_stacked,
+                locate, device_emit_total, expand, compact_probe=True,
+                stats_key=("join",) + jkey + (probe_fp,),
+                cert=cert,
+            )
+            ctx.close()
         return self._dist(
             out, out_symbols,
             placements=join_output_placements(
@@ -1157,6 +1275,119 @@ class StageExecutor:
             return out
 
         return locate, device_emit_total, expand
+
+    def _wave_join(self, node, op, probe_stacked, build_stacked, pk, bk, jkey,
+                   probe_types, search, n_waves: int, ctx) -> Batch:
+        """Partition-wave join on the mesh (SpillingJoinProcessor): both
+        stacked sides cross to the host, each worker shard hash-partitions
+        by the row value hash into `n_waves` partitions (spilled through
+        the filesystem under `spill_enabled`), and the join runs wave by
+        wave at ONE shape bucket per side, so the same locate/expand steps
+        serve every wave.  Worker-shard identity survives the spill, so
+        each wave restacks onto the same alignment (a broadcast build's W
+        copies stay W copies)."""
+        from trino_tpu_torch.parallel.serde import partition_batches
+        from trino_tpu_torch.runtime import spill as _spill
+        from trino_tpu_torch.runtime.memory import batch_bytes
+
+        observer = _spill.PressureObserver(sink=self)
+        spiller = (
+            _spill.SpillManager(observer=observer)
+            if _spill.spill_to_disk(self.properties)
+            else None
+        )
+        observer.waves("join", n_waves)
+        W = self.wm.n
+        try:
+            # the spill tier's declared host boundary
+            bh, ph = _spill.pull_host(build_stacked, probe_stacked)
+
+            def shard_parts(host, keys):
+                """([wave][worker] -> host Batch or None, dead template);
+                partitioned PER worker shard."""
+                shards = [shard(host, w) for w in range(W)]
+                template = _dead_batch_like(shards[0])
+                per_shard = [partition_batches([sh], list(keys), n_waves) for sh in shards]
+                parts = [
+                    [(per_shard[w][wave][0] if per_shard[w][wave] else None) for w in range(W)]
+                    for wave in range(n_waves)
+                ]
+                return parts, template
+
+            b_parts, b_dead = shard_parts(bh, bk)
+            p_parts, p_dead = shard_parts(ph, pk)
+            del bh, ph
+
+            def side_cap(parts) -> int:
+                rows = max(
+                    (b.capacity for wave in parts for b in wave if b is not None),
+                    default=1,
+                )
+                return next_pow2(max(rows, 1), floor=64)
+
+            # one shape bucket per side for every wave
+            cap_b = side_cap(b_parts)
+            cap_p = side_cap(p_parts)
+
+            def store(tag, parts):
+                """Spill each wave's present shards; returns a loader of
+                [worker] -> Batch or None."""
+                if spiller is None:
+                    return lambda wave: parts[wave]
+                present: dict = {}
+                for wave in range(n_waves):
+                    real = [(w, b) for w, b in enumerate(parts[wave]) if b is not None]
+                    present[wave] = [w for w, _ in real]
+                    if real:
+                        spiller.save(tag, wave, [b for _, b in real])
+                    parts[wave] = None  # free RAM as waves land on disk
+
+                def load(wave):
+                    cells: list = [None] * W
+                    for w, b in zip(present[wave], spiller.load(tag, wave)):
+                        cells[w] = b
+                    return cells
+
+                return load
+
+            b_load = store("jb", b_parts)
+            p_load = store("jp", p_parts)
+
+            locate, emit_total, expand = self._join_step_fns(
+                node, op, pk, bk, cap_b, probe_types, search
+            )
+            wkey = ("join_wave", n_waves, cap_b, cap_p) + jkey
+
+            def run_wave(b_cells, p_cells):
+                build_w = stack_batches(b_cells, self.wm, cap=cap_b)
+                probe_w = stack_batches(p_cells, self.wm, cap=cap_p)
+                _spill.reserve_wave_working_set(ctx, 2 * batch_bytes(build_w))
+                return self._sized_expansion(
+                    wkey, probe_w, build_w, locate, emit_total, expand,
+                    compact_probe=False, stats_key=wkey,
+                )
+
+            outs = []
+            for wave in range(n_waves):
+                b_cells = b_load(wave)
+                p_cells = p_load(wave)
+                if all(c is None for c in p_cells) and node.kind != "full":
+                    continue  # no probe rows and no build tail: no output
+                if all(c is None for c in b_cells):
+                    b_cells[0] = b_dead  # an empty build wave still probes
+                if all(c is None for c in p_cells):
+                    p_cells[0] = p_dead  # full outer: a tail-only wave
+                outs.append(run_wave(b_cells, p_cells))
+            if not outs:
+                # every wave empty: one dead wave gives the output its shape
+                outs.append(
+                    run_wave([b_dead] + [None] * (W - 1), [p_dead] + [None] * (W - 1))
+                )
+            ctx.close()
+            return _concat_stacked(outs)
+        finally:
+            if spiller is not None:
+                spiller.close()
 
     # -- capacity-sized expansions --------------------------------------------
 
@@ -1478,6 +1709,50 @@ class StageExecutor:
             return b.filter(torch.logical_and(live, rank < n))
 
         return src.defer(("limit", n, _sig(src.symbols)), step)
+
+
+def _dead_batch_like(b: Batch) -> Batch:
+    """Capacity-1 all-dead host batch with `b`'s schema (the placeholder of
+    an empty wave partition)."""
+    cols = [
+        Column(
+            torch.zeros((1,) + tuple(c.data.shape[1:]), dtype=c.data.dtype),
+            c.type,
+            torch.zeros(1, dtype=torch.bool) if c.valid is not None else None,
+            c.dictionary,
+        )
+        for c in b.columns
+    ]
+    return Batch(cols, torch.zeros(1, dtype=torch.bool))
+
+
+def _concat_stacked(batches: list) -> Batch:
+    """Concatenate stacked [W, cap_i] batches along the per-worker row axis
+    (wave outputs -> one distributed intermediate).  Every wave of one
+    source shares its schema and, column by column, its dictionary."""
+    if len(batches) == 1:
+        return batches[0]
+    first = batches[0]
+    cols = []
+    for ci, c0 in enumerate(first.columns):
+        cs = [b.columns[ci] for b in batches]
+        for c in cs[1:]:
+            if c.dictionary is not c0.dictionary and c.dictionary != c0.dictionary:
+                raise AssertionError("wave outputs diverged dictionaries; cannot concat")
+        data = torch.cat([c.data for c in cs], dim=1)
+        valid = None
+        if any(c.valid is not None for c in cs):
+            valid = torch.cat(
+                [
+                    c.valid if c.valid is not None
+                    else torch.ones(c.data.shape[:2], dtype=torch.bool, device=c.data.device)
+                    for c in cs
+                ],
+                dim=1,
+            )
+        cols.append(Column(data, c0.type, valid, c0.dictionary))
+    mask = torch.cat([b.mask() for b in batches], dim=1)
+    return Batch(cols, mask)
 
 
 def _slice_host(stacked: Batch, w: int, n: int) -> Batch:

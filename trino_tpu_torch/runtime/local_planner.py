@@ -16,7 +16,17 @@ source ++ filtering symbols), Union (INTERSECT, EXCEPT and ROLLUP plan
 through it), EnforceSingleRow, Exchange (a pass-through; a merge
 re-sorts), Window, Sort, TopN, Limit and Output.  Any other
 node raises NotImplementedError naming it (unnest and sample among them).
-Memory budgets and their partition-wave machinery are not ported yet.
+
+Memory budgets (`query_max_memory`, `query_max_memory_bytes`, and the
+shared pool's limit): the planner holds a per-query reservation tree
+(runtime/memory.py, on the shared pool while a statement runs), and the
+blocking operators reserve before they materialize.  Over budget, a join
+build, a grouped aggregation and a partitioned window run in hash-partition
+waves and ORDER BY becomes an external sort, with the partitions that are
+not resident spilled through the filesystem (`spill_enabled`) or held in
+host RAM (runtime/spill.py); a join's build is also revocable, so pressure
+from the shared pool can spill it mid-probe and the probe finishes in
+waves.  `memory_wave_partitions` pins the wave count.
 """
 
 from __future__ import annotations
@@ -86,17 +96,6 @@ class PhysicalPlan:
         return [s.type for s in self.symbols]
 
 
-def session_budget(properties) -> int:
-    """Per-query session budget in bytes: the smallest nonzero of
-    ``query_max_memory`` and the legacy ``query_max_memory_bytes``."""
-    vals = [
-        int(properties.get(knob))
-        for knob in ("query_max_memory", "query_max_memory_bytes")
-    ]
-    vals = [v for v in vals if v > 0]
-    return min(vals) if vals else 0
-
-
 class LocalExecutionPlanner:
     def __init__(
         self,
@@ -105,19 +104,41 @@ class LocalExecutionPlanner:
         target_splits: int = 4,
         properties=None,
     ):
+        from trino_tpu_torch.runtime.lifecycle import query_memory_context
         from trino_tpu_torch.runtime.session import SessionProperties
+        from trino_tpu_torch.runtime.spill import session_budget
 
         self.catalogs = catalogs
         self.device = device
         self.target_splits = target_splits
         self.properties = properties or SessionProperties()
+        #: per-query budget tree (reference: AggregatedMemoryContext +
+        #: MemoryPool); blocking operators reserve through its children.
+        #: While a statement runs it lives on the shared process pool, where
+        #: the revoke tier and the low-memory killer see it
+        self.memory = query_memory_context(session_budget(self.properties))
         #: build-side key ranges registered by inner-join builds, keyed by
         #: the probe symbol they prune (DynamicFilterService role)
         self.dynamic_filters: dict = {}
-        if session_budget(self.properties):
-            raise NotImplementedError(
-                "query memory budgets (partition waves and spill): not ported yet"
-            )
+
+    def _budget(self) -> int:
+        """The device budget blocking operators plan against: the session
+        budget and any shared pool limit, whichever is tighter (0 =
+        unconstrained: no wave machinery runs)."""
+        from trino_tpu_torch.runtime.spill import effective_budget
+
+        return effective_budget(self.properties, self.memory)
+
+    def _make_spiller(self):
+        """A filesystem spill store for one wave operation, or None when
+        `spill_enabled` is off (partitions stay in host RAM).  Called
+        lazily, at the first spill, so an unconstrained query never touches
+        the filesystem."""
+        from trino_tpu_torch.runtime.spill import SpillManager, spill_to_disk
+
+        if not spill_to_disk(self.properties):
+            return None
+        return SpillManager()
 
     def plan(self, node: P.PlanNode) -> PhysicalPlan:
         method = getattr(self, "_visit_" + type(node).__name__, None)
@@ -279,21 +300,36 @@ class LocalExecutionPlanner:
         ngroups = len(node.group_symbols)
         proj, specs, input_types = build_agg_inputs(node, src)
         pre = FilterProjectOperator(fused_pred, proj)
+        budget = self._budget()
         # group keys must be identity InputRefs for the fused step, so the
-        # key dictionaries survive the projection
-        fuse = all(isinstance(proj[i], InputRef) for i in range(ngroups))
-        op = AggregationOperator(
-            list(range(ngroups)),
-            specs,
-            input_types,
-            self.device,
-            mode=node.step,
-            fold_every=self.properties.get("agg_fold_batches"),
-            use_pallas=self.properties.get("pallas_agg"),
-            pre_step=pre.fusable_step() if fuse else None,
+        # key dictionaries survive the projection; the wave stream reduces
+        # projected batches itself
+        fuse = not (budget and ngroups) and all(
+            isinstance(proj[i], InputRef) for i in range(ngroups)
         )
+
+        def make_op():
+            return AggregationOperator(
+                list(range(ngroups)),
+                specs,
+                input_types,
+                self.device,
+                mode=node.step,
+                fold_every=self.properties.get("agg_fold_batches"),
+                use_pallas=self.properties.get("pallas_agg"),
+                pre_step=pre.fusable_step() if fuse else None,
+                memory_ctx=self.memory.child("aggregation"),
+            )
+
         feed = src.stream if fuse else pre.process(src.stream)
-        return PhysicalPlan(op.process(feed), node.outputs)
+        if budget and ngroups:
+            stream = _agg_wave_stream(
+                make_op, feed, list(range(ngroups)), int(budget), self.device,
+                spill_factory=self._make_spiller, properties=self.properties,
+            )
+        else:
+            stream = make_op().process(feed)
+        return PhysicalPlan(stream, node.outputs)
 
     def _distinct_preagg(self, node: P.AggregationNode, src: PhysicalPlan) -> PhysicalPlan:
         """DISTINCT aggregates through a dedupe pre-aggregation: group by
@@ -364,16 +400,128 @@ class LocalExecutionPlanner:
             def residual(batch: Batch, _e=res_expr):
                 return ExprCompiler(batch).filter_mask(_e)
 
-        op = HashJoinOperator(
-            node.kind,
-            probe_keys,
-            build_keys,
-            build.types(),
-            probe_types=probe.types(),
-            residual=residual,
+        def make_op():
+            return HashJoinOperator(
+                node.kind,
+                probe_keys,
+                build_keys,
+                build.types(),
+                probe_types=probe.types(),
+                residual=residual,
+            )
+
+        return PhysicalPlan(
+            self._budgeted_join(make_op, build_batches, probe, build_keys, probe_keys,
+                                node.kind == "full"),
+            out_symbols,
         )
-        op.set_build(build_batches, self.device)
-        return PhysicalPlan(op.process(probe.stream), out_symbols)
+
+    def _budgeted_join(self, make_op, build_batches, probe, build_keys, probe_keys,
+                       full: bool):
+        """The join's output stream under the memory budget.  The dense
+        build's footprint is reserved BEFORE it materializes; over budget
+        the join runs in hash-partition waves with spill (the analog of
+        HashBuilderOperator.startMemoryRevoke + GenericPartitioningSpiller
+        + SpillingJoinProcessor).  Within budget the build registers as
+        revocable: pressure from the shared pool spills it mid-probe, and
+        the probe's remainder finishes in waves."""
+        from trino_tpu_torch.runtime import spill as _spill
+        from trino_tpu_torch.runtime.memory import (
+            ExceededMemoryLimitException,
+            batches_bytes,
+        )
+
+        device = self.device
+        ctx = self.memory.child("join_build")
+        observer = _spill.PressureObserver()
+        need = 2 * batches_bytes(build_batches)  # raw batches + dense copy
+        try:
+            ctx.add_bytes(need)
+        except ExceededMemoryLimitException:
+            n_waves = _spill.wave_count(need, self._budget(), self.properties)
+            spiller = self._make_spiller()
+            build_host = _spill.pull_host(list(build_batches))
+            build_batches.clear()
+            build_side = _spill.partition_side(
+                build_host, build_keys, n_waves, spiller, "jb"
+            )
+            del build_host
+
+            def wave_stream():
+                try:
+                    probe_host = _spill.pull_host(list(probe.stream))
+                    probe_side = _spill.partition_side(
+                        probe_host, probe_keys, n_waves, spiller, "jp"
+                    )
+                    del probe_host
+                    yield from _spill.partition_wave_join(
+                        make_op, build_side, probe_side, n_waves, ctx, observer, device
+                    )
+                finally:
+                    if spiller is not None:
+                        spiller.close()
+
+            return wave_stream()
+        op = make_op()
+        op.set_build(build_batches, device)
+        if full:
+            # a full outer join tracks the build's matched flags across the
+            # whole probe; a mid-stream revoke cannot split that state
+            # exactly, so full joins are not revocable (the up-front waves
+            # above still cover them)
+            def stream():
+                yield from op.process(probe.stream)
+                ctx.close()
+
+            return stream()
+
+        holder: dict = {}
+
+        def revoke_spill() -> int:
+            # runs on the REQUESTING thread under the handle's lock; the
+            # owner may be mid-batch against the dense build, so only the
+            # raw build batches are copied out here, and the owner drops
+            # its own device references at its next batch
+            spiller = self._make_spiller()
+            k = _spill.wave_count(need, self._budget(), self.properties)
+            host = _spill.pull_host(list(build_batches))
+            holder["side"] = _spill.partition_side(host, build_keys, k, spiller, "jb")
+            holder["spiller"] = spiller
+            holder["k"] = k
+            build_batches.clear()
+            freed = ctx.reserved
+            ctx.set_bytes(0)
+            return freed
+
+        handle = _spill.REVOCABLES.register(
+            _spill.RevocableOperator("join", ctx, revoke_spill)
+        )
+
+        def stream():
+            try:
+                it = iter(probe.stream)
+                for pb in it:
+                    if handle.revoked:
+                        # the revoke tier spilled the build: drop the device
+                        # references; this batch and the rest of the probe
+                        # finish in waves against the spilled build
+                        import itertools
+
+                        op.release_build()
+                        yield from _revoked_join_remainder(
+                            make_op, holder, probe_keys,
+                            itertools.chain([pb], it), ctx, observer, device,
+                        )
+                        return
+                    yield op._join_batch(pb)
+                ctx.close()
+            finally:
+                handle.finish()
+                sp = holder.get("spiller")
+                if sp is not None:
+                    sp.close()
+
+        return stream()
 
     def _visit_SemiJoinNode(self, node: P.SemiJoinNode) -> PhysicalPlan:
         src = self.plan(node.source)
@@ -401,11 +549,19 @@ class LocalExecutionPlanner:
         from trino_tpu_torch.ops.window import WindowOperator
 
         src = self.plan(node.source)
-        op = WindowOperator(*window_args(node, src))
-        # no memory budget reaches here (budgets raise in __init__), so the
-        # JAX package's partition-wave branch is not needed: the window
-        # sees every row of its input at once
-        return PhysicalPlan(op.process(src.stream), node.outputs)
+        part, order, specs = window_args(node, src)
+        budget = self._budget()
+        if budget and part:
+            stream = _window_wave_stream(
+                lambda: WindowOperator(part, order, specs),
+                src.stream, list(part), int(budget), self.device,
+                spill_factory=self._make_spiller, properties=self.properties,
+            )
+        else:
+            # a window with no PARTITION BY needs every row at once: no
+            # partition-disjoint wave exists
+            stream = WindowOperator(part, order, specs).process(src.stream)
+        return PhysicalPlan(stream, node.outputs)
 
     # -- ordering -------------------------------------------------------------
 
@@ -417,7 +573,14 @@ class LocalExecutionPlanner:
 
     def _visit_SortNode(self, node: P.SortNode) -> PhysicalPlan:
         src = self.plan(node.source)
-        op = OrderByOperator(self._sort_keys(src, node.orderings))
+        from trino_tpu_torch.runtime.spill import PressureObserver
+
+        op = OrderByOperator(
+            self._sort_keys(src, node.orderings),
+            memory_ctx=self.memory.child("sort"),
+            spill_factory=self._make_spiller,
+            observer=PressureObserver(),
+        )
         return PhysicalPlan(op.process(src.stream), src.symbols)
 
     def _visit_TopNNode(self, node: P.TopNNode) -> PhysicalPlan:
@@ -496,6 +659,197 @@ class LocalExecutionPlanner:
             )
             return PhysicalPlan(proj.process(src.stream), node.symbols)
         return PhysicalPlan(src.stream, node.symbols)
+
+
+def _revoked_join_remainder(make_op, holder, probe_keys, probe_iter, ctx,
+                            observer, device):
+    """Finish a revoked join: the build already sits in spilled partitions
+    (`holder`, written by the revoke callback); the unprocessed remainder
+    of the probe partitions the same way and the join completes in waves.
+    Probe batches emitted before the revoke were joined against the whole
+    build, so the split point is exact."""
+    from trino_tpu_torch.runtime import spill as _spill
+
+    probe_host = _spill.pull_host(list(probe_iter))
+    probe_side = _spill.partition_side(
+        probe_host, probe_keys, holder["k"], holder["spiller"], "jp"
+    )
+    del probe_host
+    yield from _spill.partition_wave_join(
+        make_op, holder["side"], probe_side, holder["k"], ctx, observer, device
+    )
+
+
+def _agg_wave_stream(make_op, feed, key_channels: list, budget: int, device,
+                     spill_factory=None, properties=None):
+    """Memory-bounded grouped aggregation: group-hash STATE waves.
+
+    Reference role: HashAggregationOperator.startMemoryRevoke:449.  Input
+    batches reduce to partial states at once; when the states on the
+    device pass a quarter of the budget they SPILL (through the filesystem
+    under `spill_enabled`, host RAM otherwise).  The final merge then runs
+    in group-hash waves over the spilled states: hashing by the whole group
+    key keeps every group inside one wave, so the merges are exact and
+    group-disjoint.  A query within budget never spills and never copies:
+    one merge on the device, as on the unbudgeted path.
+
+    The accumulating state is registered REVOCABLE: pressure from the
+    shared pool can flush it to the spill tier early instead of killing a
+    query.  (The JAX package's raw-input waves serve the holistic
+    aggregates, which have no streamable partials; the port has none of
+    them yet, so every aggregation here streams.)
+    """
+    from trino_tpu_torch.columnar.batch import concat_batches
+    from trino_tpu_torch.runtime import spill as _spill
+    from trino_tpu_torch.runtime.memory import (
+        ExceededMemoryLimitException,
+        batch_bytes,
+    )
+
+    observer = _spill.PressureObserver()
+    op = make_op()
+    out_mode = "merge" if op.mode in ("partial", "merge") else "final"
+    spill_at = max(budget // 4, 1)
+    spiller = None
+    spiller_made = False
+
+    def get_spiller():
+        nonlocal spiller, spiller_made
+        if not spiller_made:
+            spiller_made = True
+            spiller = spill_factory() if spill_factory is not None else None
+        return spiller
+
+    acc: list = [None]  # created at the first flush
+    state = {"device": [], "bytes": 0}
+
+    def flush() -> int:
+        """Move the device states to the spill tier; returns bytes freed.
+        Called by the owner (over spill_at) and by the revoke tier (under
+        the handle's reentrant lock)."""
+        with handle.lock:
+            if not state["device"]:
+                return 0
+            if acc[0] is None:
+                acc[0] = _spill.SpillingAccumulator(get_spiller(), "aggstate")
+            acc[0].push_chunk(_spill.pull_host(list(state["device"])))
+            state["device"].clear()
+            freed = state["bytes"]
+            state["bytes"] = 0
+        op.memory_ctx.set_bytes(0)
+        return freed
+
+    handle = _spill.REVOCABLES.register(
+        _spill.RevocableOperator("aggregation", op.memory_ctx, flush)
+    )
+    seen_any = False
+    try:
+        for b in feed:
+            seen_any = True
+            s = op.reduce_batch(b)
+            with handle.lock:
+                state["device"].append(s)
+                state["bytes"] += batch_bytes(s)
+                cur = state["bytes"]
+            over = cur > spill_at
+            try:
+                op.memory_ctx.set_bytes(cur)
+            except ExceededMemoryLimitException:
+                over = True  # the reservation tree is the breach signal
+            with handle.lock:
+                # a concurrent revoke may have flushed (and released)
+                # between the read of `cur` and set_bytes: re-sync so freed
+                # memory is not reserved again (a handle revokes once, so
+                # one correction closes the window)
+                resync = state["bytes"] if state["bytes"] != cur else None
+            if resync is not None:
+                try:
+                    op.memory_ctx.set_bytes(resync)
+                except ExceededMemoryLimitException:
+                    over = True
+            if over:
+                flush()
+        handle.finish()  # the merge phase is no longer revocable
+        if not seen_any:
+            yield op.finish()
+            op.memory_ctx.close()
+            return
+        if acc[0] is None:
+            # within budget: one merge on the device, no host round trip
+            device_states = state["device"]
+            yield op._combine(
+                device_states[0] if len(device_states) == 1 else concat_batches(device_states),
+                out_mode,
+            )
+            op.memory_ctx.close()
+            return
+        flush()
+        total = acc[0].total_bytes
+        n_waves = _spill.wave_count(2 * total, budget, properties)
+        observer.waves("aggregation", n_waves)
+        for wave in range(n_waves):
+            # waves select rows on the host by VALUE hash (state batches
+            # carry batch-local dictionaries, so code hashes would split a
+            # group across waves); each wave's footprint is ~total/n_waves
+            parts = [
+                _spill.to_device(p, device)
+                for p in acc[0].wave_parts(key_channels, n_waves, wave)
+            ]
+            if not parts:
+                continue
+            yield op._combine(
+                parts[0] if len(parts) == 1 else concat_batches(parts), out_mode
+            )
+        op.memory_ctx.close()
+    finally:
+        handle.finish()
+        if spiller is not None:
+            spiller.close()
+
+
+def _window_wave_stream(make_op, feed, key_channels: list, budget: int, device,
+                        spill_factory=None, properties=None):
+    """Memory-bounded window execution: a window function looks within ONE
+    partition only, so hash-partitioning the input by the PARTITION BY keys
+    into waves is exact; each wave materializes and sorts only its slice on
+    the device (reference role: the spill path of WindowOperator /
+    PagesIndex, as partition-disjoint waves).  Input over budget stages
+    through the filesystem under `spill_enabled`."""
+    from trino_tpu_torch.runtime import spill as _spill
+    from trino_tpu_torch.runtime.memory import batch_bytes
+
+    observer = _spill.PressureObserver()
+    acc_dev: list = []
+    store = None
+    spiller = None
+    total = 0
+    seen_dicts: set = set()
+    try:
+        for b in feed:
+            # shared dictionaries counted once across the accumulation
+            total += batch_bytes(b, _seen_dicts=seen_dicts)
+            if store is not None:
+                store.push_chunk([_spill.pull_host(b)])
+            else:
+                acc_dev.append(b)
+                if total > budget:
+                    spiller = spill_factory() if spill_factory is not None else None
+                    store = _spill.SpillingAccumulator(spiller, "window")
+                    store.push_chunk(_spill.pull_host(list(acc_dev)))
+                    acc_dev.clear()
+        if store is None:
+            yield from make_op().process(iter(acc_dev))
+            return
+        n_waves = _spill.wave_count(2 * total, budget, properties)
+        observer.waves("window", n_waves)
+        for wave in range(n_waves):
+            parts = store.wave_parts(key_channels, n_waves, wave)
+            if not parts:
+                continue
+            yield from make_op().process(_spill.to_device(p, device) for p in parts)
+    finally:
+        if spiller is not None:
+            spiller.close()
 
 
 def build_agg_inputs(node: "P.AggregationNode", src) -> tuple:

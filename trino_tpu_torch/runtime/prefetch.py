@@ -9,6 +9,7 @@ overlap).  SURVEY.md §7's feed/step/drain pipeline.
 
 from __future__ import annotations
 
+import contextvars
 import queue
 import threading
 from typing import Iterable, Iterator
@@ -39,7 +40,12 @@ def eager_prefetch(source: Iterable, depth: int = 2) -> Iterator:
             return
         q.put(_SENTINEL)
 
-    t = threading.Thread(target=run, daemon=True, name="eager-prefetch")
+    # the producer runs in the caller's context, so a spill store that a
+    # wave stream upstream creates there registers with the statement
+    t = threading.Thread(
+        target=contextvars.copy_context().run, args=(run,), daemon=True,
+        name="eager-prefetch",
+    )
     t.start()
 
     def drain():
@@ -83,7 +89,10 @@ def prefetch_iter(source: Iterable, depth: int = 2) -> Iterator:
             return
         q.put(_SENTINEL)
 
-    t = threading.Thread(target=run, daemon=True, name="scan-prefetch")
+    t = threading.Thread(
+        target=contextvars.copy_context().run, args=(run,), daemon=True,
+        name="scan-prefetch",
+    )
     t.start()
     try:
         while True:

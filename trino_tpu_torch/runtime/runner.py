@@ -3,8 +3,12 @@
 Port of trino_tpu/runtime/runner.py (reference role:
 testing/LocalQueryRunner.java:260): parse -> analyze -> plan -> optimize
 on the host, then the local execution planner's operators on one device.
-The runner takes SELECT, SET SESSION and USE; query lifecycle, events,
-transactions, security and DDL are not ported yet.
+The runner takes SELECT, SET SESSION and USE; events, transactions,
+security and DDL are not ported yet.  Each statement runs under a
+QueryContext (runtime/lifecycle.py): the planners reserve its memory on
+the shared pool, and when the statement ends, success or failure, its
+spill stores are closed (their files deleted) and its reservations
+released, even when a wave generator was abandoned mid-stream.
 
 The device is the CUDA card unless the caller passes another one
 (`device="cpu"`); there is no fallback (see device.py).
@@ -12,6 +16,7 @@ The device is the CUDA card unless the caller passes another one
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -22,6 +27,10 @@ from trino_tpu_torch.planner.plan import OutputNode
 from trino_tpu_torch.runtime.local_planner import LocalExecutionPlanner
 from trino_tpu_torch.sql import ast
 from trino_tpu_torch.sql.parser import parse_statement
+
+
+#: statement ids of this process
+_QUERY_IDS = itertools.count()
 
 
 @dataclass
@@ -81,13 +90,45 @@ class LocalQueryRunner:
     # -- execution ------------------------------------------------------------
 
     def execute(self, sql: str) -> MaterializedResult:
+        from trino_tpu_torch.runtime import lifecycle
+
         stmt = parse_statement(sql)
         m = getattr(self, "_exec_" + type(stmt).__name__, None)
         if m is None:
             raise NotImplementedError(
                 f"statement {type(stmt).__name__}: not ported yet"
             )
-        return m(stmt)
+        ctx = lifecycle.QueryContext(f"query_{next(_QUERY_IDS)}")
+        #: the last statement's QueryContext (its peak reservation)
+        self.last_query = ctx
+        token = lifecycle.set_current(ctx)
+        try:
+            return m(stmt)
+        finally:
+            lifecycle.reset_current(token)
+            ctx.release_spills()
+            ctx.release_memory()
+
+    @staticmethod
+    def _collect_rows(stream) -> list:
+        """Rows of a result stream; the statement's kill token is checked
+        between batches.  The stream is closed however it ends, so the
+        finally blocks of the operators' generators (spill stores,
+        revocable handles) run now."""
+        from trino_tpu_torch.runtime.lifecycle import current_query
+
+        ctx = current_query()
+        rows = []
+        try:
+            for batch in stream:
+                if ctx is not None:
+                    ctx.check()
+                rows.extend(tuple(r) for r in batch.to_pylist())
+        finally:
+            close = getattr(stream, "close", None)
+            if close is not None:
+                close()
+        return rows
 
     def _execute_plan(self, plan: OutputNode) -> MaterializedResult:
         lp = LocalExecutionPlanner(
@@ -96,10 +137,7 @@ class LocalQueryRunner:
             target_splits=self.target_splits,
             properties=self.properties,
         )
-        physical = lp.plan(plan)
-        rows = []
-        for batch in physical.stream:
-            rows.extend(tuple(r) for r in batch.to_pylist())
+        rows = self._collect_rows(lp.plan(plan).stream)
         return MaterializedResult(
             list(plan.column_names), rows, [s.type for s in plan.symbols]
         )

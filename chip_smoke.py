@@ -88,6 +88,35 @@ catches nothing and never falls back to the CPU):
      launch shapes, and one profiled warm budgeted run each of the local
      and the mesh join; last, every budgeted result against the port's CPU
      run under the same budget (a mesh query's on the local runner);
+  5g. arrays, maps and UNNEST at TPC-H sf1 (ARRAY_QUERIES, nothing reduced):
+     U1 the sum and count of an UNNEST of two doubles per lineitem row by
+     (l_returnflag, l_linestatus), 12,002,430 elements (locally with
+     `pallas_agg` on: it must launch the grouped-sums kernel); U2 the mesh
+     join of orders and lineitem with an UNNEST WITH ORDINALITY of two
+     decimals, exact sums (the mesh run must launch the sorted-probe
+     kernel; each launch's P, n_match and S logged); U3 array_agg(...
+     ORDER BY ...) per l_orderkey (1,500,000 groups, K = 8) reduced to
+     four sums; U4 array_agg per l_orderkey unnested again, which must
+     also equal sum(l_quantity) and count(*) over lineitem; U5 the 20 most
+     frequent words of split(c_comment, ' ') (the host seconds of split's
+     dictionary table and its size logged); U6 transform, filter, reduce
+     and a map lookup over every lineitem row, summed; U7 listagg and
+     map_agg per r_name.  Each through LocalQueryRunner and the 4-worker
+     mesh on the card, cold and warm, with wall time, peak device memory,
+     the host reads that data-dependent widths took and the kernels'
+     launches; one profiled warm run each of the local U1 and the mesh U3;
+     then, untimed, one capture run of each query and runner that reads
+     the K of every array value built, the bytes the mesh gathers moved,
+     and the kernels' inputs (the local U1's largest grouped-sums launch,
+     the mesh U2's sorted-probe launches); the local U3 under a budget
+     above its footprint and under a quarter of it (raw-input waves,
+     spilled), each equal to its unbudgeted rows; every result held to the
+     port's CPU run of the same query, computed by the reference process
+     (in order where the ORDER BY fixes it, as a multiset otherwise; U1
+     with the kernel to Q1-double's f32 tolerance);
+  6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
+     the inputs of the local U1's largest launch (N = 2**21 unnested rows)
+     and time it there;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -99,10 +128,14 @@ catches nothing and never falls back to the CPU):
      version, the torch.searchsorted yardstick and the bound; also bit-exact
      at the inputs of the largest and of the smallest-n_match semi-join
      launch of phase 5b, and timed at the largest; bit-exact and timed at
-     the inputs of the largest launch of phases 5c and 5d; bit-exact at
-     the largest launch of phase 5e;
+     the inputs of the largest launch of phases 5c, 5d and 5g; bit-exact
+     at the largest launch of phase 5e;
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
+
+The TPC-H text pools (comments) are drawn from a generator seeded with
+Python's string hash, so the script runs itself, and so its reference
+process, under PYTHONHASHSEED=0: both then see the same c_comment words.
 
 Tolerances: integers, decimals, dates and strings exact.  Kernel sums: counts
 exact, |kernel - plain| <= 5e-5 * (sum of |values| in the cell), the f32
@@ -161,6 +194,53 @@ TPCDS_SCHEMA = {72: "sf0_1"}
 #: channels and their returns (local and mesh) and a union of the three
 #: channels (mesh)
 TPCDS_PROFILES = ((78, "local"), (78, "mesh"), (75, "mesh"))
+
+#: phase 5g: arrays, maps and UNNEST at TPC-H sf1
+ARRAY_QUERIES = {
+    "U1": (
+        "select l_returnflag, l_linestatus, sum(e), count(e) from lineitem "
+        "cross join unnest(array[cast(l_extendedprice as double), "
+        "cast(l_extendedprice as double) * (1 - cast(l_discount as double))]) u(e) "
+        "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"
+    ),
+    "U2": (
+        "select o_orderpriority, n, sum(e), count(*) from orders "
+        "join lineitem on o_orderkey = l_orderkey "
+        "cross join unnest(array[l_quantity, l_discount]) with ordinality u(e, n) "
+        "group by o_orderpriority, n order by o_orderpriority, n"
+    ),
+    "U3": (
+        "select count(*), sum(cardinality(a)), sum(a[1]), sum(element_at(a, -1)) from "
+        "(select l_orderkey, array_agg(l_linenumber order by l_linenumber) a "
+        "from lineitem group by l_orderkey)"
+    ),
+    "U4": (
+        "select sum(q), count(*) from (select l_orderkey, array_agg(l_quantity) a "
+        "from lineitem group by l_orderkey) cross join unnest(a) u(q)"
+    ),
+    "U5": (
+        "select w, count(*) c from customer cross join unnest(split(c_comment, ' ')) u(w) "
+        "group by w order by c desc, w limit 20"
+    ),
+    "U6": (
+        "select sum(reduce(transform(array[cast(l_quantity as double), "
+        "cast(l_discount as double), cast(l_tax as double)], x -> x * 2), "
+        "0e0, (s, x) -> s + x, s -> s)), "
+        "sum(cardinality(filter(array[l_linenumber, l_suppkey, l_partkey], x -> x > 100))), "
+        "sum(element_at(map(array[1, 2, 3, 4, 5, 6, 7], "
+        "array[10, 20, 30, 40, 50, 60, 70]), l_linenumber)), count(*) from lineitem"
+    ),
+    "U7": (
+        "select r_name, listagg(n_name, ',') within group (order by n_name), "
+        "cardinality(map_agg(n_name, n_nationkey)) from nation "
+        "join region on n_regionkey = r_regionkey group by r_name order by r_name"
+    ),
+}
+#: U4's round trip must equal these totals over lineitem
+ARRAY_U4_TOTALS = "select sum(l_quantity), count(*) from lineitem"
+#: the one phase 5g query whose local run takes the grouped-sums kernel
+#: (`pallas_agg` on), and the one whose mesh join takes the sorted probe
+ARRAY_K1_QUERY, ARRAY_K2_QUERY = "U1", "U2"
 
 Q1_DOUBLE = """select l_returnflag, l_linestatus,
        sum(cast(l_quantity as double)), sum(cast(l_extendedprice as double)),
@@ -255,52 +335,37 @@ def grouped_sums_inputs(n, g, k, live_fraction, seed, dev):
     return gids.to(dev), mask.to(dev), values.to(dev)
 
 
-def check_grouped_sums(dev) -> dict:
+def hold_grouped_sums(name, gids, mask, values, g) -> float:
+    """Launch the grouped-sums kernel once and hold it to its plain version:
+    every column of 0/1 values (a count) exact, every cell within
+    KERNEL_RTOL x the cell's sum of |values|; the max |err|."""
     from trino_tpu_torch.ops import grouped_sums as gs
 
-    shapes = [
-        # (name, N, G, K, live fraction, row offset): the main path's
-        # per-batch shape (Q1-double: 2**20-row scan batches, 12 group
-        # slots, 11 columns), then the edges.  The staged tiles are 512
-        # rows; a row offset of 1 makes every input start off a 16-byte
-        # boundary (read in place).
-        ("main", 1 << 20, 12, 11, 0.78, 0),
-        ("g1", 2048, 1, 1, 0.7, 0),
-        ("g512", 2048, 512, 11, 0.7, 0),
-        ("g512_k32", 8192, 512, 32, 0.7, 0),
-        ("k200_tiled", 4096, 512, 200, 0.7, 0),
-        ("all_masked", 1 << 20, 12, 11, 0.0, 0),
-        ("ragged_n", (1 << 20) + 77, 12, 11, 0.78, 0),
-        ("sub_tile_n", 300, 12, 11, 0.78, 0),
-        ("one_tile_plus_1", 513, 12, 11, 0.78, 0),
-        ("k3_rows_not_16b", 100_003, 12, 3, 0.78, 0),
-        ("k5_rows_not_16b", 4099, 7, 5, 0.78, 0),
-        ("unaligned", 100_000, 12, 11, 0.78, 1),
-    ]
-    main = None
-    for name, n, g, k, live, offset in shapes:
-        gids, mask, values = grouped_sums_inputs(n + offset, g, k, live, seed=n + g + k, dev=dev)
-        gids, mask, values = gids[offset:], mask[offset:], values[offset:]
-        out = gs.grouped_sums(gids, mask, values, g)
-        torch.cuda.synchronize()
-        ref = gs.grouped_sums_reference(gids, mask, values, g)
-        scale = gs.grouped_sums_reference(gids, mask, values.abs(), g)
-        err = (out - ref).abs()
-        max_abs_err = float(err.max())
-        if not torch.equal(out[:, 0], ref[:, 0]):
-            raise AssertionError(f"grouped_sums {name}: counts differ")
-        if not bool((err <= KERNEL_RTOL * scale).all()):
-            raise AssertionError(
-                f"grouped_sums {name}: max |err| {max_abs_err} exceeds "
-                f"{KERNEL_RTOL} x the cell's sum of |values|"
-            )
-        if live == 0.0 and bool(out.any()):
-            raise AssertionError("grouped_sums all_masked: nonzero output")
-        log(f"grouped_sums check {name}: N={n} G={g} K={k} max_abs_err={max_abs_err!r} ok")
-        if name == "main":
-            main = (n, g, k, gids, mask, values, max_abs_err)
+    out = gs.grouped_sums(gids, mask, values, g)
+    torch.cuda.synchronize()
+    ref = gs.grouped_sums_reference(gids, mask, values, g)
+    scale = gs.grouped_sums_reference(gids, mask, values.abs(), g)
+    err = (out - ref).abs()
+    max_abs_err = float(err.max())
+    counts = ((values == 0) | (values == 1)).all(dim=0)
+    if not torch.equal(out[:, counts], ref[:, counts]):
+        raise AssertionError(f"grouped_sums {name}: counts differ")
+    if not bool((err <= KERNEL_RTOL * scale).all()):
+        raise AssertionError(
+            f"grouped_sums {name}: max |err| {max_abs_err} exceeds "
+            f"{KERNEL_RTOL} x the cell's sum of |values|"
+        )
+    log(f"grouped_sums check {name}: N={gids.shape[0]} G={g} K={values.shape[1]} "
+        f"count columns={int(counts.sum())} max_abs_err={max_abs_err!r} ok")
+    return max_abs_err
 
-    n, g, k, gids, mask, values, max_abs_err = main
+
+def time_grouped_sums(name, gids, mask, values, g, dev) -> dict:
+    """The kernel (back to back and L2-flushed), its plain version, the
+    one-hot matmul yardstick and the bound at one launch's inputs."""
+    from trino_tpu_torch.ops import grouped_sums as gs
+
+    n, k = values.shape
     plain_ms = cuda_ms(lambda: gs.grouped_sums_reference(gids, mask, values, g))
     onehot = torch.logical_and(
         gids[:, None] == torch.arange(g, device=dev, dtype=gids.dtype)[None, :],
@@ -316,25 +381,79 @@ def check_grouped_sums(dev) -> dict:
     ops_ms = live_rows * k / F32_FLOPS * 1e3  # one f32 add per live value
     bound_ms = max(bytes_ms, ops_ms)
     times = time_kernel(
-        "grouped_sums main", lambda: gs.grouped_sums(gids, mask, values, g), bound_ms
+        f"grouped_sums {name}", lambda: gs.grouped_sums(gids, mask, values, g), bound_ms
     )
     log(
-        f"grouped_sums main: plain_ms={plain_ms!r} "
+        f"grouped_sums {name}: plain_ms={plain_ms!r} "
         f"library_ms={library_ms!r} (one-hot f32 matmul, TF32 off) "
         f"bound_ms={bound_ms!r} ({nbytes} bytes, {live_rows} live rows)"
     )
+    return {
+        **times,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "n": n, "g": g, "k": k,
+    }
+
+
+def check_grouped_sums(dev) -> dict:
+    shapes = [
+        # (name, N, G, K, live fraction, row offset): the main path's
+        # per-batch shape (Q1-double: 2**20-row scan batches, 12 group
+        # slots, 11 columns), then the edges.  The staged tiles are 512
+        # rows; a row offset of 1 makes every input start off a 16-byte
+        # boundary (read in place).  Phase 5g's U1 shape is held at the
+        # inputs its local run captured (check_grouped_sums_captured).
+        ("main", 1 << 20, 12, 11, 0.78, 0),
+        ("g1", 2048, 1, 1, 0.7, 0),
+        ("g512", 2048, 512, 11, 0.7, 0),
+        ("g512_k32", 8192, 512, 32, 0.7, 0),
+        ("k200_tiled", 4096, 512, 200, 0.7, 0),
+        ("all_masked", 1 << 20, 12, 11, 0.0, 0),
+        ("ragged_n", (1 << 20) + 77, 12, 11, 0.78, 0),
+        ("sub_tile_n", 300, 12, 11, 0.78, 0),
+        ("one_tile_plus_1", 513, 12, 11, 0.78, 0),
+        ("k3_rows_not_16b", 100_003, 12, 3, 0.78, 0),
+        ("k5_rows_not_16b", 4099, 7, 5, 0.78, 0),
+        ("unaligned", 100_000, 12, 11, 0.78, 1),
+    ]
+    from trino_tpu_torch.ops import grouped_sums as gs
+
+    main = None
+    for name, n, g, k, live, offset in shapes:
+        gids, mask, values = grouped_sums_inputs(n + offset, g, k, live, seed=n + g + k, dev=dev)
+        gids, mask, values = gids[offset:], mask[offset:], values[offset:]
+        max_abs_err = hold_grouped_sums(name, gids, mask, values, g)
+        if live == 0.0 and bool(gs.grouped_sums(gids, mask, values, g).any()):
+            raise AssertionError("grouped_sums all_masked: nonzero output")
+        if name == "main":
+            main = (g, gids, mask, values, max_abs_err)
+
+    g, gids, mask, values, max_abs_err = main
+    timed = time_grouped_sums("main", gids, mask, values, g, dev)
+    keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "grouped_sums",
         "route": "cuda",
         "source": "trino_tpu_torch/csrc/grouped_sums.cu",
         "replaces": "trino_tpu/ops/pallas_agg.py:62",
         "max_abs_err": max_abs_err,
-        **times,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        **{k: timed[k] for k in keys},
     }
+
+
+def check_grouped_sums_captured(dev, capture: dict) -> dict:
+    """The grouped-sums kernel held to its plain version, and timed, at the
+    inputs of the largest launch of phase 5g's local U1 (captured in an
+    untimed run after the path's counts were read)."""
+    if "largest" not in capture:
+        raise AssertionError("no grouped-sums launch was captured in phase 5g")
+    gids, mask, values, g = capture["largest"]
+    max_abs_err = hold_grouped_sums(f"arrays_{capture['query']}", gids, mask, values, g)
+    out = time_grouped_sums(f"arrays_{capture['query']}", gids, mask, values, g, dev)
+    return {**out, "max_abs_err": max_abs_err, "query": capture["query"]}
 
 
 # -- phase 4: the main path ----------------------------------------------------
@@ -893,8 +1012,9 @@ def tpcds_cpu_reference(out_path: str) -> int:
     rows, seconds, the query's ORDER BY and LIMIT, host planning
     seconds)}, then of every phase 5e query, pickled to `out_path` +
     ".window", then phase 5f's queries under the budgets the card process
-    writes to `out_path` + ".budgets", pickled to `out_path` + ".memory".
-    It runs beside the card phases, on its own cores."""
+    writes to `out_path` + ".budgets", pickled to `out_path` + ".memory",
+    then phase 5g's, pickled to `out_path` + ".arrays".  It runs beside the
+    card phases, on its own cores."""
     import pickle
 
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
@@ -920,6 +1040,7 @@ def tpcds_cpu_reference(out_path: str) -> int:
             pickle.dump(out, f)
         os.replace(path + ".part", path)
     memory_cpu_reference(out_path)
+    arrays_cpu_reference(out_path)
     return 0
 
 
@@ -935,13 +1056,15 @@ def start_tpcds_reference(here: str):
     return proc, path
 
 
-#: the reference process's result file of each phase, beside `out_path`
-REFERENCE_SUFFIX = {"5d": "", "5e": ".window", "5f": ".memory"}
+#: the reference process's result file of each phase, beside `out_path`;
+#: it writes them in this order, so the last phase's wait is its end
+REFERENCE_SUFFIX = {"5d": "", "5e": ".window", "5f": ".memory", "5g": ".arrays"}
+LAST_REFERENCE_PHASE = "5g"
 
 
 def wait_tpcds_reference(proc, path: str, phase: str) -> dict:
-    """The reference's results of phase 5d, 5e or 5f, as soon as they are
-    written (after 5f's, the process has ended)."""
+    """The reference's results of phase 5d, 5e, 5f or 5g, as soon as they
+    are written (after 5g's, the process has ended)."""
     import pickle
     import shutil
 
@@ -949,14 +1072,14 @@ def wait_tpcds_reference(proc, path: str, phase: str) -> dict:
     path += REFERENCE_SUFFIX[phase]
     while not os.path.exists(path) and proc.poll() is None:
         time.sleep(0.5)
-    rc = proc.wait() if phase == "5f" else (proc.poll() or 0)
+    rc = proc.wait() if phase == LAST_REFERENCE_PHASE else (proc.poll() or 0)
     log(f"tpcds cpu reference ({phase}): exit {rc}, "
         f"waited {time.perf_counter() - t0:.1f} s")
     if rc != 0 or not os.path.exists(path):
         raise AssertionError(f"the CPU reference process failed with exit code {rc}")
     with open(path, "rb") as f:
         out = pickle.load(f)
-    if phase == "5f":
+    if phase == LAST_REFERENCE_PHASE:
         shutil.rmtree(os.path.dirname(path), ignore_errors=True)
     return out
 
@@ -1597,6 +1720,256 @@ def run_memory_path(reference, budgets_path: str) -> dict:
     return {"launches": launches, "table": table}
 
 
+# -- phase 5g: arrays, maps and UNNEST --------------------------------------------
+
+
+def arrays_cpu_reference(out_path: str) -> None:
+    """The reference process's phase 5g part: the port's CPU run of every
+    ARRAY_QUERIES query and of ARRAY_U4_TOTALS at tpch.sf1 (`pallas_agg`
+    off: f64 sums), pickled to `out_path` + ".arrays" as {name: (column
+    names, type names, rows, seconds, the ORDER BY and LIMIT)}."""
+    import pickle
+
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import result_order
+
+    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    out = {}
+    for name, sql in list(ARRAY_QUERIES.items()) + [("U4_totals", ARRAY_U4_TOTALS)]:
+        order = result_order(cpu.create_plan(sql))
+        t0 = time.perf_counter()
+        res = cpu.execute(sql)
+        out[name] = (res.column_names, [t.name for t in res.types], res.rows,
+                     time.perf_counter() - t0, order)
+    with open(out_path + ".arrays.part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".arrays.part", out_path + ".arrays")
+
+
+def array_width_recorder(widths: dict):
+    """(original, stand-in) for ExprCompiler.value: the stand-in counts, in
+    `widths`, the element width K of every array or map value an
+    expression builds (a map counts its key plane's K)."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.expr.compiler import ExprCompiler
+
+    original = ExprCompiler.value
+
+    def value(self, expr):
+        v = original(self, expr)
+        if v.lengths is not None:
+            k = v.data.shape[-1] // (2 if isinstance(v.type, T.MapType) else 1)
+            widths[k] = widths.get(k, 0) + 1
+        return v
+
+    return original, value
+
+
+def gather_byte_recorder(moved: list):
+    """(original, stand-in) for StageExecutor._remote_as_host: the stand-in
+    passes every batch a gather or merge brings into the coordinator's
+    local engine through as it streams, appending its bytes to `moved`."""
+    from trino_tpu_torch.parallel.runner import StageExecutor
+    from trino_tpu_torch.runtime.local_planner import PhysicalPlan
+    from trino_tpu_torch.runtime.memory import batch_bytes
+
+    original = StageExecutor._remote_as_host
+
+    def remote_as_host(self, node):
+        plan = original(self, node)
+        seen: set = set()  # a dictionary shared by batches counts once
+
+        def counted(stream):
+            for b in stream:
+                moved.append(batch_bytes(b, seen))
+                yield b
+
+        return PhysicalPlan(counted(plan.stream), plan.symbols)
+
+    return original, remote_as_host
+
+
+def grouped_sums_recorder(capture: dict):
+    """(original, stand-in) for the grouped-sums wrapper's launch step
+    (`ops.grouped_sums._launch`, reached only on the card): the stand-in
+    passes every launch through (the wrapper alone counts it) and keeps
+    copies of the inputs of the largest in capture["largest"]."""
+    from trino_tpu_torch.ops import grouped_sums as gs
+
+    original = gs._launch
+
+    def recording(gids, mask, values, n_groups, plan):
+        if values.numel() > capture.get("largest_size", -1):
+            capture.update(largest_size=values.numel(),
+                           largest=(gids.clone(), mask.clone(), values.clone(), n_groups))
+        return original(gids, mask, values, n_groups, plan)
+
+    return original, recording
+
+
+def run_array_path(reference, probe_record: dict, k1_capture: dict) -> dict:
+    """Phase 5g: ARRAY_QUERIES through the local runner and the 4-worker
+    mesh on the card, cold and warm, each held to the reference process's
+    CPU run.  The local U1 (with `pallas_agg` on) must launch the
+    grouped-sums kernel and the mesh U2 the sorted-probe kernel.  The timed
+    runs carry no instrument of the script's own; after the path's counts
+    are read, one untimed capture run of each query and runner reads the
+    K of every array value, the mesh gathers' bytes, and the kernels'
+    inputs: the local U1's largest grouped-sums launch into `k1_capture`,
+    the mesh U2's sorted-probe launch shapes and largest inputs into
+    `probe_record`.  Last, the local U3 under a budget above its footprint
+    and under a quarter of it (waves), each against its unbudgeted rows."""
+    import shutil
+    import tempfile
+
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch import config
+    from trino_tpu_torch.expr import arrays as array_fns
+    from trino_tpu_torch.expr.compiler import ExprCompiler
+    from trino_tpu_torch.ops import aggregation as agg
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner, StageExecutor
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import assert_rows_match, result_order
+
+    local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    kernel_local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    kernel_local.execute("set session pallas_agg = true")
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+
+    def runner(name, where):
+        return mesh if where == "mesh" else kernel_local if name == ARRAY_K1_QUERY else local
+
+    results = {}
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    for name, sql in ARRAY_QUERIES.items():
+        for where in ("local", "mesh"):
+            r = runner(name, where)
+            walls = []
+            for attempt in ("cold", "warm"):
+                agg.COLLECT_LOG.clear()
+                array_fns.SPLIT_TABLE_LOG.clear()
+                k1, k2 = gs.grouped_sums.launches, ls.locate_sorted.launches
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = r.execute(sql)  # rows come back to the host
+                wall = time.perf_counter() - t0
+                walls.append(wall)
+                k1 = gs.grouped_sums.launches - k1
+                k2 = ls.locate_sorted.launches - k2
+                if name == ARRAY_K1_QUERY and where == "local" and k1 == 0:
+                    raise AssertionError(f"{name} local {attempt}: no grouped_sums launch")
+                if name == ARRAY_K2_QUERY and where == "mesh" and k2 == 0:
+                    raise AssertionError(f"{name} mesh {attempt}: no locate_sorted launch")
+                log(
+                    f"arrays {name}_{where} {attempt}: wall_s={wall!r} "
+                    f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                    f"width_host_reads={len(agg.COLLECT_LOG)} "
+                    f"collect_widths={list(agg.COLLECT_LOG)} "
+                    f"split_tables={list(array_fns.SPLIT_TABLE_LOG)} "
+                    f"grouped_sums_launches={k1} locate_sorted_launches={k2} "
+                    f"rows={len(res.rows)}"
+                    + ("" if where == "local"
+                       else f" mesh_events={r.last_stage_executor.counters}")
+                )
+            results[name, where] = (res, walls[0], walls[1])
+    profile_warm("U1_local", kernel_local, ARRAY_QUERIES["U1"])
+    profile_warm("U3_mesh", mesh, ARRAY_QUERIES["U3"])
+    k1_launches = gs.grouped_sums.launches  # read just after the path
+    k2_launches = ls.locate_sorted.launches
+    log(f"array path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+
+    # untimed, after the counts were read: one capture run of each query
+    # and runner, with the array widths, the gathers' bytes and the
+    # kernels' inputs recorded
+    widths: dict = {}
+    gathered: list = []
+    value_orig, value_rec = array_width_recorder(widths)
+    remote_orig, remote_rec = gather_byte_recorder(gathered)
+    gs_orig, gs_rec = grouped_sums_recorder(k1_capture)
+    probe_kernel, probe_rec = shape_recording_probe(probe_record)
+    k1_capture["query"] = probe_record["query"] = None
+    ExprCompiler.value = value_rec
+    StageExecutor._remote_as_host = remote_rec
+    try:
+        for name, sql in ARRAY_QUERIES.items():
+            for where in ("local", "mesh"):
+                widths.clear()
+                gathered.clear()
+                if name == ARRAY_K1_QUERY and where == "local":
+                    k1_capture["query"] = name
+                    gs._launch = gs_rec
+                if name == ARRAY_K2_QUERY and where == "mesh":
+                    probe_record["query"] = name
+                    mesh_runner.locate_sorted = probe_rec
+                try:
+                    runner(name, where).execute(sql)
+                finally:
+                    gs._launch = gs_orig
+                    mesh_runner.locate_sorted = probe_kernel
+                log(f"arrays {name}_{where} capture: "
+                    f"array_widths={dict(sorted(widths.items()))} "
+                    f"gather_bytes={sum(gathered)} gather_batches={len(gathered)}")
+    finally:
+        ExprCompiler.value = value_orig
+        StageExecutor._remote_as_host = remote_orig
+    log(f"{ARRAY_K2_QUERY}_mesh sorted-probe launches (P, cap_b, n_match, S): "
+        f"{probe_record.get('shapes', {}).get(ARRAY_K2_QUERY, [])}")
+    if "largest" in k1_capture:
+        gids, mask, values, g = k1_capture["largest"]
+        log(f"{ARRAY_K1_QUERY}_local largest grouped-sums launch: N={gids.shape[0]} "
+            f"G={g} K={values.shape[1]}")
+
+    # the local U3 under a budget: above its footprint (the raw-input
+    # path's host copies start but are never waited for) and a quarter of
+    # it (raw-input waves, spilled to disk)
+    spill_dir = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    config.install_config(config.load_cluster_config({"memory.spill-dir": spill_dir}))
+    sql = ARRAY_QUERIES["U3"]
+    try:
+        r = memory_runner("tpch", False)
+        order = result_order(r.create_plan(sql))
+        plain = memory_run("U3_local", r, sql, "unbudgeted", spill_dir, False, (), False)
+        footprint = r.last_query.peak_memory
+        if footprint <= 0:
+            raise AssertionError(f"U3_local: reserved peak {footprint}")
+        for label, budget, budgeted in (("budget above footprint", 4 * footprint, False),
+                                        ("budgeted", max(footprint // 4, 1), True)):
+            memory_run("U3_local", memory_runner("tpch", False, query_max_memory=budget),
+                       sql, f"{label} ({budget} B of footprint {footprint} B)", spill_dir,
+                       budgeted, ("aggregation",), False,
+                       expect=plain["res"].rows, order=order)
+    finally:
+        config.reset_config()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+
+    totals = local.execute(ARRAY_U4_TOTALS).rows
+    cpu = reference("5g")
+    for name in ARRAY_QUERIES:
+        names, types, rows, cpu_s, order = cpu[name]
+        if not rows:
+            raise AssertionError(f"{name}: the CPU reference returned no rows")
+        for where in ("local", "mesh"):
+            res, cold, warm = results[name, where]
+            if res.column_names != names or [t.name for t in res.types] != types:
+                raise AssertionError(f"{name} {where}: columns differ from the CPU run")
+            kernel_f32 = name == ARRAY_K1_QUERY and where == "local"
+            assert_rows_match(res.rows, rows, order,
+                              float_rtol=KERNEL_RTOL if kernel_f32 else DOUBLE_RTOL)
+            log(f"arrays {name}_{where}: cold_s={cold!r} warm_s={warm!r} "
+                f"matches the CPU run ({len(rows)} rows, cpu wall_s={cpu_s!r})")
+        log(f"arrays {name}: first row {rows[0]}")
+    if plain["res"].rows != cpu["U3"][2]:
+        raise AssertionError("U3_local under the budget runs: its rows differ from the CPU run")
+    if totals != cpu["U4_totals"][2] or results["U4", "local"][0].rows != totals:
+        raise AssertionError(f"U4 {results['U4', 'local'][0].rows} != lineitem totals {totals}")
+    log(f"arrays U4: the round trip equals sum(l_quantity), count(*) = {totals[0]}")
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -1671,7 +2044,7 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 
 
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
-                        tdw: dict) -> dict:
+                        tdw: dict, arrays: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -1684,12 +2057,15 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured in phase 5d")
     if "largest" not in tdw:
         raise AssertionError("no sorted-probe launch was captured in phase 5e")
+    if "largest" not in arrays:
+        raise AssertionError("no sorted-probe launch was captured in phase 5g")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
     cases += [(f"function_largest_{func['largest_query']}",) + func["largest"]]
     cases += [(f"tpcds_largest_{tds['largest_query']}",) + tds["largest"]]
     cases += [(f"tpcds_window_largest_{tdw['largest_query']}",) + tdw["largest"]]
+    cases += [(f"arrays_largest_{arrays['largest_query']}",) + arrays["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -1708,6 +2084,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     func_largest["query"] = func["largest_query"]
     tds_largest = time_probe_inputs("tpcds_largest", dev, tds["largest"])
     tds_largest["query"] = tds["largest_query"]
+    arrays_largest = time_probe_inputs("arrays_largest", dev, arrays["largest"])
+    arrays_largest["query"] = arrays["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -1719,6 +2097,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "semi_join_inputs": semi_largest,
         "function_path_inputs": func_largest,
         "tpcds_inputs": tds_largest,
+        "arrays_inputs": arrays_largest,
     }
 
 
@@ -1772,6 +2151,11 @@ def time_probe_inputs(name: str, dev, inputs) -> dict:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # the TPC-H comment pools follow Python's string hash: run again
+        # under a fixed seed, so the reference process sees the same words
+        os.execve(sys.executable, [sys.executable, os.path.abspath(__file__)] + sys.argv[1:],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     if not os.path.isdir(os.path.join(here, "trino_tpu_torch")):
@@ -1832,11 +2216,20 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     tdw: dict = {}
     tdw_path = timed("5e", run_tpcds_window_path, tdw, tpcds_reference)
     mem_path = timed("5f", run_memory_path, tpcds_reference, budgets_path)
-    k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw)
+    arrays: dict = {}
+    arrays_k1: dict = {}
+    arr_path = timed("5g", run_array_path, tpcds_reference, arrays, arrays_k1)
+    k1["launches"] += arr_path["k1_launches"]
+    k1["launches_by_path"] = {
+        "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
+    }
+    k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
+    k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
         + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
+        + arr_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -1848,6 +2241,7 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
         "tpcds_window": tdw_path["launches"],
         "tpcds_window_per_mesh_query": tdw_path["per_query"],
         "memory": mem_path["launches"],
+        "arrays": arr_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

@@ -13,7 +13,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from trino_tpu_torch.columnar.column import Column
+from trino_tpu_torch.columnar.column import Column, pad_slots, take_table
 
 
 class Batch:
@@ -103,15 +103,7 @@ class Batch:
 
     def pin_memory(self) -> "Batch":
         """Page-locked host copy (the source of an async host->card copy)."""
-        cols = [
-            Column(
-                c.data.pin_memory(),
-                c.type,
-                None if c.valid is None else c.valid.pin_memory(),
-                c.dictionary,
-            )
-            for c in self.columns
-        ]
+        cols = [c.map_rows(torch.Tensor.pin_memory) for c in self.columns]
         mask = None if self.row_mask is None else self.row_mask.pin_memory()
         return Batch(cols, mask)
 
@@ -154,19 +146,52 @@ def concat_batches(batches: Sequence[Batch]) -> Batch:
             recoded = []
             for p, table in zip(parts, tables):
                 if table is not None:
-                    t = torch.from_numpy(
-                        np.ascontiguousarray(table, dtype=np.int32)
-                    ).to(p.data.device)
-                    codes = p.data.to(torch.int64).clamp(0, len(table) - 1)
-                    p = Column(t[codes], p.type, p.valid, dictionary)
+                    p = Column(take_table(table, p.data), p.type, p.valid, dictionary, p.lengths)
                 recoded.append(p)
             parts = recoded
+        lengths = None
+        if any(p.lengths is not None for p in parts):
+            parts = pad_elements(parts)
+            lengths = torch.cat([p.lengths for p in parts])
         data = torch.cat([p.data for p in parts])
         valid = None
         if any(p.valid is not None for p in parts):
             valid = torch.cat([p.valid_mask() for p in parts])
-        cols.append(Column(data, parts[0].type, valid, dictionary))
+        cols.append(Column(data, parts[0].type, valid, dictionary, lengths))
     mask = None
     if any(b.row_mask is not None for b in batches):
         mask = torch.cat([b.mask() for b in batches])
     return Batch(cols, mask)
+
+
+def pad_elements(parts: Sequence[Column]) -> list:
+    """Array/map parts of one channel, right-padded to the widest K (a map
+    pads its key and value planes separately).  A part without `lengths`
+    carries no elements: it becomes an all-empty [capacity, K] block."""
+    from trino_tpu_torch.types import MapType
+
+    is_map = isinstance(parts[0].type, MapType)
+    k = max((p.data.shape[1] for p in parts if p.lengths is not None), default=1)
+    k = max(k, 2 if is_map else 1)
+    out = []
+    for p in parts:
+        dev = p.data.device
+        if p.lengths is None:
+            p = Column(
+                torch.zeros((p.capacity, k), dtype=p.data.dtype, device=dev),
+                p.type, p.valid, p.dictionary,
+                torch.zeros(p.capacity, dtype=torch.int32, device=dev),
+            )
+        elif p.data.shape[1] != k:
+            if is_map:
+                half = p.data.shape[1] // 2
+                extra = (k - p.data.shape[1]) // 2
+                data = torch.cat(
+                    [pad_slots(p.data[:, :half], extra), pad_slots(p.data[:, half:], extra)],
+                    dim=1,
+                )
+            else:
+                data = pad_slots(p.data, k - p.data.shape[1])
+            p = Column(data, p.type, p.valid, p.dictionary, p.lengths)
+        out.append(p)
+    return out

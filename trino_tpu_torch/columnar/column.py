@@ -4,8 +4,13 @@ Port of trino_tpu/columnar/column.py.  Values are dense fixed-width
 tensors on one device; dictionary encoding lives in the Column's
 `dictionary` metadata (host-side, order-preserving), so string comparisons
 and sorts run on int32 codes.  A long decimal is an int64 [capacity, 2]
-tensor of (hi, lo) limb planes (types/int128.py).  Array and map columns
-are not ported yet.
+tensor of (hi, lo) limb planes (types/int128.py).  An array column is a
+rectangular [capacity, K] block (K padded element slots, a power of two
+where the engine chooses it) plus `lengths`, the int32 [capacity] element
+count of each row; a map column is [capacity, 2K], the key plane then the
+value plane, with `lengths` counting entries (types.MapType).  So
+`lengths is not None` tells an array or map from a [capacity, 2] long
+decimal.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar.dictionary import StringDictionary
 from trino_tpu_torch.types import Type
 
@@ -34,8 +40,26 @@ def torch_dtype(np_dtype) -> torch.dtype:
     return _TORCH_DTYPES[np.dtype(np_dtype)]
 
 
+def take_table(table, index: torch.Tensor) -> torch.Tensor:
+    """table[index] along the first axis, on the index's device, with the
+    index clamped into range (the JAX package's take(mode="clip")): a
+    host table (dictionary recode codes, per-entry results) gathered by
+    code.  A NULL row's code may be anything."""
+    t = torch.from_numpy(np.ascontiguousarray(table)).to(index.device)
+    return t[index.to(torch.int64).clamp(0, max(t.shape[0] - 1, 0))]
+
+
+def pad_slots(x: torch.Tensor, extra: int) -> torch.Tensor:
+    """Append `extra` zero element slots to the trailing axis of an
+    array block (any dtype, bool included)."""
+    if extra <= 0:
+        return x
+    zeros = torch.zeros(x.shape[:-1] + (extra,), dtype=x.dtype, device=x.device)
+    return torch.cat([x, zeros], dim=-1)
+
+
 class Column:
-    __slots__ = ("data", "valid", "type", "dictionary")
+    __slots__ = ("data", "valid", "type", "dictionary", "lengths")
 
     def __init__(
         self,
@@ -43,11 +67,14 @@ class Column:
         type: Type,
         valid: Optional[torch.Tensor] = None,
         dictionary: Optional[StringDictionary] = None,
+        lengths: Optional[torch.Tensor] = None,
     ):
         self.data = data
         self.type = type
         self.valid = valid  # None => no nulls
         self.dictionary = dictionary
+        # array/map columns: per-row element (entry) count, int32 [capacity]
+        self.lengths = lengths
 
     # -- shape ---------------------------------------------------------------
 
@@ -80,8 +107,18 @@ class Column:
         """Row gather; indices are clamped into range (the JAX package's
         take(mode="clip"))."""
         idx = indices.clamp(0, max(self.capacity - 1, 0))
-        valid = None if self.valid is None else self.valid[idx]
-        return Column(self.data[idx], self.type, valid, self.dictionary)
+        return self.map_rows(lambda x: x[idx])
+
+    def map_rows(self, fn) -> "Column":
+        """Apply one row transform (a gather, a slice, a device move, a
+        reshape of the row axes) to data, validity and lengths alike."""
+        return Column(
+            fn(self.data),
+            self.type,
+            None if self.valid is None else fn(self.valid),
+            self.dictionary,
+            None if self.lengths is None else fn(self.lengths),
+        )
 
     def valid_mask(self) -> torch.Tensor:
         """Always-materialized bool mask (shape [capacity])."""
@@ -90,17 +127,7 @@ class Column:
         return self.valid
 
     def to(self, device, non_blocking: bool = False) -> "Column":
-        valid = (
-            None
-            if self.valid is None
-            else self.valid.to(device, non_blocking=non_blocking)
-        )
-        return Column(
-            self.data.to(device, non_blocking=non_blocking),
-            self.type,
-            valid,
-            self.dictionary,
-        )
+        return self.map_rows(lambda x: x.to(device, non_blocking=non_blocking))
 
     # -- host-side materialization ------------------------------------------
 
@@ -112,7 +139,10 @@ class Column:
     def to_pylist(self, row_mask: Optional[np.ndarray] = None) -> list:
         """Decode to python objects (strings/decimals/dates rendered)."""
         data, valid = self.to_numpy()
-        return decode_values(data, valid, self.type, self.dictionary, row_mask)
+        lengths = None if self.lengths is None else self.lengths.cpu().numpy()
+        return decode_values(
+            data, valid, self.type, self.dictionary, row_mask, lengths
+        )
 
     def __repr__(self) -> str:  # pragma: no cover
         return (
@@ -132,18 +162,42 @@ _UNPORTED_RENDER = frozenset(
 )
 
 
-def decode_values(data, valid, t: Type, dictionary, row_mask=None) -> list:
+def decode_values(data, valid, t: Type, dictionary, row_mask=None, lengths=None) -> list:
     """Host numpy column -> python values (the JAX package's
-    Column.to_pylist over scalar types)."""
+    Column.to_pylist): arrays decode to lists, maps to dicts."""
     import datetime
     from decimal import Context, Decimal
 
-    from trino_tpu_torch.types import DATE, TIMESTAMP, DecimalType
+    from trino_tpu_torch.types import DATE, TIMESTAMP, ArrayType, DecimalType, MapType
 
-    if t.name in _UNPORTED_RENDER:
-        raise NotImplementedError(f"rendering {t.name}: not ported yet")
     n = data.shape[0]
     rows = range(n) if row_mask is None else np.nonzero(np.asarray(row_mask))[0]
+    if lengths is not None:
+        out = []
+        if isinstance(t, MapType):
+            k = data.shape[1] // 2
+            kd = dictionary if T.is_string_kind(t.key) else None
+            vd = dictionary if T.is_string_kind(t.value) else None
+            for i in rows:
+                if valid is not None and not valid[i]:
+                    out.append(None)
+                    continue
+                m = int(lengths[i])
+                keys = decode_values(data[i, :k][:m], None, t.key, kd)
+                vals = decode_values(data[i, k:][:m], None, t.value, vd)
+                out.append(dict(zip(keys, vals)))
+            return out
+        elem = t.element if isinstance(t, ArrayType) else t
+        for i in rows:
+            if valid is not None and not valid[i]:
+                out.append(None)
+            else:
+                out.append(
+                    decode_values(data[i, : int(lengths[i])], None, elem, dictionary)
+                )
+        return out
+    if t.name in _UNPORTED_RENDER:
+        raise NotImplementedError(f"rendering {t.name}: not ported yet")
     is_dec = isinstance(t, DecimalType)
     is_long_dec = is_dec and t.is_long and data.ndim == 2
     if is_long_dec:

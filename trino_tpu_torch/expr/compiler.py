@@ -9,8 +9,16 @@ Null semantics follow SQL three-valued logic: functions are null-in/null-out
 unless registered otherwise; AND is Kleene; filters keep rows where the
 predicate is TRUE (not null).  Ported special forms: AND and OR (Kleene),
 NOT, IS NULL, IF and searched CASE (limb planes for long decimals, merged
-dictionaries for varchar), COALESCE, NULLIF, IN, BETWEEN, CAST and TRY.
-ARRAY, SUBSCRIPT, ROW and DEREFERENCE raise NotImplementedError by name.
+dictionaries for varchar), COALESCE, NULLIF, IN, BETWEEN, CAST, TRY, ARRAY
+and SUBSCRIPT.  ROW and DEREFERENCE raise NotImplementedError by name (the
+JAX package has no handler for them either).
+
+Array and map values are rectangular: data [capacity, K] (a map
+[capacity, 2K]) plus `lengths`, the per-row element count.  A lambda body
+(expr/arrays.py) evaluates once over the whole [capacity, K] element
+matrix: inside it `bshape()` is that matrix's shape and a captured column
+gains a trailing axis, so every elementwise op broadcasts as it does in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import Batch, Column, StringDictionary
-from trino_tpu_torch.columnar.column import torch_dtype
+from trino_tpu_torch.columnar.column import take_table, torch_dtype
 from trino_tpu_torch.expr import ir
 from trino_tpu_torch.expr.ir import Call, Expr, Form, InputRef, Literal, SpecialForm
 
@@ -41,6 +49,12 @@ class Val:
     valid: object
     type: T.Type
     dictionary: Optional[StringDictionary] = None
+    #: array/map values: data is [capacity, K], lengths int32 [capacity]
+    lengths: object = None
+
+    @property
+    def is_literal_null(self) -> bool:
+        return self.valid is False
 
 
 def _and_valid(a, b):
@@ -51,6 +65,13 @@ def _and_valid(a, b):
     if b is None:
         return a
     return torch.logical_and(a, b)
+
+
+def _scalar_result(t: T.Type, what: str) -> None:
+    """Raise for a select over array or map branches: the row-wise selects
+    broadcast one value per row (the JAX package fails on the shape)."""
+    if isinstance(t, (T.ArrayType, T.MapType)):
+        raise NotImplementedError(f"{what} over {t.name} values")
 
 
 def _valid_arr(v, shape, device):
@@ -70,37 +91,61 @@ class ExprCompiler:
         self.batch = batch
         self.capacity = batch.capacity
         self.device = batch.device
-        # DAG memo: the same sub-Expr object may be referenced many times
+        # DAG memo: the same sub-Expr object may be referenced many times.
+        # Keyed on the lambda context too: one Expr compiles differently
+        # inside a lambda body
         self._memo: dict = {}
+        #: the active lambda environment (parameter name -> Val), whether the
+        #: body evaluates over the [capacity, K] element matrix, and that
+        #: matrix's shape (expr/arrays.py `_eval_lambda` sets them)
+        self._lambda_env: Optional[dict] = None
+        self._lambda_matrix = False
+        self._lambda_shape: Optional[tuple] = None
 
     def tensor(self, value, dtype: torch.dtype) -> torch.Tensor:
         """A constant on this batch's device."""
         return torch.as_tensor(value, dtype=dtype, device=self.device)
 
     def bshape(self) -> tuple:
-        return (self.capacity,)
+        """Broadcast shape of boolean and branch forms: [capacity], or the
+        [capacity, K] element matrix inside an array-lambda body."""
+        return self._lambda_shape if self._lambda_shape is not None else (self.capacity,)
 
     # -- public entry points -------------------------------------------------
 
     def value(self, expr: Expr) -> Val:
+        from trino_tpu_torch.expr.ir import LambdaParam
+
+        if isinstance(expr, LambdaParam):
+            env = self._lambda_env
+            if not env or expr.name not in env:
+                raise NotImplementedError(f"unbound lambda parameter {expr.name}")
+            return env[expr.name]
         if isinstance(expr, InputRef):
             c = self.batch.columns[expr.channel]
-            return Val(c.data, c.valid, expr.type, c.dictionary)
+            if self._lambda_matrix and c.lengths is None and c.data.ndim == 1:
+                # a column captured inside an array-lambda body: a trailing
+                # element axis, so it broadcasts against [capacity, K]
+                valid = None if c.valid is None else c.valid[:, None]
+                return Val(c.data[:, None], valid, expr.type, c.dictionary)
+            return Val(c.data, c.valid, expr.type, c.dictionary, c.lengths)
         if isinstance(expr, Literal):
             return self._literal(expr)
         if isinstance(expr, (SpecialForm, Call)):
-            hit = self._memo.get(id(expr))
-            # the entry pins the expr: an id() key is only valid while the
-            # object is alive
-            if hit is not None and hit[0] is expr:
-                return hit[1]
+            env = self._lambda_env
+            key = (id(expr), id(env), self._lambda_shape)
+            hit = self._memo.get(key)
+            # the entry pins both id()-keyed objects (the expr and the
+            # lambda env): an id() key is only valid while its object lives
+            if hit is not None and hit[0] is expr and hit[1] is env:
+                return hit[2]
             if isinstance(expr, SpecialForm):
                 v = self._form(expr)
             else:
                 from trino_tpu_torch.expr.functions import dispatch
 
                 v = dispatch(self, expr)
-            self._memo[id(expr)] = (expr, v)
+            self._memo[key] = (expr, env, v)
             return v
         raise NotImplementedError(f"cannot compile {expr!r}")
 
@@ -112,6 +157,13 @@ class ExprCompiler:
             valid = torch.zeros(self.capacity, dtype=torch.bool, device=self.device)
         elif v.valid is not None:
             valid = torch.broadcast_to(v.valid, (self.capacity,))
+        if v.lengths is not None:
+            k = v.data.shape[-1]
+            data = torch.broadcast_to(
+                v.data.to(torch_dtype(v.type.np_dtype)), (self.capacity, k)
+            )
+            lengths = torch.broadcast_to(v.lengths.to(torch.int32), (self.capacity,))
+            return Column(data, v.type, valid, v.dictionary, lengths)
         if isinstance(v.type, T.DecimalType) and v.type.is_long:
             # two-limb planes: [capacity, 2]
             d = v.data.to(torch.int64)
@@ -214,13 +266,22 @@ class ExprCompiler:
         return Val(torch.logical_not(v.data.to(torch.bool)), v.valid, T.BOOLEAN)
 
     def _form_is_null(self, f: SpecialForm) -> Val:
-        # a row predicate: long decimals' [capacity, 2] limb planes carry
-        # per-row validity, so the row shape is kept
+        # a row predicate: array and map values ([capacity, K] data, with
+        # lengths) and long decimals ([capacity, 2] limb planes) carry
+        # per-row validity, so the row shape is kept.  Only a lambda
+        # matrix value (2-D, no lengths, not a long decimal) has 2-D
+        # validity
         v = self.value(f.args[0])
+        if (
+            v.data.ndim > 1
+            and v.lengths is None
+            and not (isinstance(v.type, T.DecimalType) and v.type.is_long)
+        ):
+            shp = tuple(v.data.shape)
+        else:
+            shp = self.bshape()
         return Val(
-            torch.logical_not(_valid_arr(v.valid, self.bshape(), self.device)),
-            None,
-            T.BOOLEAN,
+            torch.logical_not(_valid_arr(v.valid, shp, self.device)), None, T.BOOLEAN
         )
 
     def _cond_true(self, cond: Expr, shp) -> torch.Tensor:
@@ -255,6 +316,7 @@ class ExprCompiler:
     def _case_fold(self, pairs, default: Expr, out_type: T.Type) -> Val:
         """Searched CASE as a right fold of selects: the first TRUE
         condition's branch wins, the default where none is TRUE."""
+        _scalar_result(out_type, "IF/CASE")
         shp, dev = self.bshape(), self.device
         branches = [self.value(v) for _, v in pairs] + [self.value(default)]
         if isinstance(out_type, T.DecimalType) and out_type.is_long:
@@ -309,17 +371,15 @@ class ExprCompiler:
         """A branch's codes in the merged dictionary's code space."""
         if out_dict is None or v.dictionary is None or v.dictionary == out_dict:
             return v.data
-        table = self.tensor(
-            np.fromiter(
-                (out_dict.index[x] for x in v.dictionary.values),
-                dtype=np.int32,
-                count=len(v.dictionary),
-            ),
-            torch.int32,
+        table = np.fromiter(
+            (out_dict.index[x] for x in v.dictionary.values),
+            dtype=np.int32,
+            count=len(v.dictionary),
         )
-        return table[v.data.to(torch.int64).clamp(0, table.shape[0] - 1)]
+        return take_table(table, v.data)
 
     def _form_coalesce(self, f: SpecialForm) -> Val:
+        _scalar_result(f.type, "COALESCE")
         shp, dev = self.bshape(), self.device
         vals = [self.value(a) for a in f.args]
         if isinstance(f.type, T.DecimalType) and f.type.is_long:
@@ -380,3 +440,64 @@ class ExprCompiler:
         # null-on-error semantics folded into the ops (division by zero
         # gives NULL)
         return self.value(f.args[0])
+
+    # -- arrays --------------------------------------------------------------
+
+    def _form_array(self, f: SpecialForm) -> Val:
+        """ARRAY[e1, ...] -> a [capacity, K] block + lengths (reference:
+        spi/block/ArrayBlock.java's offsets become a rectangular layout).
+        NULL elements are not representable: the whole array is NULL when
+        any element is (as in the JAX package)."""
+        vals = [self.value(a) for a in f.args]
+        et = f.type.element
+        if any(v.is_literal_null for v in vals):
+            raise NotImplementedError("NULL array elements")
+        if isinstance(et, T.DecimalType) and et.is_long:
+            # an element slot holds one int64: no room for two limb planes
+            raise NotImplementedError(f"arrays of {et.name} elements")
+        dictionary = None
+        if any(v.dictionary is not None for v in vals):
+            from trino_tpu_torch.columnar.dictionary import union_many
+
+            dictionary, tables = union_many([v.dictionary for v in vals])
+            vals = [
+                v if tbl is None
+                else Val(take_table(tbl, v.data), v.valid, v.type, dictionary)
+                for v, tbl in zip(vals, tables)
+            ]
+        cap, dt = self.capacity, torch_dtype(et.np_dtype)
+        cols = [torch.broadcast_to(v.data.to(dt), (cap,)) for v in vals]
+        data = (
+            torch.stack(cols, dim=1) if cols
+            else torch.zeros((cap, 0), dtype=dt, device=self.device)
+        )
+        valid = None
+        for v in vals:
+            valid = _and_valid(valid, v.valid)
+        lengths = torch.full((cap,), len(vals), dtype=torch.int32, device=self.device)
+        return Val(data, valid, f.type, dictionary, lengths)
+
+    def _form_subscript(self, f: SpecialForm) -> Val:
+        """array[i], 1-based; an index out of range gives NULL (the
+        reference throws; a vectorized program signals by NULL)."""
+        base = self.value(f.args[0])
+        idx = self.value(f.args[1])
+        if isinstance(base.type, T.MapType):
+            from trino_tpu_torch.expr.maps import map_element_at
+
+            return map_element_at(self, f, base, idx)
+        if base.lengths is None:
+            raise NotImplementedError("subscript on non-array value")
+        cap = self.capacity
+        if base.data.shape[-1] == 0:  # zero-width arrays: always NULL
+            zero = torch.zeros(cap, dtype=torch_dtype(f.type.np_dtype), device=self.device)
+            return Val(zero, False, f.type)
+        k = base.data.shape[-1]
+        data2 = torch.broadcast_to(base.data, (cap, k))
+        lens = torch.broadcast_to(base.lengths.to(torch.int64), (cap,))
+        i = torch.broadcast_to(idx.data.to(torch.int64), (cap,))
+        in_range = torch.logical_and(i >= 1, i <= lens)
+        pos = (i - 1).clamp(0, max(k - 1, 0))
+        out = torch.gather(data2, 1, pos[:, None])[:, 0]
+        valid = _and_valid(_and_valid(base.valid, idx.valid), in_range)
+        return Val(out, valid, f.type, base.dictionary)

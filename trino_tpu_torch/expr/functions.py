@@ -11,8 +11,9 @@ String functions evaluate over the dictionary on the host and gather a
 table by code on the device; every gather clamps its codes first, as the
 JAX package's ``take(mode="clip")`` does, so a NULL row's code may be
 anything.  Timestamp and time-zone values, the string/url/math/bitwise
-breadth past the casts, ``concat_ws``, arrays and maps raise
-NotImplementedError by name.
+breadth past the casts and ``concat_ws`` raise NotImplementedError by name.
+The array, JSON and lambda functions live in expr/arrays.py and the map
+functions in expr/maps.py; both register here when this module loads.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import StringDictionary
-from trino_tpu_torch.columnar.column import torch_dtype
+from trino_tpu_torch.columnar.column import take_table, torch_dtype
 from trino_tpu_torch.expr.compiler import ExprCompiler, Val, _and_valid
 from trino_tpu_torch.expr.ir import Call
 from trino_tpu_torch.expr.strings import like_prefix, like_to_regex
@@ -41,10 +42,15 @@ def register(name: str):
 
 
 def dispatch(ctx: ExprCompiler, call: Call) -> Val:
+    from trino_tpu_torch.expr.ir import Lambda
+
     fn = FUNCTIONS.get(call.name)
     if fn is None:
         raise NotImplementedError(f"scalar function not ported yet: {call.name}")
-    return fn(ctx, call, *[ctx.value(a) for a in call.args])
+    # lambda arguments pass through unevaluated: the handler binds their
+    # parameters over array elements and evaluates the body itself
+    vals = [a if isinstance(a, Lambda) else ctx.value(a) for a in call.args]
+    return fn(ctx, call, *vals)
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +422,9 @@ _FLIP = {"$lt": "$gt", "$le": "$ge", "$gt": "$lt", "$ge": "$le"}
 
 def _comparison(op: str, top):
     def handler(ctx, call, a, b):
+        if a.lengths is not None or b.lengths is not None:
+            # the JAX package fails on the shape here too
+            raise NotImplementedError(f"comparison of {a.type.name} values")
         valid = _and_valid(a.valid, b.valid)
         if _is_long_dec(a.type) or _is_long_dec(b.type):
             return _cmp_long(op, a, b, valid)
@@ -854,13 +863,6 @@ def _literal_str(v: Val, what: str) -> str:
     return s
 
 
-def _take(ctx, table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
-    """table[codes] on the device, the codes clamped into the table first
-    (a NULL row, or a literal's code, may carry any value)."""
-    t = ctx.tensor(table, torch_dtype(table.dtype))
-    return t[_i64(codes).clamp(0, t.shape[0] - 1)]
-
-
 def _dict_table(outs: list) -> tuple:
     """(dictionary of `outs`, int32 table: input code -> output code)."""
     nd = StringDictionary.from_unsorted(outs)
@@ -885,7 +887,7 @@ def _like(ctx, call, value, pattern, escape=None):
         return Val(_prefix_match(value.data, d, pfx), value.valid, T.BOOLEAN)
     rx = like_to_regex(pat, esc)
     table = d.predicate_table(lambda s: rx.match(s) is not None)
-    return Val(_take(ctx, table, value.data), value.valid, T.BOOLEAN)
+    return Val(take_table(table, value.data), value.valid, T.BOOLEAN)
 
 
 @register("regexp_like")
@@ -897,7 +899,7 @@ def _regexp_like(ctx, call, value, pattern):
     d = _require_dict(value, "regexp_like")
     rx = re.compile(_literal_str(pattern, "regexp_like"))
     table = d.predicate_table(lambda s: rx.search(s) is not None)
-    return Val(_take(ctx, table, value.data), value.valid, T.BOOLEAN)
+    return Val(take_table(table, value.data), value.valid, T.BOOLEAN)
 
 
 @register("regexp_extract")
@@ -914,9 +916,9 @@ def _regexp_extract(ctx, call, value, pattern, group=None):
         outs.append("" if m is None else (m.group(g) or ""))
         hits.append(m is not None)
     nd, table = _dict_table(outs)
-    hit = _take(ctx, np.asarray(hits, dtype=bool), value.data)
+    hit = take_table(np.asarray(hits, dtype=bool), value.data)
     return Val(
-        _take(ctx, table, value.data), _and_valid(value.valid, hit), call.type, nd
+        take_table(table, value.data), _and_valid(value.valid, hit), call.type, nd
     )
 
 
@@ -936,7 +938,7 @@ def _string_map(ctx, call, value: Val, fn, what: str) -> Val:
     and a code table."""
     d = _require_dict(value, what)
     nd, table = _dict_table([fn(s) for s in d.values])
-    return Val(_take(ctx, table, value.data), value.valid, call.type, nd)
+    return Val(take_table(table, value.data), value.valid, call.type, nd)
 
 
 @register("substr")
@@ -1001,7 +1003,7 @@ def _replace(ctx, call, value, find, repl=None):
 def _length(ctx, call, value):
     d = _require_dict(value, "length")
     table = np.fromiter((len(s) for s in d.values), np.int64, len(d))
-    return Val(_take(ctx, table, value.data), value.valid, T.BIGINT)
+    return Val(take_table(table, value.data), value.valid, T.BIGINT)
 
 
 @register("strpos")
@@ -1010,7 +1012,7 @@ def _strpos(ctx, call, value, sub):
     d = _require_dict(value, "strpos")
     s = _literal_str(sub, "strpos")
     table = np.fromiter((v.find(s) + 1 for v in d.values), np.int64, len(d))
-    return Val(_take(ctx, table, value.data), value.valid, T.BIGINT)
+    return Val(take_table(table, value.data), value.valid, T.BIGINT)
 
 
 @register("starts_with")
@@ -1062,7 +1064,7 @@ def _concat(ctx, call, *vals):
     merged, table = _dict_table(pairs)
     nb = len(db)
     flat = _i64(a.data).clamp(0, len(da) - 1) * nb + _i64(b.data).clamp(0, nb - 1)
-    return Val(_take(ctx, table, flat), valid, call.type, merged)
+    return Val(take_table(table, flat), valid, call.type, merged)
 
 
 # ---------------------------------------------------------------------------
@@ -1229,7 +1231,7 @@ def _cast_from_varchar(ctx, v: Val, to: T.Type) -> Val:
             except (ValueError, ArithmeticError):
                 ok[i] = False
     return Val(
-        _take(ctx, table, v.data), _and_valid(v.valid, _take(ctx, ok, v.data)), to
+        take_table(table, v.data), _and_valid(v.valid, take_table(ok, v.data)), to
     )
 
 
@@ -1265,3 +1267,8 @@ def _parse_scalar(s: str, to: T.Type):
     if to is T.BOOLEAN:
         return s.lower() in ("true", "t", "1")
     raise ValueError(f"cannot parse {s!r} as {to.name}")
+
+
+# array, JSON and map functions register into FUNCTIONS on import
+from trino_tpu_torch.expr import arrays as _arrays  # noqa: E402,F401
+from trino_tpu_torch.expr import maps as _maps  # noqa: E402,F401

@@ -13,21 +13,24 @@ Modes mirror the reference's AggregationNode.Step:
   FINAL   : state columns -> final values
   MERGE   : state columns -> state columns
 
-The operator streams: it reduces every pushed batch immediately and keeps
+A streaming operator reduces every pushed batch immediately and keeps
 only the per-batch group states (the TPC-H Q1 shape), folding them every
-`fold_every` batches.  (The JAX package's non-streaming mode serves the
-holistic aggregates, which are not ported.)  With a memory context it
-reserves its accumulated states after every batch; over budget it folds
-first and raises only when the folded states still do not fit
-(runtime/local_planner.py then runs the aggregation in waves).
+`fold_every` batches.  With a memory context it reserves its accumulated
+states after every batch; over budget it folds first and raises only when
+the folded states still do not fit (runtime/local_planner.py then runs the
+aggregation in waves).  The collect aggregates have no mergeable partial
+state, so an operator that holds one (`streaming` is False) keeps its
+raw input batches and reduces them once, at the end.
 
 Ported aggregates: count(*), count, sum, avg, min, max, any_value, the
 moment family (stddev_samp, stddev_pop, var_samp, var_pop: f64 sum, sum of
-squares and count states, merged by addition), and MarkDistinctOperator
-(the mark column of mixed DISTINCT sets).  The
-range-positional group path, the two-input aggregates and the
-holistic/sketch aggregates are not ported yet (integer group keys take the
-sort path).
+squares and count states, merged by addition), the collect aggregates
+array_agg (with ORDER BY), map_agg and listagg (eager, sort-based group
+numbering; the padded width K is the largest group, one host read), and
+MarkDistinctOperator (the mark column of mixed DISTINCT sets).  The
+range-positional group path, the other holistic aggregates (percentile,
+min_by, max_by), the sketches and the bivariate family are not ported yet
+(integer group keys take the sort path).
 
 Difference from the JAX package: the `pallas_agg` knob reaches the
 grouped-sums kernel (ops/grouped_sums.py) from the streaming per-batch
@@ -39,6 +42,7 @@ kernel is never reached from SQL there.
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -48,15 +52,17 @@ import torch
 from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import Batch, Column
 from trino_tpu_torch.columnar.batch import concat_batches
-from trino_tpu_torch.columnar.column import torch_dtype
+from trino_tpu_torch.columnar.column import take_table, torch_dtype
 from trino_tpu_torch.ops.common import (
     SortKey,
     group_ids_from_sorted,
     multi_key_sort_perm,
     next_pow2,
+    require_scalar_key,
     segment_reduce,
     segment_sum,
 )
+from trino_tpu_torch.planner.functions import HOLISTIC_AGGS
 
 
 @dataclass(frozen=True)
@@ -72,13 +78,54 @@ class AggSpec:
     #: range certificate, plan.Aggregation.sum_bound): _sum128 takes the
     #: single-plane i64 path with no runtime fits check when set
     sum_bound: Optional[int] = None
-    #: second input channel of a two-input aggregate (covar/corr, map_agg);
-    #: none of those is ported yet, so _primitives raises for them
+    #: second input channel of a two-input aggregate: map_agg's values, the
+    #: ORDER BY key of array_agg and listagg (covar/corr are not ported)
     arg2: Optional[int] = None
+    #: literal parameter: array_agg's ORDER BY (ascending, nulls_first);
+    #: listagg's (separator, ascending, nulls_first)
+    param: object = None
 
+
+#: the collect subset of the holistic aggregates (padded-array group state)
+COLLECT_AGGS = ("array_agg", "map_agg", "listagg")
+
+#: SQL names of the internal aggregate names, for NotImplementedError text
+_SQL_NAME = {"percentile": "approx_percentile"}
+
+#: the latest data-dependent widths collect aggregates took, one entry
+#: (aggregate, group slots, K) per host read (read and cleared by callers
+#: that count them; bounded, so a long-lived process does not grow it)
+COLLECT_LOG: deque = deque(maxlen=4096)
 
 #: the moment family: raw-sum states (reference: VarianceState)
 MOMENT = ("stddev_samp", "stddev_pop", "var_samp", "var_pop")
+
+
+def _unported(name: str) -> NotImplementedError:
+    sql = _SQL_NAME.get(name, name)
+    label = sql if sql == name else f"{sql} ({name})"
+    return NotImplementedError(f"aggregate {label}: not ported yet")
+
+
+def _scalar_arg(col: Column, name: str) -> None:
+    """Raise for an array or map argument where the aggregate reads values
+    (count reads only validity).  The JAX package has no such path either:
+    it fails on the shape, or reduces the padded slots as if they were rows."""
+    if col.lengths is not None:
+        raise NotImplementedError(f"{name} over an {col.type.name} column")
+
+
+def _group_ranks(varg, gid_c, cap: int, nseg: int):
+    """(pos_in_group, counts) of the collect scatters: the 0-based rank of
+    each kept row (varg) within its group in sorted order, and each group's
+    kept-row count."""
+    rank_incl = torch.cumsum(varg.to(torch.int64), 0)
+    base = segment_reduce(
+        torch.where(varg, rank_incl - 1, cap + 1), gid_c, nseg, "min"
+    )
+    pos_in_group = rank_incl - 1 - base[gid_c.clamp(0, nseg - 1)]
+    counts = segment_sum(varg.to(torch.int64), gid_c, nseg)
+    return pos_in_group, counts
 
 
 def _primitives(spec: AggSpec):
@@ -100,7 +147,7 @@ def _primitives(spec: AggSpec):
         # reference: operator/aggregation VarianceState (count/mean/m2 as
         # merged moments; here the raw-sum formulation merges by addition)
         return [("sum_f", spec.arg), ("sumsq", spec.arg), ("count", spec.arg)]
-    raise NotImplementedError(f"aggregate {spec.name}: not ported yet")
+    raise _unported(spec.name)
 
 
 def _state_types(spec: AggSpec, input_types) -> list[T.Type]:
@@ -321,7 +368,10 @@ def _pad_device(batch: Batch, cap: int) -> Batch:
         valid = None
         if c.valid is not None:
             valid = torch.cat([c.valid, torch.zeros(pad, dtype=torch.bool, device=dev)])
-        cols.append(Column(torch.cat([c.data, zeros]), c.type, valid, c.dictionary))
+        lengths = None
+        if c.lengths is not None:
+            lengths = torch.cat([c.lengths, torch.zeros(pad, dtype=c.lengths.dtype, device=dev)])
+        cols.append(Column(torch.cat([c.data, zeros]), c.type, valid, c.dictionary, lengths))
     mask = torch.cat([batch.mask(), torch.zeros(pad, dtype=torch.bool, device=dev)])
     return Batch(cols, mask)
 
@@ -382,6 +432,11 @@ class AggregationOperator:
         #: reservation of the accumulated states (runtime/memory.py); over
         #: budget the states fold, and what still does not fit raises
         self.memory_ctx = memory_ctx
+        #: streaming reduces each batch to group states at once; a holistic
+        #: aggregate needs every row of a group at once, so its operator
+        #: keeps the raw (projected) batches and reduces them once
+        #: (reference: ArrayAggregationFunction's group state)
+        self.streaming = not any(s.name in HOLISTIC_AGGS for s in self.aggregates)
         self._acc: list[Batch] = []
         self._per_batch: Optional["AggregationOperator"] = None
 
@@ -401,6 +456,7 @@ class AggregationOperator:
         sizes = []
         for ch in self.group_channels:
             c = batch.columns[ch]
+            require_scalar_key(c)  # an array(varchar) column has a dictionary too
             if c.dictionary is not None:
                 n = len(c.dictionary.values)
             elif c.type is T.BOOLEAN:
@@ -668,7 +724,8 @@ class AggregationOperator:
         gch = self.group_channels
         if not gch:
             return self._global_reduce(batch)
-        direct = self._direct_group_info(batch)
+        # holistic group ids must come from the sort-based numbering
+        direct = self._direct_group_info(batch) if self.streaming else None
         if direct is not None:
             return self._direct_reduce(batch, *direct)
         perm = multi_key_sort_perm(batch, [SortKey(ch) for ch in gch])
@@ -695,12 +752,149 @@ class AggregationOperator:
                 valid = valid[:out_cap]
             cols.append(Column(key_out[:out_cap], col.type, valid, col.dictionary))
         for spec in self.aggregates:
+            if spec.name in HOLISTIC_AGGS:
+                cols.append(self._holistic_one(batch, spec, perm, live, gid_c, nseg, out_cap))
+                continue
             state_cols = self._reduce_one(batch, spec, perm, live, gid_c, nseg, out_cap)
             if self.mode in ("partial", "merge"):
                 cols.extend(state_cols)
             else:
                 cols.append(_finalize(spec, state_cols))
         return Batch(cols, out_live)
+
+    def _holistic_one(self, batch, spec, perm, live, gid_c, nseg, out_cap) -> Column:
+        """A holistic aggregate's output column: single-stage only."""
+        if spec.name not in COLLECT_AGGS:
+            raise _unported(spec.name)
+        if self.mode != "single":
+            raise NotImplementedError(f"{spec.name} requires single-stage aggregation")
+        if spec.name == "listagg":
+            return self._listagg_one(batch, spec, out_cap)
+        return self._collect_one(batch, spec, perm, live, gid_c, nseg, out_cap)
+
+    def _collect_one(self, batch: Batch, spec: AggSpec, perm, live, gid_c, nseg, out_cap) -> Column:
+        """array_agg / map_agg: scatter each group's run into a padded
+        rectangular array (reference: operator/aggregation/
+        ArrayAggregationFunction + MapAggAggregationFunction group state).
+
+        Eager: the padded width K is the largest group, a data-dependent
+        shape that costs one host read (logged in COLLECT_LOG).  NULL inputs
+        are skipped: the rectangular layout tracks NULLs per array, not per
+        element (the JAX package's deviation from the reference, kept)."""
+        cap = batch.capacity
+        dev = batch.device
+        col = batch.columns[spec.arg]
+        _scalar_arg(col, spec.name)
+        if spec.name == "array_agg" and spec.arg2 is not None and spec.param is not None:
+            # array_agg(x ORDER BY k): re-sort by (group keys, k) so the
+            # scatter positions follow the requested element order; the
+            # group numbering is unchanged, the group keys staying most
+            # significant
+            asc, nf = spec.param
+            keys = [SortKey(ch) for ch in self.group_channels]
+            keys.append(SortKey(spec.arg2, asc, nf))
+            perm = multi_key_sort_perm(batch, keys)
+            live = batch.mask()[perm]
+            if self.group_channels:
+                gid_c, _, _ = group_ids_from_sorted(batch, perm, self.group_channels)
+            else:
+                gid_c = torch.zeros(cap, dtype=torch.int64, device=dev)
+        d = col.data[perm]
+        varg = live if col.valid is None else torch.logical_and(live, col.valid[perm])
+        dictionary = col.dictionary
+        vd = None
+        if spec.name == "map_agg":
+            vcol = batch.columns[spec.arg2]
+            _scalar_arg(vcol, spec.name)
+            vd = vcol.data[perm]
+            if vcol.valid is not None:
+                varg = torch.logical_and(varg, vcol.valid[perm])
+            if col.dictionary is not None and vcol.dictionary is not None:
+                from trino_tpu_torch.columnar.dictionary import union_many
+
+                dictionary, (tk, tv) = union_many([col.dictionary, vcol.dictionary])
+                if tk is not None:
+                    d = take_table(tk, d)
+                if tv is not None:
+                    vd = take_table(tv, vd)
+            elif vcol.dictionary is not None:
+                dictionary = vcol.dictionary
+        if d.ndim > 1:
+            raise NotImplementedError(
+                f"{spec.name} over a long-decimal argument "
+                "(cast to decimal(18,s) or double first)"
+            )
+        pos_in_group, counts = _group_ranks(varg, gid_c, cap, nseg)
+        kmax = int(counts[:out_cap].max()) if out_cap else 0  # the one host read
+        k = next_pow2(max(kmax, 1), floor=1)
+        COLLECT_LOG.append((spec.name, out_cap, k))
+        scatter_g = torch.where(varg, gid_c.clamp(max=nseg), nseg)  # non-kept rows: spare
+        scatter_p = pos_in_group.clamp(0, k - 1)
+        lengths = counts[:out_cap].to(torch.int32)
+
+        def plane(values, dt):
+            out = torch.zeros((nseg + 1, k), dtype=dt, device=dev)
+            out[scatter_g, scatter_p] = values.to(dt)
+            return out[:out_cap]
+
+        if spec.name == "array_agg":
+            et = spec.out_type.element
+            data = plane(d, torch_dtype(et.np_dtype))
+            return Column(data, spec.out_type, None, dictionary, lengths)
+        dt = torch_dtype(spec.out_type.np_dtype)  # MapType: packed [out_cap, 2k]
+        packed = torch.cat([plane(d, dt), plane(vd, dt)], dim=1)
+        return Column(packed, spec.out_type, None, dictionary, lengths)
+
+    def _listagg_one(self, batch: Batch, spec: AggSpec, out_cap: int) -> Column:
+        """listagg(value, sep) WITHIN GROUP (ORDER BY k) (reference:
+        operator/aggregation/listagg/).  Eager: the rows sort by (group
+        keys, order key) on the device; the per-group string join is host
+        work (the strings live in dictionaries)."""
+        from trino_tpu_torch.columnar.dictionary import StringDictionary
+
+        gch = self.group_channels
+        col = batch.columns[spec.arg]
+        if col.dictionary is None:
+            raise TypeError("listagg requires a varchar argument")
+        sep, asc, nf = (
+            spec.param if isinstance(spec.param, tuple) else (spec.param or "", True, False)
+        )
+        keys = [SortKey(ch) for ch in gch]
+        if spec.arg2 is not None:
+            keys.append(SortKey(spec.arg2, ascending=asc, nulls_first=nf))
+        perm2 = multi_key_sort_perm(batch, keys)
+        if gch:
+            gid2, _, _ = group_ids_from_sorted(batch, perm2, gch)
+        else:
+            gid2 = torch.zeros(batch.capacity, dtype=torch.int64, device=batch.device)
+        live = batch.mask()[perm2]
+        if col.valid is not None:
+            live = torch.logical_and(live, col.valid[perm2])
+        codes = col.data[perm2]
+        gid_h, live_h, codes_h = (
+            t.cpu().numpy() for t in (gid2, live, codes.to(torch.int64))
+        )
+        COLLECT_LOG.append((spec.name, out_cap, 0))
+        sep = str(sep)
+        values = col.dictionary.values
+        joined = [""] * out_cap
+        parts: dict = {}
+        for i in np.flatnonzero(live_h):
+            g = int(gid_h[i])
+            if g < out_cap:
+                parts.setdefault(g, []).append(values[int(codes_h[i])])
+        valid_out = np.zeros(out_cap, dtype=bool)
+        for g, vs in parts.items():
+            joined[g] = sep.join(vs)
+            valid_out[g] = True
+        d = StringDictionary.from_unsorted(joined)
+        dev = batch.device
+        return Column(
+            torch.from_numpy(np.asarray(d.encode(joined), dtype=np.int32)).to(dev),
+            spec.out_type,
+            None if valid_out.all() else torch.from_numpy(valid_out).to(dev),
+            d,
+        )
 
     def _reduce_one(self, batch, spec, perm, live, gid, nseg, out_cap):
         if self.mode in ("final", "merge"):
@@ -732,6 +926,8 @@ class AggregationOperator:
                 out.append(Column(red, T.BIGINT, None))
                 continue
             col = batch.columns[arg]
+            if kind != "count":
+                _scalar_arg(col, spec.name)
             d = col.data[perm]
             v = live if col.valid is None else torch.logical_and(live, col.valid[perm])
             if kind in ("sum_f", "sumsq"):
@@ -764,6 +960,11 @@ class AggregationOperator:
         gid0 = torch.zeros(batch.capacity, dtype=torch.int64, device=batch.device)
         cols = []
         for spec in self.aggregates:
+            if spec.name in HOLISTIC_AGGS:
+                # one global group: the grouped collect with gid 0
+                perm0 = torch.arange(batch.capacity, dtype=torch.int64, device=batch.device)
+                cols.append(self._holistic_one(batch, spec, perm0, live, gid0, 2, 1))
+                continue
             states = []
             if self.mode in ("final", "merge"):
                 ch = spec.arg
@@ -785,6 +986,8 @@ class AggregationOperator:
                         states.append(Column(live.sum(dtype=torch.int64)[None], T.BIGINT))
                         continue
                     col = batch.columns[arg]
+                    if kind != "count":
+                        _scalar_arg(col, spec.name)
                     v = live if col.valid is None else torch.logical_and(live, col.valid)
                     d = col.data
                     if kind in ("sum_f", "sumsq"):
@@ -848,12 +1051,16 @@ class AggregationOperator:
         return per_batch._reduce_full(batch)
 
     def push(self, batch: Batch) -> None:
-        """Reduce one input batch to its group states and keep those."""
+        """Reduce one input batch to its group states and keep those (a
+        non-streaming operator keeps the projected batch itself)."""
         if self._pre is not None:
             batch = self._pre(batch)
-        self._acc.append(self.reduce_batch(batch))
-        if len(self._acc) >= self.fold_every:
-            self._fold_states()
+        if not self.streaming:
+            self._acc.append(batch)
+        else:
+            self._acc.append(self.reduce_batch(batch))
+            if len(self._acc) >= self.fold_every:
+                self._fold_states()
         if self.memory_ctx is not None:
             from trino_tpu_torch.runtime.memory import (
                 ExceededMemoryLimitException,
@@ -866,7 +1073,7 @@ class AggregationOperator:
                 # folding compacts the states to their live groups, often
                 # enough to fit; pressure that survives the fold raises (the
                 # wave fallback's and the killer's signal)
-                if len(self._acc) <= 1:
+                if not self.streaming or len(self._acc) <= 1:
                     raise
                 self._fold_states()
                 self.memory_ctx.set_bytes(batches_bytes(self._acc))
@@ -895,6 +1102,8 @@ class AggregationOperator:
             # no input: reduce one dead row of the post-projection layout
             return self._reduce_step(self._empty_input(), out_cap=1)
         big = self._acc[0] if len(self._acc) == 1 else concat_batches(self._acc)
+        if not self.streaming:
+            return self._reduce_full(big)
         out_mode = "merge" if self.mode in ("partial", "merge") else "final"
         return self._combine(big, out_mode)
 

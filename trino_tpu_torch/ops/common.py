@@ -47,6 +47,18 @@ def _key_with_null_order(col: Column, ascending: bool, nulls_first: bool):
     return rank, value_key
 
 
+def require_scalar_key(col: Column) -> None:
+    """Raise for an array or map column used as a sort, group, partition or
+    join key: its [capacity, K] data would otherwise read as K limb planes
+    (or, dictionary-coded, as one code a row).  The JAX package fails on
+    such a key with a shape error; the analyzer rejects ORDER BY on these
+    types."""
+    if col.lengths is not None:
+        raise NotImplementedError(
+            f"a sort, group, partition or join key of type {col.type.name}"
+        )
+
+
 def _stable_argsort(key: torch.Tensor) -> torch.Tensor:
     return torch.sort(key, stable=True).indices
 
@@ -59,6 +71,7 @@ def multi_key_sort_perm(batch: Batch, keys) -> torch.Tensor:
     perm = torch.arange(n, dtype=torch.int64, device=batch.device)
     for k in reversed(list(keys)):
         src = batch.columns[k.channel]
+        require_scalar_key(src)
         col = src.gather(perm)
         if col.data.ndim == 2 and isinstance(col.type, DecimalType):
             # long decimal: two stable passes — low limb (unsigned order via
@@ -97,6 +110,7 @@ def group_ids_from_sorted(batch: Batch, perm, key_channels):
     change = torch.zeros(n, dtype=torch.bool, device=batch.device)
     for ch in key_channels:
         col = batch.columns[ch]
+        require_scalar_key(col)
         d = col.data[perm]
         neq = d != torch.roll(d, 1, 0)
         if neq.ndim > 1:  # long decimal limb planes: any limb differing

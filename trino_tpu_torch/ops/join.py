@@ -33,7 +33,7 @@ from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import Batch, Column
 from trino_tpu_torch.columnar.batch import concat_batches
 from trino_tpu_torch.columnar.column import torch_dtype
-from trino_tpu_torch.ops.common import next_pow2
+from trino_tpu_torch.ops.common import next_pow2, require_scalar_key
 
 _SIGN = -(2**63)
 _I64_MAX = torch.iinfo(torch.int64).max
@@ -94,6 +94,7 @@ def _canon_data(col: Column):
 
     SQL `=` never matches NULL, and float NaN keys never equal anything, so
     both are folded into the per-row `nomatch` flag."""
+    require_scalar_key(col)
     d = col.data
     if isinstance(col.type, T.DecimalType) and col.type.is_long:
         if d.ndim == 1:
@@ -328,7 +329,10 @@ def _take(c: Column, idx: torch.Tensor, valid=None) -> Column:
     g = None if c.valid is None else c.valid[idx]
     if valid is not None:
         g = valid if g is None else torch.logical_and(valid, g)
-    return Column(c.data[idx], c.type, g, c.dictionary)
+    return Column(
+        c.data[idx], c.type, g, c.dictionary,
+        None if c.lengths is None else c.lengths[idx],
+    )
 
 
 class _SortedBuildJoinBase:
@@ -493,7 +497,7 @@ class HashJoinOperator(_SortedBuildJoinBase):
                         c.data, c.type,
                         keep_match if c.valid is None
                         else torch.logical_and(keep_match, c.valid),
-                        c.dictionary,
+                        c.dictionary, c.lengths,
                     )
                     for c in bcols
                 ]
@@ -527,7 +531,7 @@ class HashJoinOperator(_SortedBuildJoinBase):
                         c.data, c.type,
                         keep_match if c.valid is None
                         else torch.logical_and(keep_match, c.valid),
-                        c.dictionary,
+                        c.dictionary, c.lengths,
                     )
                     for c in bcols
                 ]

@@ -15,7 +15,9 @@ shards share a dictionary — true for shards of one stacked batch.
 
 Port of trino_tpu/ops/merge.py: the shards are the port's Batches, whose
 tensors are read on the host (`.cpu().numpy()`); the merged Batch holds CPU
-tensors.  Array and map channels are not ported yet.
+tensors.  Array and map channels ride along as payload (their lengths with
+them; shards of one stacked batch share the element width); as sort keys
+they raise, as the analyzer rejects ORDER BY on them.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ def _np_key_parts(col: Column, ascending: bool, nulls_first: bool):
     """(rank or None, [value_keys least->most significant]) mirroring
     ops/common._key_with_null_order.  Long decimals contribute two keys
     (low limb in unsigned order, then high limb)."""
+    if col.lengths is not None:
+        raise NotImplementedError(f"merge key of type {col.type.name}")
     data = _np(col.data)
     if data.ndim == 2:  # long-decimal limb planes
         hi = data[:, 0]
@@ -112,6 +116,12 @@ def merge_sorted_shards(shards: Sequence[Batch], keys: Sequence[SortKey]) -> Bat
     for ch in range(shards[0].width):
         first = shards[0].columns[ch]
         parts = [s.columns[ch] for s in shards]
+        lengths = None
+        if any(p.lengths is not None for p in parts):
+            from trino_tpu_torch.columnar.batch import pad_elements
+
+            parts = pad_elements([p.to("cpu") for p in parts])
+            lengths = torch.from_numpy(np.concatenate([_np(p.lengths) for p in parts])[order])
         data = np.concatenate([_np(p.data) for p in parts])[order]
         if any(p.valid is not None for p in parts):
             valid = torch.from_numpy(
@@ -126,6 +136,8 @@ def merge_sorted_shards(shards: Sequence[Batch], keys: Sequence[SortKey]) -> Bat
             )
         else:
             valid = None
-        cols.append(Column(torch.from_numpy(data), first.type, valid, first.dictionary))
+        cols.append(
+            Column(torch.from_numpy(data), first.type, valid, first.dictionary, lengths)
+        )
     mask = np.concatenate([_np(s.mask()) for s in shards])[order]
     return Batch(cols, torch.from_numpy(mask))

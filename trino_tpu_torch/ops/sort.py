@@ -199,8 +199,7 @@ def _unify_host_dictionaries(runs: list) -> list:
     """Host batches from different scan batches may carry their own
     dictionaries; recode every string channel into one union dictionary so
     code comparisons are rank comparisons again."""
-    import numpy as np
-
+    from trino_tpu_torch.columnar.column import take_table
     from trino_tpu_torch.columnar.dictionary import union_many
 
     if not runs:
@@ -215,21 +214,12 @@ def _unify_host_dictionaries(runs: list) -> list:
             c = out[i][ch]
             data = c.data
             if table is not None and len(table):  # an empty dictionary: all NULL
-                t = torch.from_numpy(np.asarray(table, dtype=np.int32))
-                data = t[data.to(torch.int64).clamp(0, len(table) - 1)]
-            out[i][ch] = Column(data, c.type, c.valid, merged)
+                data = take_table(table, data)
+            out[i][ch] = Column(data, c.type, c.valid, merged, c.lengths)
     return [Batch(cols, r.row_mask) for cols, r in zip(out, runs)]
 
 
 def _truncate(batch: Batch, cap: int) -> Batch:
     """Slice the leading `cap` rows (used after sorts put keepers first)."""
-    cols = [
-        Column(
-            c.data[:cap],
-            c.type,
-            None if c.valid is None else c.valid[:cap],
-            c.dictionary,
-        )
-        for c in batch.columns
-    ]
+    cols = [c.map_rows(lambda x: x[:cap]) for c in batch.columns]
     return Batch(cols, batch.mask()[:cap])

@@ -36,6 +36,7 @@ from trino_tpu_torch.ops.common import (
     _min_sentinel,
     _segment_extreme,
     multi_key_sort_perm,
+    require_scalar_key,
     segment_sum,
 )
 
@@ -77,6 +78,7 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _neq_prev(col: Column, perm: torch.Tensor) -> torch.Tensor:
     """Null-safe 'differs from the previous sorted row' flags of one key
     column (row 0 compares with the last row, as `roll` wraps)."""
+    require_scalar_key(col)
     d = col.data[perm]
     neq = d != torch.roll(d, 1, 0)
     if neq.ndim > 1:  # long-decimal limb planes
@@ -191,6 +193,12 @@ class WindowOperator:
         idx_in_part, new_peer, peer_gid, peer_last, pos, cap,
     ) -> Column:
         name = spec.name
+        if name != "count" and spec.arg is not None:
+            arg_col = batch.columns[spec.arg]
+            if arg_col.lengths is not None:
+                # an [capacity, K] block would read as K limb planes (the
+                # JAX package fails on the shape here)
+                raise NotImplementedError(f"window {name} over an {arg_col.type.name} column")
         n_in_part = part_size[pid]
         out_dt = torch_dtype(spec.out_type.np_dtype)
 

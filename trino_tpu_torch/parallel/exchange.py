@@ -52,6 +52,8 @@ def _hash_rows(batch: Batch, key_channels: Sequence[int], row_ndim: int = 1) -> 
     h = torch.full(mask.shape, _HASH_INIT_I64, dtype=torch.int64, device=mask.device)
     for ch in key_channels:
         c = batch.columns[ch]
+        if c.lengths is not None:
+            raise NotImplementedError(f"hashing a key of type {c.type.name}")
         v = c.data
         if v.dtype == torch.bool:
             v = v.to(torch.int8)
@@ -125,6 +127,7 @@ def _exchange(stacked: Batch, key_channels, n_workers: int, slot_cap: int) -> Ba
             c.type,
             None if c.valid is None else move(c.valid, False),
             c.dictionary,
+            None if c.lengths is None else move(c.lengths, 0),
         )
         for c in stacked.columns
     ]
@@ -189,11 +192,5 @@ def broadcast(stacked: Batch, wm: WorkerMesh) -> Batch:
         flat = x.reshape((-1,) + tuple(x.shape[2:]))
         return flat.unsqueeze(0).expand((wm.n,) + tuple(flat.shape))
 
-    cols = [
-        Column(
-            bcast(c.data), c.type,
-            None if c.valid is None else bcast(c.valid), c.dictionary,
-        )
-        for c in stacked.columns
-    ]
+    cols = [c.map_rows(bcast) for c in stacked.columns]
     return Batch(cols, bcast(stacked.mask()))

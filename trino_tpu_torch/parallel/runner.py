@@ -56,8 +56,10 @@ aggregation's exchange runs in group-hash waves (`_wave_agg_exchange`).
 Wave and spill events count in `counters` (`memory_wave`, `spill_bytes`).
 
 Not ported (each raises NotImplementedError when a session asks for it):
-fault tolerance and task retries, bucketed table layouts, unnest nodes,
-holistic aggregates on the mesh, `resize_mesh`, membership heartbeats,
+fault tolerance and task retries, bucketed table layouts, the
+partitionable holistic aggregates on the mesh (percentile, min_by,
+max_by; the collect aggregates run in the coordinator fragment, where the
+fragmenter places them), `resize_mesh`, membership heartbeats,
 prewarm, the per-fragment profile (`last_mesh_profile`) and the compile
 observatory.  The
 collective-schedule license (verify/schedule.py) is not ported either: the
@@ -74,6 +76,7 @@ import torch
 
 from trino_tpu_torch.columnar import Batch, Column
 from trino_tpu_torch.columnar.batch import concat_batches
+from trino_tpu_torch.columnar.column import pad_slots
 from trino_tpu_torch.connectors.api import CatalogManager
 from trino_tpu_torch.expr import ExprCompiler
 from trino_tpu_torch.expr.ir import InputRef, and_
@@ -1017,6 +1020,26 @@ class StageExecutor:
         final = final_op._reduce_step(_pad_device(gathered, cap), out_cap=1)
         return PhysicalPlan(iter([final]), node.outputs)
 
+    def _x_UnnestNode(self, node: P.UnnestNode) -> _Dist:
+        """UNNEST per worker: the expansion is row-local, so it stays in its
+        fragment.  Its output capacity (capacity * K) depends on the
+        arrays' element width, so it runs at once rather than deferred."""
+        from trino_tpu_torch.ops.unnest import UnnestOperator
+
+        src = self._exec(node.source)
+        exprs = [src.rewrite(e) for _, e in node.unnest]
+        op = UnnestOperator(exprs, with_ordinality=node.ordinality is not None)
+        fn = cached_spmd_step(
+            self.wm,
+            ("unnest", tuple(e.key() for e in exprs), node.ordinality is not None,
+             _sig(src.symbols), src.cap),
+            lambda: op.step,
+        )
+        return self._dist(
+            fn(src.stacked), node.outputs, placements=src.placements,
+            realigned=src.realigned, unaligned=src.unaligned,
+        )
+
     def _x_MarkDistinctNode(self, node: P.MarkDistinctNode) -> _Dist:
         """The mark per worker: the fragmenter placed the source on the
         mark's keys, so every distinct key combination is whole on one
@@ -1720,6 +1743,7 @@ def _dead_batch_like(b: Batch) -> Batch:
             c.type,
             torch.zeros(1, dtype=torch.bool) if c.valid is not None else None,
             c.dictionary,
+            None if c.lengths is None else torch.zeros(1, dtype=c.lengths.dtype),
         )
         for c in b.columns
     ]
@@ -1739,6 +1763,16 @@ def _concat_stacked(batches: list) -> Batch:
         for c in cs[1:]:
             if c.dictionary is not c0.dictionary and c.dictionary != c0.dictionary:
                 raise AssertionError("wave outputs diverged dictionaries; cannot concat")
+        lengths = None
+        if any(c.lengths is not None for c in cs):
+            # array/map columns: every wave padded to the widest elements
+            k = max(c.data.shape[2] for c in cs)
+            cs = [
+                Column(pad_slots(c.data, k - c.data.shape[2]), c.type, c.valid,
+                       c.dictionary, c.lengths)
+                for c in cs
+            ]
+            lengths = torch.cat([c.lengths for c in cs], dim=1)
         data = torch.cat([c.data for c in cs], dim=1)
         valid = None
         if any(c.valid is not None for c in cs):
@@ -1750,20 +1784,12 @@ def _concat_stacked(batches: list) -> Batch:
                 ],
                 dim=1,
             )
-        cols.append(Column(data, c0.type, valid, c0.dictionary))
+        cols.append(Column(data, c0.type, valid, c0.dictionary, lengths))
     mask = torch.cat([b.mask() for b in batches], dim=1)
     return Batch(cols, mask)
 
 
 def _slice_host(stacked: Batch, w: int, n: int) -> Batch:
     """Worker w's first n rows of a stacked batch, on the host."""
-    cols = [
-        Column(
-            c.data[w, :n].cpu(),
-            c.type,
-            None if c.valid is None else c.valid[w, :n].cpu(),
-            c.dictionary,
-        )
-        for c in stacked.columns
-    ]
+    cols = [c.map_rows(lambda t: t[w, :n].cpu()) for c in stacked.columns]
     return Batch(cols, stacked.row_mask[w, :n].cpu())

@@ -109,6 +109,8 @@ def stable_row_hash(batch: Batch, channels: Sequence[int]) -> np.ndarray:
     acc = np.full(n, 0x9E3779B97F4A7C15, dtype=np.uint64)
     for ch in channels:
         c = batch.columns[ch]
+        if c.lengths is not None:
+            raise NotImplementedError(f"hashing a key of type {c.type.name}")
         data = _np(c.data)
         if c.dictionary is not None:
             table = _value_hashes(c.dictionary)
@@ -146,7 +148,10 @@ def partition_batches(
         h = stable_row_hash(b, channels)
         mask = _np(b.mask())
         part = (h % np.uint64(n)).astype(np.int64)
-        cols = [(_np(c.data), None if c.valid is None else _np(c.valid)) for c in b.columns]
+        cols = [
+            tuple(None if x is None else _np(x) for x in (c.data, c.valid, c.lengths))
+            for c in b.columns
+        ]
         for i in range(n):
             keep = mask & (part == i)
             if not keep.any():
@@ -158,8 +163,9 @@ def partition_batches(
                     c.type,
                     None if valid is None else torch.from_numpy(valid[idx]),
                     c.dictionary,
+                    None if lengths is None else torch.from_numpy(lengths[idx]),
                 )
-                for (data, valid), c in zip(cols, b.columns)
+                for (data, valid, lengths), c in zip(cols, b.columns)
             ]
             buckets[i].append(Batch(out, torch.ones(len(idx), dtype=torch.bool)))
     return buckets

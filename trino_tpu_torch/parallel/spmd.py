@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from trino_tpu_torch.columnar import Batch, Column
+from trino_tpu_torch.columnar.batch import pad_elements
 from trino_tpu_torch.ops.common import next_pow2
 
 
@@ -95,13 +96,7 @@ def shard(x, w: int):
     """Worker `w`'s view of a stacked value (a Batch, tensor, or a tuple or
     list of them); the port's counterpart of `jax.tree.map(lambda x: x[w])`."""
     if isinstance(x, Batch):
-        cols = [
-            Column(
-                c.data[w], c.type, None if c.valid is None else c.valid[w],
-                c.dictionary,
-            )
-            for c in x.columns
-        ]
+        cols = [c.map_rows(lambda t: t[w]) for c in x.columns]
         return Batch(cols, None if x.row_mask is None else x.row_mask[w])
     if torch.is_tensor(x):
         return x[w]
@@ -122,7 +117,14 @@ def _stack_batches_of(parts: Sequence[Batch]) -> Batch:
         valid = None
         if any(c.valid is not None for c in pcs):
             valid = torch.stack([c.valid_mask() for c in pcs])
-        cols.append(Column(torch.stack([c.data for c in pcs]), c0.type, valid, c0.dictionary))
+        lengths = None
+        if any(c.lengths is not None for c in pcs):
+            # array/map columns: workers' element widths padded to the widest
+            pcs = pad_elements(pcs)
+            lengths = torch.stack([c.lengths for c in pcs])
+        cols.append(
+            Column(torch.stack([c.data for c in pcs]), c0.type, valid, c0.dictionary, lengths)
+        )
     return Batch(cols, torch.stack([p.mask() for p in parts]))
 
 
@@ -194,14 +196,23 @@ def stack_batches(batches: Sequence[Optional[Batch]], wm: WorkerMesh, cap: Optio
             for b in batches
         )
         is_long_dec = isinstance(types[ch], DecimalType) and types[ch].is_long
-        datas, valids = [], []
-        for wi, b in enumerate(batches):
-            if b is None or not b.width:
-                shape = (cap, 2) if is_long_dec else (cap,)
+        # array/map columns: every worker padded to the widest element width
+        parts = [
+            None if b is None or not b.width else b.columns[ch] for b in batches
+        ]
+        any_lengths = any(c is not None and c.lengths is not None for c in parts)
+        if any_lengths:
+            padded = iter(pad_elements([c.to("cpu") for c in parts if c is not None]))
+            parts = [None if c is None else next(padded) for c in parts]
+            k = next(c.data.shape[1] for c in parts if c is not None)
+        datas, valids, lens = [], [], []
+        for wi, c in enumerate(parts):
+            if c is None:
+                shape = (cap, k) if any_lengths else (cap, 2) if is_long_dec else (cap,)
                 datas.append(np.zeros(shape, dtype=types[ch].np_dtype))
                 valids.append(np.zeros(cap, dtype=bool))
+                lens.append(np.zeros(cap, dtype=np.int32))
                 continue
-            c = b.columns[ch]
             data = c.data.cpu().numpy()
             if is_long_dec and data.ndim == 1:
                 # short-valued rows under a long type: widen to limb planes
@@ -215,9 +226,12 @@ def stack_batches(batches: Sequence[Optional[Batch]], wm: WorkerMesh, cap: Optio
                 else np.ones(data.shape[0], dtype=bool)
             )
             valids.append(_pad_host(v, cap))
+            if any_lengths:
+                lens.append(_pad_host(c.lengths.cpu().numpy().astype(np.int32), cap))
         data_t = torch.from_numpy(np.stack(datas)).to(wm.device)
         valid_t = torch.from_numpy(np.stack(valids)).to(wm.device) if any_valid else None
-        cols.append(Column(data_t, types[ch], valid_t, dictionary))
+        lengths_t = torch.from_numpy(np.stack(lens)).to(wm.device) if any_lengths else None
+        cols.append(Column(data_t, types[ch], valid_t, dictionary, lengths_t))
     masks = []
     for b in batches:
         if b is None or not b.width:
@@ -231,12 +245,12 @@ def unstack_batch(stacked: Batch) -> Batch:
     """[W, cap] stacked batch -> one flat Batch [W*cap] on the same device
     (the gather-to-coordinator exchange: the coordinator's local engine
     runs on the mesh's device, so the rows need not leave it)."""
-    cols = []
-    for c in stacked.columns:
-        d = c.data
-        data = d.reshape((-1,) + tuple(d.shape[2:]))
-        valid = None if c.valid is None else c.valid.reshape(-1)
-        cols.append(Column(data, c.type, valid, c.dictionary))
+    # keep the trailing element (or limb) axis of array, map and long
+    # decimal columns
+    cols = [
+        c.map_rows(lambda t: t.reshape((-1,) + tuple(t.shape[2:])))
+        for c in stacked.columns
+    ]
     return Batch(cols, stacked.row_mask.reshape(-1))
 
 

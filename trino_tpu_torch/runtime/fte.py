@@ -66,6 +66,10 @@ class SpoolManager:
                 arrays[f"b{bi}_c{ci}_data"] = _np(c.data)
                 if c.valid is not None:
                     arrays[f"b{bi}_c{ci}_valid"] = _np(c.valid)
+                if c.lengths is not None:
+                    # array/map columns: the per-row element counts ride
+                    # along, so a spooled batch rehydrates exactly
+                    arrays[f"b{bi}_c{ci}_len"] = _np(c.lengths)
         path = self._path(query_id, fragment_id)
         tmp = path + ".tmp"
         try:
@@ -106,6 +110,8 @@ class SpoolManager:
                     data = z[f"b{bi}_c{ci}_data"]
                     vkey = f"b{bi}_c{ci}_valid"
                     valid = z[vkey] if vkey in z.files else None
+                    lkey = f"b{bi}_c{ci}_len"
+                    lengths = torch.from_numpy(z[lkey]) if lkey in z.files else None
                     d = dictionaries[ci]
                     if d is not None and data.size:
                         live = mask.astype(bool)
@@ -124,6 +130,7 @@ class SpoolManager:
                         Column(
                             torch.from_numpy(data), sym.type,
                             None if valid is None else torch.from_numpy(valid), d,
+                            lengths,
                         )
                     )
                 out.append(Batch(cols, torch.from_numpy(mask)))

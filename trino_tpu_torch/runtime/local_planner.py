@@ -242,6 +242,14 @@ class LocalExecutionPlanner:
         op = FilterProjectOperator(None, exprs)
         return PhysicalPlan(op.process(src.stream), [s for s, _ in node.assignments])
 
+    def _visit_UnnestNode(self, node: P.UnnestNode) -> PhysicalPlan:
+        from trino_tpu_torch.ops.unnest import UnnestOperator
+
+        src = self.plan(node.source)
+        exprs = [src.rewrite(e) for _, e in node.unnest]
+        op = UnnestOperator(exprs, with_ordinality=node.ordinality is not None)
+        return PhysicalPlan(op.process(src.stream), node.outputs)
+
     # -- aggregation ----------------------------------------------------------
 
     def _collapse_agg_source(self, node: P.AggregationNode):
@@ -695,9 +703,8 @@ def _agg_wave_stream(make_op, feed, key_channels: list, budget: int, device,
 
     The accumulating state is registered REVOCABLE: pressure from the
     shared pool can flush it to the spill tier early instead of killing a
-    query.  (The JAX package's raw-input waves serve the holistic
-    aggregates, which have no streamable partials; the port has none of
-    them yet, so every aggregation here streams.)
+    query.  An aggregation without streamable partials (a collect
+    aggregate) takes raw-input waves instead (`_agg_raw_wave_stream`).
     """
     from trino_tpu_torch.columnar.batch import concat_batches
     from trino_tpu_torch.runtime import spill as _spill
@@ -708,6 +715,12 @@ def _agg_wave_stream(make_op, feed, key_channels: list, budget: int, device,
 
     observer = _spill.PressureObserver()
     op = make_op()
+    if not op.streaming:
+        yield from _agg_raw_wave_stream(
+            make_op, op, feed, key_channels, budget, device, observer,
+            spill_factory, properties,
+        )
+        return
     out_mode = "merge" if op.mode in ("partial", "merge") else "final"
     spill_at = max(budget // 4, 1)
     spiller = None
@@ -803,6 +816,64 @@ def _agg_wave_stream(make_op, feed, key_channels: list, budget: int, device,
         op.memory_ctx.close()
     finally:
         handle.finish()
+        if spiller is not None:
+            spiller.close()
+
+
+def _agg_raw_wave_stream(make_op, op, feed, key_channels: list, budget: int, device,
+                         observer, spill_factory=None, properties=None):
+    """Raw-input waves for aggregates without streamable partials (the
+    collect aggregates): the input accumulates in the operator until the
+    budget is breached (the spool holds the same device batches the
+    operator keeps, so a run under the budget copies nothing); then every
+    batch is pulled to the host (one wait for all the copies), partitioned
+    by the group-key hash into as many waves as the projected footprint
+    needs (spilled under `spill_enabled`), and each wave is fed to a fresh
+    operator."""
+    from trino_tpu_torch.runtime import spill as _spill
+    from trino_tpu_torch.runtime.memory import ExceededMemoryLimitException
+
+    it = iter(feed)
+    spool = []
+    over = False
+    for b in it:
+        spool.append(b)
+        try:
+            op.push(b)
+            if op.state_bytes() > budget:
+                over = True
+        except ExceededMemoryLimitException:
+            over = True  # the reservation tree is the breach signal
+        if over:
+            break
+    if not over:
+        yield op.finish()
+        op.memory_ctx.close()
+        return
+    consumed = len(spool)
+    copies: list = []
+    spool = [_spill.pull_host_async(b, copies) for b in spool]
+    spool.extend(_spill.pull_host_async(b, copies) for b in it)
+    _spill.wait_pulls(copies)
+    frac = consumed / max(len(spool), 1)
+    projected = op.state_bytes() / max(frac, 1e-3)
+    n_waves = _spill.wave_count(int(2 * projected), budget, properties)
+    op.memory_ctx.close()
+    del op  # free the over-budget device state before the first wave
+    spiller = spill_factory() if spill_factory is not None else None
+    # the wave count is known before anything is written, so the raw input
+    # partitions at write time: one part per wave, each read once
+    side = _spill.partition_side(spool, key_channels, n_waves, spiller, "aggraw")
+    spool = None
+    observer.waves("aggregation", n_waves)
+    try:
+        for wave in range(n_waves):
+            wop = make_op()
+            for p in side.load_part(wave):
+                wop.push(_spill.to_device(p, device))
+            yield wop.finish()
+            wop.memory_ctx.close()
+    finally:
         if spiller is not None:
             spiller.close()
 
@@ -905,6 +976,7 @@ def build_agg_inputs(node: "P.AggregationNode", src) -> tuple:
                 # and merge steps read the same proof
                 sum_bound=getattr(agg, "sum_bound", None),
                 arg2=arg2_ch,
+                param=getattr(agg, "param", None),
             )
         )
     return proj, specs, input_types
@@ -964,16 +1036,24 @@ def window_args(node: "P.WindowNode", src) -> tuple:
 
 
 def null_column(t: T.Type, n: int, device: torch.device) -> Column:
-    """`n` NULLs of type `t` on `device` (a long decimal as [n, 2] limbs;
-    a string kind with an empty dictionary)."""
+    """`n` NULLs of type `t` on `device` (a long decimal as [n, 2] limbs; an
+    array as [n, 1] and a map as [n, 2] with zero lengths; a string kind
+    with an empty dictionary)."""
     from trino_tpu_torch.columnar.column import torch_dtype
     from trino_tpu_torch.columnar.dictionary import StringDictionary
 
-    shape = (n, 2) if isinstance(t, T.DecimalType) and t.is_long else (n,)
+    lengths = None
+    if isinstance(t, (T.ArrayType, T.MapType)):
+        shape = (n, 2 if isinstance(t, T.MapType) else 1)
+        lengths = torch.zeros(n, dtype=torch.int32, device=device)
+    elif isinstance(t, T.DecimalType) and t.is_long:
+        shape = (n, 2)
+    else:
+        shape = (n,)
     data = torch.zeros(shape, dtype=torch_dtype(t.np_dtype), device=device)
     valid = torch.zeros(n, dtype=torch.bool, device=device)
     d = StringDictionary([]) if T.is_string_kind(t) else None
-    return Column(data, t, valid, d)
+    return Column(data, t, valid, d, lengths)
 
 
 def _host_minmax(batches, channel: int):
@@ -985,7 +1065,12 @@ def _host_minmax(batches, channel: int):
     lo = hi = None
     for b in batches:
         c = b.columns[channel]
-        if c.dictionary is not None or c.data.ndim > 1 or c.data.dtype == torch.bool:
+        if (
+            c.dictionary is not None
+            or c.lengths is not None  # an array or map key has no range
+            or c.data.ndim > 1  # long-decimal limb planes
+            or c.data.dtype == torch.bool
+        ):
             return None
         data = c.data
         if data.is_floating_point():

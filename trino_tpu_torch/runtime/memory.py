@@ -72,6 +72,8 @@ def batch_bytes(batch, _seen_dicts: Optional[set] = None) -> int:
         total += _tensor_bytes(c.data)
         if c.valid is not None:
             total += _tensor_bytes(c.valid)
+        if c.lengths is not None:
+            total += _tensor_bytes(c.lengths)
         d = c.dictionary
         if d is not None and id(d) not in seen:
             seen.add(id(d))

@@ -139,7 +139,10 @@ class PressureObserver:
 # -- the host boundary ---------------------------------------------------------
 
 
-def _host_batch(b, copies: list):
+def pull_host_async(b, copies: list):
+    """`b`'s copy to the host, started without waiting (a host batch
+    passes through); the batch returned is valid only after
+    `wait_pulls(copies)`."""
     from trino_tpu_torch.columnar import Batch, Column
 
     if b.device.type == "cpu":
@@ -152,7 +155,10 @@ def _host_batch(b, copies: list):
         copies.append(t.device)
         return h
 
-    cols = [Column(get(c.data), c.type, get(c.valid), c.dictionary) for c in b.columns]
+    cols = [
+        Column(get(c.data), c.type, get(c.valid), c.dictionary, get(c.lengths))
+        for c in b.columns
+    ]
     return Batch(cols, get(b.row_mask))
 
 
@@ -165,12 +171,19 @@ def pull_host(*items):
     and raise nothing).  Host batches pass through."""
     copies: list = []
     out = [
-        [_host_batch(b, copies) for b in x] if isinstance(x, list) else _host_batch(x, copies)
+        [pull_host_async(b, copies) for b in x] if isinstance(x, list)
+        else pull_host_async(x, copies)
         for x in items
     ]
+    wait_pulls(copies)
+    return out if len(out) > 1 else out[0]
+
+
+def wait_pulls(copies: list) -> None:
+    """One synchronization of the card's stream, after which every copy
+    `pull_host_async` started into `copies` is valid on the host."""
     if copies:
         torch.cuda.current_stream(copies[0]).synchronize()
-    return out if len(out) > 1 else out[0]
 
 
 def to_device(hb, device):
@@ -486,10 +499,7 @@ def host_wave_slice(hb, key_channels: list, n_waves: int, wave: int):
     if n == 0:
         return None
     idx = torch.from_numpy(np.nonzero(keep)[0])
-    cols = [
-        Column(c.data[idx], c.type, None if c.valid is None else c.valid[idx], c.dictionary)
-        for c in hb.columns
-    ]
+    cols = [c.map_rows(lambda x: x[idx]) for c in hb.columns]
     return Batch(cols, torch.ones(n, dtype=torch.bool))
 
 

@@ -9,7 +9,9 @@ through a tie keeps an arbitrary subset of the tied rows.  So the check is:
     the LIMIT cut the result (their keys are already held by the line
     above).
 Integers, decimals, dates and strings must be equal and of the same type;
-doubles equal to a relative tolerance.
+doubles equal to a relative tolerance.  Arrays (lists) and maps (dicts)
+compare element by element under the same rules, so a double inside an
+array is held to the tolerance too, never compared by its repr.
 """
 
 from __future__ import annotations
@@ -56,6 +58,21 @@ def result_order(plan: P.OutputNode) -> ResultOrder:
 
 
 def _same_value(va, ve, float_rtol: float) -> bool:
+    if isinstance(ve, list):
+        return (
+            isinstance(va, list)
+            and len(va) == len(ve)
+            and all(_same_value(a, e, float_rtol) for a, e in zip(va, ve))
+        )
+    if isinstance(ve, dict):
+        if not isinstance(va, dict) or len(va) != len(ve):
+            return False
+        # keys are integers or strings (exact); values by the value rules
+        ka, ke = sorted(va, key=_value_key), sorted(ve, key=_value_key)
+        return all(
+            _same_value(a, e, float_rtol) and _same_value(va[a], ve[e], float_rtol)
+            for a, e in zip(ka, ke)
+        )
     if isinstance(ve, float):
         if not isinstance(va, float):
             return False
@@ -71,15 +88,22 @@ def _same_row(ra, re, float_rtol: float) -> bool:
     )
 
 
-def _sort_key(row):
+def _value_key(v):
     # doubles to 9 significant digits, so a last-bit difference does not
-    # reorder a multiset; NULLs first
-    return tuple(
-        (0, "") if v is None
-        else (1, f"{v:.9g}") if isinstance(v, float)
-        else (1, str(v))
-        for v in row
-    )
+    # reorder a multiset; NULLs first; arrays and maps element by element
+    if v is None:
+        return (0, "")
+    if isinstance(v, float):
+        return (1, f"{v:.9g}")
+    if isinstance(v, list):
+        return (2, tuple(_value_key(x) for x in v))
+    if isinstance(v, dict):
+        return (3, tuple(sorted((_value_key(k), _value_key(x)) for k, x in v.items())))
+    return (1, str(v))
+
+
+def _sort_key(row):
+    return tuple(_value_key(v) for v in row)
 
 
 def assert_rows_match(

@@ -114,6 +114,26 @@ catches nothing and never falls back to the CPU):
      port's CPU run of the same query, computed by the reference process
      (in order where the ORDER BY fixes it, as a multiset otherwise; U1
      with the kernel to Q1-double's f32 tolerance);
+  5h. the streaming aggregates and the range-positional group path at TPC-H
+     sf1 (AGGREGATE_QUERIES, nothing reduced): A1 global over lineitem
+     (approx_distinct of l_orderkey, l_partkey and l_comment; checksum of
+     a bigint, a decimal, a date, a varchar, a double and an integer with
+     NULL rows; bool_and, bool_or, every, count_if); A2 corr, covar_samp,
+     covar_pop, regr_slope, regr_intercept, checksum and bool_or by
+     (l_returnflag, l_linestatus); A3 the join of orders and lineitem
+     under corr, regr_slope, checksum and bool_and by o_orderpriority (the
+     mesh run must launch the sorted-probe kernel; each launch's P,
+     n_match and S logged from an untimed capture run); A4 the top ten
+     groups of lineitem by l_suppkey (10,000 groups) and by l_orderkey
+     (1,500,000 groups), whose local runs must take the range-positional
+     group path and no sorted reduction.  Each through LocalQueryRunner
+     and the 4-worker mesh on the card, cold and warm, with wall time,
+     peak device memory, the kernels' launches and the group path each
+     grouped reduction took; one profiled warm run each of the local A1
+     and A4 by l_orderkey; every result held to the port's CPU run of the
+     same query, computed by the reference process (after its phase 5g
+     part), the mesh A1 equal to the local A1, and A1's estimates within
+     4% of the exact distinct counts;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows)
      and time it there;
@@ -241,6 +261,48 @@ ARRAY_U4_TOTALS = "select sum(l_quantity), count(*) from lineitem"
 #: the one phase 5g query whose local run takes the grouped-sums kernel
 #: (`pallas_agg` on), and the one whose mesh join takes the sorted probe
 ARRAY_K1_QUERY, ARRAY_K2_QUERY = "U1", "U2"
+
+#: phase 5h: the streaming aggregates and the range-positional group path at
+#: TPC-H sf1 (nothing reduced).  A1 global over lineitem (sketches,
+#: checksums of six argument types, one with NULL rows, the booleans); A2
+#: the bivariate family by Q1's keys; A3 the mesh join (K2) under the
+#: bivariate family; A4 integer group keys (10,000 and 1,500,000 groups).
+AGGREGATE_QUERIES = {
+    "A1": (
+        "select approx_distinct(l_orderkey), approx_distinct(l_partkey), "
+        "approx_distinct(l_comment), checksum(l_orderkey), checksum(l_extendedprice), "
+        "checksum(l_shipdate), checksum(l_comment), "
+        "checksum(cast(l_extendedprice as double)), checksum(nullif(l_linenumber, 1)), "
+        "bool_and(l_quantity >= 1), bool_or(l_shipdate > date '1998-11-30'), "
+        "every(l_tax <= 0.08), count_if(l_returnflag = 'R') from lineitem"
+    ),
+    "A2": (
+        "select l_returnflag, l_linestatus, corr(l_extendedprice, l_quantity), "
+        "covar_samp(l_extendedprice, l_quantity), covar_pop(l_discount, l_tax), "
+        "regr_slope(l_extendedprice, l_quantity), regr_intercept(l_extendedprice, l_quantity), "
+        "checksum(l_partkey), bool_or(l_discount > 0.09), count(*) from lineitem "
+        "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"
+    ),
+    "A3": (
+        "select o_orderpriority, corr(o_totalprice, l_extendedprice), "
+        "regr_slope(l_extendedprice, l_quantity), checksum(l_partkey), "
+        "bool_and(l_receiptdate > o_orderdate), count(*) "
+        "from orders join lineitem on o_orderkey = l_orderkey "
+        "group by o_orderpriority order by o_orderpriority"
+    ),
+    "A4_suppkey": (
+        "select l_suppkey, count(*) c, sum(l_quantity), max(l_shipdate) from lineitem "
+        "group by l_suppkey order by c desc, l_suppkey limit 10"
+    ),
+    "A4_orderkey": (
+        "select l_orderkey, sum(l_extendedprice) s, count(*) from lineitem "
+        "group by l_orderkey order by s desc, l_orderkey limit 10"
+    ),
+}
+#: the exact distinct counts A1's estimates are held to (within 4%)
+AGGREGATE_EXACT = "select count(distinct l_orderkey), count(distinct l_partkey) from lineitem"
+#: the phase 5h query whose mesh run must launch the sorted-probe kernel
+AGGREGATE_K2_QUERY = "A3"
 
 Q1_DOUBLE = """select l_returnflag, l_linestatus,
        sum(cast(l_quantity as double)), sum(cast(l_extendedprice as double)),
@@ -1013,8 +1075,9 @@ def tpcds_cpu_reference(out_path: str) -> int:
     seconds)}, then of every phase 5e query, pickled to `out_path` +
     ".window", then phase 5f's queries under the budgets the card process
     writes to `out_path` + ".budgets", pickled to `out_path` + ".memory",
-    then phase 5g's, pickled to `out_path` + ".arrays".  It runs beside the
-    card phases, on its own cores."""
+    then phase 5g's, pickled to `out_path` + ".arrays", then phase 5h's,
+    pickled to `out_path` + ".aggregates".  It runs beside the card phases,
+    on its own cores."""
     import pickle
 
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
@@ -1041,6 +1104,7 @@ def tpcds_cpu_reference(out_path: str) -> int:
         os.replace(path + ".part", path)
     memory_cpu_reference(out_path)
     arrays_cpu_reference(out_path)
+    aggregates_cpu_reference(out_path)
     return 0
 
 
@@ -1058,13 +1122,15 @@ def start_tpcds_reference(here: str):
 
 #: the reference process's result file of each phase, beside `out_path`;
 #: it writes them in this order, so the last phase's wait is its end
-REFERENCE_SUFFIX = {"5d": "", "5e": ".window", "5f": ".memory", "5g": ".arrays"}
-LAST_REFERENCE_PHASE = "5g"
+REFERENCE_SUFFIX = {
+    "5d": "", "5e": ".window", "5f": ".memory", "5g": ".arrays", "5h": ".aggregates",
+}
+LAST_REFERENCE_PHASE = "5h"
 
 
 def wait_tpcds_reference(proc, path: str, phase: str) -> dict:
-    """The reference's results of phase 5d, 5e, 5f or 5g, as soon as they
-    are written (after 5g's, the process has ended)."""
+    """The reference's results of phase 5d, 5e, 5f, 5g or 5h, as soon as
+    they are written (after 5h's, the process has ended)."""
     import pickle
     import shutil
 
@@ -1970,6 +2036,135 @@ def run_array_path(reference, probe_record: dict, k1_capture: dict) -> dict:
     return {"k1_launches": k1_launches, "k2_launches": k2_launches}
 
 
+# -- phase 5h: the streaming aggregates and the range-positional path ------------
+
+
+def aggregates_cpu_reference(out_path: str) -> None:
+    """The reference process's phase 5h part: the port's CPU run of every
+    AGGREGATE_QUERIES query and of AGGREGATE_EXACT at tpch.sf1, pickled to
+    `out_path` + ".aggregates" as {name: (column names, type names, rows,
+    seconds, the ORDER BY and LIMIT)}."""
+    import pickle
+
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import result_order
+
+    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    out = {}
+    for name, sql in list(AGGREGATE_QUERIES.items()) + [("exact", AGGREGATE_EXACT)]:
+        order = result_order(cpu.create_plan(sql))
+        t0 = time.perf_counter()
+        res = cpu.execute(sql)
+        out[name] = (res.column_names, [t.name for t in res.types], res.rows,
+                     time.perf_counter() - t0, order)
+    with open(out_path + ".aggregates.part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".aggregates.part", out_path + ".aggregates")
+
+
+def run_aggregate_path(reference) -> dict:
+    """Phase 5h: AGGREGATE_QUERIES through the local runner and the
+    4-worker mesh on the card, cold and warm, with wall time, peak device
+    memory, the kernels' launches and the group path each grouped
+    reduction took (`ops.aggregation.GROUP_PATHS`).  The mesh A3 must
+    launch the sorted-probe kernel; the local A4 groups must take the
+    positional path and no sorted reduction.  After the path's counts are
+    read, one untimed capture run of the mesh A3 logs each sorted-probe
+    launch's (P, cap_b, n_match, S).  Every result is held to the
+    reference process's CPU run; the mesh A1 must equal the local A1
+    exactly, and A1's estimates must lie within 4% of the exact distinct
+    counts (l_partkey's is 200,000 at sf1)."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch.ops import aggregation as agg
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import assert_rows_match
+
+    local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    results = {}
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    for name, sql in AGGREGATE_QUERIES.items():
+        for where in ("local", "mesh"):
+            r = mesh if where == "mesh" else local
+            walls = []
+            for attempt in ("cold", "warm"):
+                agg.GROUP_PATHS.clear()
+                k1, k2 = gs.grouped_sums.launches, ls.locate_sorted.launches
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = r.execute(sql)  # rows come back to the host
+                wall = time.perf_counter() - t0
+                walls.append(wall)
+                k1 = gs.grouped_sums.launches - k1
+                k2 = ls.locate_sorted.launches - k2
+                paths = dict(agg.GROUP_PATHS)
+                if name == AGGREGATE_K2_QUERY and where == "mesh" and k2 == 0:
+                    raise AssertionError(f"{name} mesh {attempt}: no locate_sorted launch")
+                if name.startswith("A4") and where == "local" and (
+                    not paths.get("positional") or paths.get("sorted")
+                ):
+                    raise AssertionError(f"{name} local {attempt}: group paths {paths}")
+                log(
+                    f"aggregates {name}_{where} {attempt}: wall_s={wall!r} "
+                    f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                    f"group_paths={paths} "
+                    f"grouped_sums_launches={k1} locate_sorted_launches={k2} "
+                    f"rows={len(res.rows)}"
+                    + ("" if where == "local"
+                       else f" mesh_events={r.last_stage_executor.counters}")
+                )
+            results[name, where] = (res, walls[0], walls[1])
+    profile_warm("A1_local", local, AGGREGATE_QUERIES["A1"])
+    profile_warm("A4_orderkey_local", local, AGGREGATE_QUERIES["A4_orderkey"])
+    k1_launches = gs.grouped_sums.launches  # read just after the path
+    k2_launches = ls.locate_sorted.launches
+    log(f"aggregate path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+
+    # untimed, after the counts were read: the mesh A3's sorted-probe
+    # launch shapes
+    record: dict = {"query": AGGREGATE_K2_QUERY}
+    probe_kernel, probe_rec = shape_recording_probe(record)
+    mesh_runner.locate_sorted = probe_rec
+    try:
+        mesh.execute(AGGREGATE_QUERIES[AGGREGATE_K2_QUERY])
+    finally:
+        mesh_runner.locate_sorted = probe_kernel
+    log(f"{AGGREGATE_K2_QUERY}_mesh sorted-probe launches (P, cap_b, n_match, S): "
+        f"{record.get('shapes', {}).get(AGGREGATE_K2_QUERY, [])}")
+
+    cpu = reference("5h")
+    for name in AGGREGATE_QUERIES:
+        names, types, rows, cpu_s, order = cpu[name]
+        if not rows:
+            raise AssertionError(f"{name}: the CPU reference returned no rows")
+        for where in ("local", "mesh"):
+            res, cold, warm = results[name, where]
+            if res.column_names != names or [t.name for t in res.types] != types:
+                raise AssertionError(f"{name} {where}: columns differ from the CPU run")
+            assert_rows_match(res.rows, rows, order, float_rtol=DOUBLE_RTOL)
+            log(f"aggregates {name}_{where}: cold_s={cold!r} warm_s={warm!r} "
+                f"matches the CPU run ({len(rows)} rows, cpu wall_s={cpu_s!r})")
+        log(f"aggregates {name}: first row {rows[0]}")
+    a1_local, a1_mesh = results["A1", "local"][0].rows, results["A1", "mesh"][0].rows
+    if a1_mesh != a1_local or a1_local != cpu["A1"][2]:
+        raise AssertionError(f"A1: mesh {a1_mesh} / local {a1_local} / cpu {cpu['A1'][2]}")
+    exact_orderkeys, exact_partkeys = cpu["exact"][2][0]
+    est_orderkeys, est_partkeys = a1_local[0][0], a1_local[0][1]
+    for label, est, exact in (("l_orderkey", est_orderkeys, exact_orderkeys),
+                              ("l_partkey", est_partkeys, exact_partkeys),
+                              ("l_partkey vs 200000", est_partkeys, 200_000)):
+        if abs(est - exact) > 0.04 * exact:
+            raise AssertionError(f"A1 approx_distinct({label}): {est} vs {exact}")
+        log(f"aggregates A1 approx_distinct({label}): {est} vs exact {exact} "
+            f"(relative error {(est - exact) / exact!r})")
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -2219,9 +2414,11 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     arrays: dict = {}
     arrays_k1: dict = {}
     arr_path = timed("5g", run_array_path, tpcds_reference, arrays, arrays_k1)
-    k1["launches"] += arr_path["k1_launches"]
+    agg_path = timed("5h", run_aggregate_path, tpcds_reference)
+    k1["launches"] += arr_path["k1_launches"] + agg_path["k1_launches"]
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
+        "aggregates": agg_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays)
@@ -2229,7 +2426,7 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
         + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
-        + arr_path["k2_launches"]
+        + arr_path["k2_launches"] + agg_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -2242,6 +2439,7 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
         "tpcds_window_per_mesh_query": tdw_path["per_query"],
         "memory": mem_path["launches"],
         "arrays": arr_path["k2_launches"],
+        "aggregates": agg_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

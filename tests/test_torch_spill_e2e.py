@@ -9,12 +9,10 @@ the JAX package's own tests' (tests/test_spill.py, tests/test_memory.py).
 
 Each case holds the port's rows to the JAX package's (integers, decimals,
 dates and strings exact; doubles relative 1e-9; ORDER BY rows in order)
-and its wave count per operator to the JAX package's (except where the
-aggregation picks k itself: its k follows the bytes of the spilled group
-states, and the port's states of an integer group key are wider, because
-the JAX package's range-positional group path is not ported and such keys
-take the sort path; there the port's k must come out a power of two in
-[2, 64]); spill bytes appear
+and its wave count per operator to the JAX package's (where the
+aggregation picks k itself, from the bytes of the spilled group states,
+too: an integer group key takes the range-positional path in both
+packages, so the states have the same capacities); spill bytes appear
 exactly when the JAX package spills; the spill directory is empty and no
 revocable handle is live after every query; unbudgeted runs record zero
 waves, zero spill and zero revocations.  The 4-worker mesh is in
@@ -121,7 +119,7 @@ def _run(cls, sql, target_splits, props, **kw):
     return _runner(cls, target_splits, props, **kw).execute(sql)
 
 
-def check_budgeted_query(case, spill_dir, auto_k_aggregation: bool = False):
+def check_budgeted_query(case, spill_dir):
     """One budgeted query on both engines: the port's rows, wave counts per
     operator and spill against the JAX package's."""
     sql, splits, props, ordered = case
@@ -131,12 +129,7 @@ def check_budgeted_query(case, spill_dir, auto_k_aggregation: bool = False):
     actual, pdelta = _run_port(sql, splits, props, spill_dir)
     assert actual.column_names == expected.column_names
     assert_same_rows(actual.rows, expected.rows, ordered, float_rtol=1e-9)
-    if auto_k_aggregation:
-        k = pdelta["aggregation"]
-        assert jdelta["aggregation"] > 0 and 2 <= k <= 64 and k & (k - 1) == 0
-        assert all(pdelta[op] == jdelta[op] == 0 for op in OPERATORS if op != "aggregation")
-    else:
-        assert {op: pdelta[op] for op in OPERATORS} == {op: jdelta[op] for op in OPERATORS}
+    assert {op: pdelta[op] for op in OPERATORS} == {op: jdelta[op] for op in OPERATORS}
     assert sum(pdelta[op] for op in OPERATORS) > 0, "the budget forced no waves"
     assert (pdelta["spill"] > 0) == (jdelta["spill"] > 0)
     assert (pdelta["spill"] > 0) == (props.get("spill_enabled", True) is not False)

@@ -35,7 +35,7 @@ CASES = {
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_budgeted_query_matches_jax(name, spill_dir):  # noqa: F811
-    check_budgeted_query(CASES[name], spill_dir, auto_k_aggregation=name == "agg_auto_k_ram")
+    check_budgeted_query(CASES[name], spill_dir)
 
 
 @pytest.mark.parametrize("sql", [AGG_SQL, WINDOW_SQL, SORT_SQL], ids=["agg", "window", "sort"])

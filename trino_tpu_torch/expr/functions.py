@@ -106,15 +106,18 @@ def _planes_val(h, l, rt: T.Type, valid) -> Val:
 
 
 def _to_float(v: Val) -> torch.Tensor:
-    """Numeric value as f64 data."""
+    """Numeric value as f64 data.  A decimal descales by multiplying by
+    fl(1 / 10**scale): XLA folds the JAX package's division by the constant
+    scale factor into that multiplication, so the doubles (and the checksum
+    hashes of them) are the JAX package's bit for bit."""
     if _is_long_dec(v.type):
         from trino_tpu_torch.types import int128 as i128
 
         h, l = _to_planes(v, v.type.scale)
-        return i128.to_float128(h, l) / float(v.type.scale_factor)
+        return i128.to_float128(h, l) * (1.0 / v.type.scale_factor)
     d = v.data.to(torch.float64)
     if isinstance(v.type, T.DecimalType):
-        return d / float(v.type.scale_factor)
+        return d * (1.0 / v.type.scale_factor)
     return d
 
 

@@ -2,10 +2,9 @@
 
 Port of trino_tpu/ops/aggregation.py (reference roles:
 HashAggregationOperator.java:49, AggregationOperator (global),
-MultiChannelGroupByHash.java:216).  Group ids come from the small-domain
-direct path (dictionary/boolean keys -> mixed-radix slot, no sort) or from
-a stable multi-key sort + key-change cumsum; accumulators are segmented
-reductions.
+MultiChannelGroupByHash.java:216).  Group ids come from one of three
+paths (below): two sort-free slot codes and a stable multi-key sort;
+accumulators are segmented reductions.
 
 Modes mirror the reference's AggregationNode.Step:
   SINGLE  : raw rows -> final values
@@ -22,15 +21,26 @@ aggregation in waves).  The collect aggregates have no mergeable partial
 state, so an operator that holds one (`streaming` is False) keeps its
 raw input batches and reduces them once, at the end.
 
-Ported aggregates: count(*), count, sum, avg, min, max, any_value, the
-moment family (stddev_samp, stddev_pop, var_samp, var_pop: f64 sum, sum of
-squares and count states, merged by addition), the collect aggregates
-array_agg (with ORDER BY), map_agg and listagg (eager, sort-based group
-numbering; the padded width K is the largest group, one host read), and
-MarkDistinctOperator (the mark column of mixed DISTINCT sets).  The
-range-positional group path, the other holistic aggregates (percentile,
-min_by, max_by), the sketches and the bivariate family are not ported yet
-(integer group keys take the sort path).
+Ported aggregates: count(*), count, sum, avg, min, max, any_value,
+bool_and/bool_or (min/max over the boolean), the moment family
+(stddev_samp, stddev_pop, var_samp, var_pop: f64 sum, sum of squares and
+count states, merged by addition), the bivariate family (covar_samp,
+covar_pop, corr, regr_slope, regr_intercept: the raw-sum sextuple, merged by
+addition, rows with either side NULL skipped), checksum (a wrapping int64
+sum of 64-bit value hashes, merged by addition), global approx_distinct
+(a HyperLogLog sketch of HLL_M int32 registers, an array-typed state merged
+by elementwise max), the collect aggregates array_agg (with ORDER BY),
+map_agg and listagg (eager, sort-based group numbering; the padded width K
+is the largest group, one host read), and MarkDistinctOperator (the mark
+column of mixed DISTINCT sets).  The other holistic aggregates
+(percentile, min_by, max_by) are not ported yet.
+
+Group ids, by path (GROUP_PATHS counts each grouped reduction's):
+  direct     dictionary/boolean keys with a small code domain;
+  positional integer-family keys whose live (min, max) range is dense
+             enough: the mixed-radix offset code, one host read of the key
+             statistics (the JAX package's range-positional path);
+  sorted     everything else: a stable multi-key sort.
 
 Difference from the JAX package: the `pallas_agg` knob reaches the
 grouped-sums kernel (ops/grouped_sums.py) from the streaming per-batch
@@ -42,7 +52,8 @@ kernel is never reached from SQL there.
 
 from __future__ import annotations
 
-from collections import deque
+import threading
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -55,12 +66,16 @@ from trino_tpu_torch.columnar.batch import concat_batches
 from trino_tpu_torch.columnar.column import take_table, torch_dtype
 from trino_tpu_torch.ops.common import (
     SortKey,
+    _i64_const,
+    _segment_extreme,
+    _shr_logical,
     group_ids_from_sorted,
     multi_key_sort_perm,
     next_pow2,
     require_scalar_key,
     segment_reduce,
     segment_sum,
+    splitmix64,
 )
 from trino_tpu_torch.planner.functions import HOLISTIC_AGGS
 
@@ -68,7 +83,9 @@ from trino_tpu_torch.planner.functions import HOLISTIC_AGGS
 @dataclass(frozen=True)
 class AggSpec:
     """One SQL aggregate: name in {count, count_star, sum, min, max, avg,
-    any_value, stddev_samp, stddev_pop, var_samp, var_pop}, arg = input
+    any_value, bool_and, bool_or, stddev_samp, stddev_pop, var_samp,
+    var_pop, covar_samp, covar_pop, corr, regr_slope, regr_intercept,
+    checksum, approx_distinct, array_agg, map_agg, listagg}, arg = input
     channel (None for count_star)."""
 
     name: str
@@ -78,8 +95,9 @@ class AggSpec:
     #: range certificate, plan.Aggregation.sum_bound): _sum128 takes the
     #: single-plane i64 path with no runtime fits check when set
     sum_bound: Optional[int] = None
-    #: second input channel of a two-input aggregate: map_agg's values, the
-    #: ORDER BY key of array_agg and listagg (covar/corr are not ported)
+    #: second input channel of a two-input aggregate: the x of the
+    #: bivariate family, map_agg's values, the ORDER BY key of array_agg and
+    #: listagg
     arg2: Optional[int] = None
     #: literal parameter: array_agg's ORDER BY (ascending, nulls_first);
     #: listagg's (separator, ascending, nulls_first)
@@ -99,6 +117,27 @@ COLLECT_LOG: deque = deque(maxlen=4096)
 
 #: the moment family: raw-sum states (reference: VarianceState)
 MOMENT = ("stddev_samp", "stddev_pop", "var_samp", "var_pop")
+
+#: two-input (y, x) regression family: the state is the raw-sum sextuple
+BIVARIATE = ("covar_samp", "covar_pop", "corr", "regr_slope", "regr_intercept")
+
+#: checksum's NULL-row contribution (the reference's PRIME64 role), as the
+#: int64 with its bits
+CHECKSUM_NULL_PRIME = _i64_const(0x9E3779B185EBCA87)
+
+#: HyperLogLog registers per sketch: p=13 -> 8192 buckets, standard error
+#: 1.04/sqrt(8192) ~= 1.15% (reference: ApproximateCountDistinctAggregation
+#: defaults + state/HyperLogLogStateFactory.java:23)
+HLL_P = 13
+HLL_M = 1 << HLL_P
+
+#: the group path each grouped reduction took (direct | positional |
+#: sorted), one count per reduction; read and cleared by callers
+GROUP_PATHS: dict = {}
+
+
+def _note_group_path(path: str) -> None:
+    GROUP_PATHS[path] = GROUP_PATHS.get(path, 0) + 1
 
 
 def _unported(name: str) -> NotImplementedError:
@@ -128,18 +167,260 @@ def _group_ranks(varg, gid_c, cap: int, nseg: int):
     return pos_in_group, counts
 
 
+# -- the value hash of checksum and approx_distinct ---------------------------
+#
+# Both packages must give the same 64-bit hash for the same value, bit for
+# bit, or checksums and estimates differ.  uint64 arithmetic runs on int64
+# tensors (multiplies wrap alike, right shifts are made logical).
+
+#: smallest normal float64 and float32: the JAX package's float hash runs
+#: under XLA with denormals flushed to zero, so a subnormal hashes as 0.0
+_F64_TINY = 2.2250738585072014e-308
+_F32_TINY = 1.1754943508222875e-38
+
+#: device -> (exp2, lo, hi) tables of the double hash
+_DOUBLE_HASH_TABLES: dict = {}
+_DOUBLE_HASH_HOST: list = []
+
+
+def _double_hash_host_tables():
+    """(exp2, lo, hi) host tables that reproduce the JAX package's float
+    decomposition exactly, computed once per process in decimal arithmetic
+    (~0.3 s).
+
+    The JAX package computes expo = floor(log(a) / log(2)) and mant =
+    a * exp2(-expo) under XLA, whose f64 log is correctly rounded, which
+    folds the division by the constant log(2) into a multiplication by
+    fl(1 / fl(ln 2)), and whose exp2(x) is exp(fl(ln2 * x)), correctly
+    rounded at integer x with subnormal results flushed to zero.  So:
+      exp2[k + 1023] is that exp2(k) for integer k in [-1023, 1023];
+      lo[e + 1022] counts the mantissas just above 2**e (fraction bits
+      0, 1, ...) whose quotient rounds below e, and hi[e + 1022] those just
+      below 2**(e + 1) whose quotient rounds up to e + 1, for every normal
+      binary exponent e (the floor is monotone in the value, so each set is
+      a run at the edge of the binade)."""
+    if _DOUBLE_HASH_HOST:
+        return _DOUBLE_HASH_HOST[0]
+    import math
+    from decimal import Context, Decimal
+
+    ctx = Context(prec=80)
+    ln2 = math.log(2.0)
+    exp2 = np.empty(2047, dtype=np.float64)
+    for k in range(-1023, 1024):
+        v = float(ctx.exp(Decimal(ln2 * k)))
+        exp2[k + 1023] = 0.0 if v < _F64_TINY else v
+
+    ln2_exact = ctx.ln(Decimal(2))
+    inv_ln2 = 1.0 / ln2
+    ulp = Decimal(2) ** -52
+
+    def edge(e: int) -> Decimal:
+        """D = m - e*ln(2), m the midpoint below the smallest double x with
+        fl(x * fl(1 / fl(ln 2))) >= e: the quotient of fl(ln a) reaches e
+        exactly when ln(a) > m (a transcendental ln never equals the
+        midpoint)"""
+        x = e * ln2
+        while x * inv_ln2 >= e:
+            x = math.nextafter(x, -math.inf)
+        while x * inv_ln2 < e:
+            x = math.nextafter(x, math.inf)
+        mid = (Decimal(math.nextafter(x, -math.inf)) + Decimal(x)) / 2
+        return ctx.subtract(mid, ctx.multiply(Decimal(e), ln2_exact))
+
+    lo = np.zeros(2046, dtype=np.int64)
+    hi = np.zeros(2046, dtype=np.int64)
+    for e in range(-1022, 1024):
+        # lo: the j >= 0 with ln(1 + j*ulp) < edge(e), below e
+        g = ctx.exp(edge(e)) - 1
+        lo[e + 1022] = 0 if g <= 0 else int(ctx.divide_int(g, ulp)) + 1
+        # hi: the j >= 1 with ln(1 - j*ulp/2) > edge(e + 1), up to e + 1
+        g = 1 - ctx.exp(edge(e + 1))
+        hi[e + 1022] = 0 if g <= 0 else int(ctx.divide_int(2 * g, ulp))
+    _DOUBLE_HASH_HOST.append((exp2, lo, hi))
+    return exp2, lo, hi
+
+
+def _double_hash_tables(device: torch.device):
+    tables = _DOUBLE_HASH_TABLES.get(device)
+    if tables is None:
+        tables = tuple(torch.from_numpy(t).to(device) for t in _double_hash_host_tables())
+        _DOUBLE_HASH_TABLES[device] = tables
+    return tables
+
+
+def _double_hash_words(d: torch.Tensor) -> torch.Tensor:
+    """The JAX package's pre-finalizer word of a float column (JAX
+    ops/aggregation.py `_hll_hash`): (mant * 2**52) ^ (expo << 1) ^ sign,
+    mant = |x| * exp2(-expo), expo = floor(log2 |x|) as XLA rounds it.
+    The exact exponent and fraction come from frexp; the tables add XLA's
+    rounding (`_double_hash_host_tables`), so the word is the same on the
+    CPU and the card.  NaN, zeros and subnormals give 0; an infinity gives
+    expo 1023 and mant 0, as a value in the top binade does (exp2(-1023)
+    flushes to zero)."""
+    exp2, lo, hi = _double_hash_tables(d.device)
+    tiny = _F32_TINY if d.dtype == torch.float32 else _F64_TINY
+    f = d.to(torch.float64)
+    a = f.abs()
+    normal = a >= tiny  # False for NaN
+    inf = torch.isinf(a)
+    finite = torch.logical_and(normal, torch.logical_not(inf))
+    m, ex = torch.frexp(torch.where(finite, a, 1.0))  # a = m * 2**ex, m in [0.5, 1)
+    e = ex.to(torch.int64) - 1
+    frac = ((m * 2.0 - 1.0) * 2.0**52).to(torch.int64)  # exact fraction bits
+    ei = (e + 1022).clamp(0, 2045)
+    expo = e - (frac < lo[ei]).to(torch.int64) + (frac >= (1 << 52) - hi[ei]).to(torch.int64)
+    expo = torch.where(finite, expo, torch.where(inf, 1023, 0)).clamp(-1074, 1023)
+    mant = torch.where(finite, a * exp2[(1023 - expo).clamp(0, 2046)], 0.0)
+    sign = torch.where(torch.logical_and(normal, f < 0.0), 1 << 62, 0)
+    return (mant * 2.0**52).to(torch.int64) ^ (expo << 1) ^ sign
+
+
+#: id(dictionary) -> (dictionary, {device: blake2b/8 of every value}): a
+#: dictionary's table is built once and gathered by code on every batch
+#: (the entry pins its dictionary, so the id stays valid while cached)
+_DICT_HASHES: "OrderedDict[int, tuple]" = OrderedDict()
+_DICT_HASHES_LIMIT = 256
+_DICT_HASHES_LOCK = threading.Lock()
+
+
+def _dictionary_hashes(d, device: torch.device) -> torch.Tensor:
+    """The 64-bit value hash (blake2b, 8 bytes, little-endian, as int64) of
+    every value of dictionary `d`, on `device`.  checksum() needs real
+    64-bit entropy: a 32-bit crc birthday-collides at ~77k distinct
+    values."""
+    import hashlib
+
+    with _DICT_HASHES_LOCK:
+        hit = _DICT_HASHES.get(id(d))
+        if hit is not None and hit[0] is d:
+            _DICT_HASHES.move_to_end(id(d))
+            if device in hit[1]:
+                return hit[1][device]
+    table = np.fromiter(
+        (
+            int.from_bytes(
+                hashlib.blake2b(
+                    v.encode() if isinstance(v, str) else bytes(v), digest_size=8
+                ).digest(),
+                "little",
+                signed=True,
+            )
+            for v in d.values
+        ),
+        dtype=np.int64,
+        count=len(d.values),
+    )
+    t = torch.from_numpy(table).to(device)
+    with _DICT_HASHES_LOCK:
+        hit = _DICT_HASHES.get(id(d))
+        if hit is None or hit[0] is not d:
+            hit = (d, {})
+            _DICT_HASHES[id(d)] = hit
+        hit[1][device] = t
+        while len(_DICT_HASHES) > _DICT_HASHES_LIMIT:
+            _DICT_HASHES.popitem(last=False)
+    return t
+
+
+def _hll_hash(col: Column, name: str = "approx_distinct") -> torch.Tensor:
+    """Per-row 64-bit hash of the column's VALUE, as int64 bits: stable
+    across workers (dictionary codes are producer-local, so a dictionary
+    column hashes its values).  Port of the JAX package's `_hll_hash`.
+
+    Raises for an array/map argument and for long-decimal limb planes (the
+    JAX package fails on their shape there)."""
+    _scalar_arg(col, name)
+    d = col.data
+    if d.ndim > 1:
+        raise NotImplementedError(
+            f"{name} over a long-decimal argument (cast to decimal(18,s) or double first)"
+        )
+    if col.dictionary is not None:
+        table = _dictionary_hashes(col.dictionary, d.device)
+        h = table[d.to(torch.int64).clamp(0, max(table.shape[0] - 1, 0))]
+    elif d.dtype.is_floating_point:
+        h = _double_hash_words(d)
+    else:
+        h = d.to(torch.int64)
+    return splitmix64(h)
+
+
+def _hll_registers(col: Column, valid) -> torch.Tensor:
+    """[HLL_M] int32 register vector over the valid rows of one column; an
+    empty bucket holds INT32_MIN (the JAX package's segment_max identity)."""
+    u = _hll_hash(col)
+    bucket = _shr_logical(u, 64 - HLL_P)
+    rest = (u << HLL_P) | 1  # the sentinel bit stops the rank at its max
+    # rank = leading zeros of `rest` + 1, by a bit-length cascade of
+    # logical shifts (`!= 0` is the unsigned `> 0`)
+    x = rest
+    bitlen = torch.zeros(rest.shape, dtype=torch.int32, device=rest.device)
+    for s in (32, 16, 8, 4, 2, 1):
+        y = _shr_logical(x, s)
+        gt = y != 0
+        bitlen = torch.where(gt, bitlen + s, bitlen)
+        x = torch.where(gt, y, x)
+    bitlen = bitlen + (x != 0).to(torch.int32)
+    rank = 64 - bitlen + 1
+    bucket = torch.where(valid, bucket, HLL_M)
+    regs = _segment_extreme(torch.where(valid, rank, 0), bucket, HLL_M + 1, "amax")
+    return regs[:HLL_M]
+
+
+#: v -> HLL_M * log(HLL_M / max(v, 1)), the linear-counting estimate for v
+#: empty registers (one host table per process; XLA's f64 log, which the
+#: JAX package's estimate runs, is correctly rounded, as the host's is)
+_HLL_LINEAR: list = []
+
+
+def _hll_linear_table(device: torch.device) -> torch.Tensor:
+    if not _HLL_LINEAR:
+        import math
+
+        m = float(HLL_M)
+        _HLL_LINEAR.append(
+            np.array([m * math.log(m / max(v, 1)) for v in range(HLL_M + 1)])
+        )
+    return torch.from_numpy(_HLL_LINEAR[0]).to(device)
+
+
+def _hll_estimate(registers: torch.Tensor) -> torch.Tensor:
+    """Registers [..., M] -> BIGINT cardinality (HLL raw estimator + the
+    small-range linear-counting correction), vectorized over leading axes.
+    sum(2**-r) runs over the count of each register value, smallest terms
+    first, in a fixed order: exact whenever the sum fits a double (the JAX
+    package's sum is then the same), and the same on the CPU and the card."""
+    m = float(HLL_M)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    r = registers.to(torch.int64).clamp(min=0)
+    values = torch.arange(65, dtype=torch.int64, device=r.device)
+    counts = (r[..., None] == values).sum(dim=-2).to(torch.float64)  # [..., 65]
+    z = torch.zeros(counts.shape[:-1], dtype=torch.float64, device=r.device)
+    for k in range(64, -1, -1):
+        z = z + counts[..., k] * 2.0**-k
+    raw = alpha * m * m / z
+    v = (registers <= 0).sum(dim=-1)
+    linear = _hll_linear_table(registers.device)[v]
+    est = torch.where(torch.logical_and(raw <= 2.5 * m, v > 0), linear, raw)
+    return torch.round(est).to(torch.int64)
+
+
 def _primitives(spec: AggSpec):
     """Primitive states per SQL aggregate (kinds: sum/count/min/max/any,
-    and sum_f/sumsq, the f64 sum and sum of squares of the moments)."""
+    sum_f/sumsq (the f64 sums of the moments), checksum, hll and the bi_*
+    sums of the bivariate family)."""
+    if spec.name == "approx_distinct":
+        return [("hll", spec.arg)]
     if spec.name == "count_star":
         return [("count_star", None)]
     if spec.name == "count":
         return [("count", spec.arg)]
     if spec.name in ("sum", "avg"):
         return [("sum", spec.arg), ("count", spec.arg)]
-    if spec.name == "min":
+    if spec.name in ("min", "bool_and"):
         return [("min", spec.arg), ("count", spec.arg)]
-    if spec.name == "max":
+    if spec.name in ("max", "bool_or"):
         return [("max", spec.arg), ("count", spec.arg)]
     if spec.name == "any_value":
         return [("any", spec.arg), ("count", spec.arg)]
@@ -147,15 +428,33 @@ def _primitives(spec: AggSpec):
         # reference: operator/aggregation VarianceState (count/mean/m2 as
         # merged moments; here the raw-sum formulation merges by addition)
         return [("sum_f", spec.arg), ("sumsq", spec.arg), ("count", spec.arg)]
+    if spec.name == "checksum":
+        # an order-independent wrapping sum of per-row value hashes
+        # (reference: ChecksumAggregationFunction): equal multisets give
+        # equal checksums, mergeable by addition.  A NULL row adds a fixed
+        # prime, so NULL placement changes the checksum and all-NULL input
+        # is non-null.
+        return [("checksum", spec.arg), ("count_star", None)]
+    if spec.name in BIVARIATE:
+        # reference: CovarianceState/CorrelationState, the raw-sum
+        # formulation merged by addition; a row with EITHER side NULL is
+        # skipped (pairwise validity)
+        return [
+            ("bi_sum_1", spec.arg), ("bi_sum_2", spec.arg2),
+            ("bi_sumsq_1", spec.arg), ("bi_sumsq_2", spec.arg2),
+            ("bi_sum_12", spec.arg), ("bi_count", spec.arg),
+        ]
     raise _unported(spec.name)
 
 
 def _state_types(spec: AggSpec, input_types) -> list[T.Type]:
     out = []
     for kind, arg in _primitives(spec):
-        if kind in ("count", "count_star"):
+        if kind == "hll":
+            out.append(T.ArrayType(T.INTEGER))
+        elif kind in ("count", "count_star", "checksum", "bi_count"):
             out.append(T.BIGINT)
-        elif kind in ("sum_f", "sumsq"):
+        elif kind in ("sum_f", "sumsq") or kind.startswith("bi_sum"):
             out.append(T.DOUBLE)
         elif kind == "sum":
             t = input_types[arg]
@@ -172,10 +471,14 @@ def _state_types(spec: AggSpec, input_types) -> list[T.Type]:
 
 
 def _merge_primitives(spec: AggSpec):
-    """How each state column merges in FINAL/MERGE mode: counts and moment
-    sums are already-reduced values and merge by adding."""
+    """How each state column merges in FINAL/MERGE mode: counts, checksums
+    and the f64 sums are already-reduced values and merge by adding; HLL
+    registers merge by elementwise max."""
     return [
-        "sum" if kind in ("count", "count_star", "sum_f", "sumsq") else kind
+        kind if kind == "hll"
+        else "sum" if kind in ("count", "count_star", "sum_f", "sumsq", "checksum")
+        or kind.startswith("bi_")
+        else kind
         for kind, _ in _primitives(spec)
     ]
 
@@ -190,7 +493,7 @@ def _logical_double(d, t: T.Type):
     else:
         out = d.to(torch.float64)
     if isinstance(t, T.DecimalType) and t.scale:
-        out = out / (10.0 ** t.scale)
+        out = out * (1.0 / 10.0**t.scale)  # as XLA folds the JAX package's division
     return out
 
 
@@ -198,6 +501,75 @@ def _moment_state(d, t: T.Type, kind: str):
     """The f64 series a moment state sums: the value or its square."""
     dl = _logical_double(d, t)
     return dl * dl if kind == "sumsq" else dl
+
+
+def _order_free_sum(values, gid, nseg: int, valid=None) -> torch.Tensor:
+    """Segmented f64 sum whose result does not depend on the order of the
+    additions, so the card's atomic adds and the CPU's sequential adds give
+    the same bits.  Two error-free extractions (Rump's ExtractVector: with
+    sigma = 2**k >= 2 * n * max|r|, q = (sigma + r) - sigma is r on a grid
+    of sigma * 2**-53, every sum of q's is exact in any order, and r - q is
+    exact), then the remainder, ~2**-100 of the values, summed plainly.
+
+    The bivariate family needs it: covar = s12 - s1 * s2 / n cancels by
+    10**4 and more near a zero covariance, so the plain sum's
+    order-dependent rounding (~sqrt(n) ulps over a 6 M-row batch) would
+    show at 1e-9 between the CPU and the card.  `values` is [n] or [n, k]
+    (k series at once, each with its own sigma)."""
+    if valid is not None:
+        valid = valid.reshape(valid.shape + (1,) * (values.ndim - 1))
+    r = values if valid is None else torch.where(valid, values, 0.0)
+    if r.shape[0] == 0:
+        return segment_sum(r, gid, nseg)
+    finite = torch.isfinite(r)
+    total = segment_sum(torch.where(finite, 0.0, r), gid, nseg)  # inf and NaN as a plain sum
+    r = torch.where(finite, r, 0.0)
+    for _ in range(2):
+        m = r.abs().amax(dim=0) * max(r.shape[0], 1)
+        sigma = torch.where(
+            torch.logical_and(m > 0, torch.isfinite(m)),
+            torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] + 1),
+            0.0,  # zeros, or values too large to bound: a plain sum
+        )
+        q = (sigma + r) - sigma
+        total = total + segment_sum(q, gid, nseg)
+        r = r - q
+    return total + segment_sum(r, gid, nseg)
+
+
+def _bivariate_states(batch: Batch, spec: AggSpec, perm, live, gid, nseg: int) -> list:
+    """The six raw-sum states of a bivariate aggregate (1 = its first
+    argument, 2 = its second) per segment: the sums of 1, 2, 1*1, 2*2 and
+    1*2 (`_order_free_sum`) and the pair count, over the rows where both
+    sides are non-NULL, read as logical doubles (a decimal is descaled).
+    `perm` (or None) is the row order."""
+    v = live
+    series = []
+    for ch in (spec.arg, spec.arg2):
+        c = batch.columns[ch]
+        _scalar_arg(c, spec.name)
+        rows = (lambda t: t) if perm is None else (lambda t: t[perm])
+        if c.valid is not None:
+            v = torch.logical_and(v, rows(c.valid))
+        series.append(_logical_double(rows(c.data), c.type))
+    d1, d2 = series
+    sums = _order_free_sum(torch.stack([d1, d2, d1 * d1, d2 * d2, d1 * d2], dim=1), gid, nseg, v)
+    count = segment_reduce(d1, gid, nseg, "count", valid=v)
+    return [Column(sums[:, i].contiguous(), T.DOUBLE) for i in range(5)] + [Column(count, T.BIGINT)]
+
+
+def _hll_state(registers: torch.Tensor) -> Column:
+    """One sketch as a one-row array(integer) state column."""
+    lengths = torch.full((1,), HLL_M, dtype=torch.int32, device=registers.device)
+    return Column(registers[None, :], T.ArrayType(T.INTEGER), None, None, lengths)
+
+
+def _checksum_words(col: Column, name: str) -> torch.Tensor:
+    """Each row's checksum addend: its value hash, or the NULL prime."""
+    h = _hll_hash(col, name)
+    if col.valid is not None:
+        h = torch.where(col.valid, h, CHECKSUM_NULL_PRIME)
+    return h
 
 
 def _reduce128(d, gid, nseg: int, kind: str, valid):
@@ -280,8 +652,37 @@ def _sum128(d, gid, nseg: int, valid, in_precision: int = None, sum_bound: int =
 def _finalize(spec: AggSpec, states: list[Column]) -> Column:
     """Combine state columns into the SQL result column."""
     name = spec.name
+    if name == "approx_distinct":
+        return Column(_hll_estimate(states[0].data), T.BIGINT, None)
     if name in ("count", "count_star"):
         return Column(states[0].data, T.BIGINT, None)
+    if name == "checksum":
+        # NULL only over zero input rows
+        return Column(states[0].data, T.BIGINT, states[1].data > 0)
+    if name in BIVARIATE:
+        s1, s2 = states[0].data, states[1].data
+        s11, s22 = states[2].data, states[3].data
+        s12, cnt = states[4].data, states[5].data
+        n = cnt.to(torch.float64)
+        nn = n.clamp(min=1.0)
+        # raw-sum forms (reference: CovarianceState.getCovariance etc)
+        co_m = s12 - s1 * s2 / nn  # n * covar_pop
+        v1_m = (s11 - s1 * s1 / nn).clamp(min=0.0)
+        v2_m = (s22 - s2 * s2 / nn).clamp(min=0.0)
+        if name == "covar_pop":
+            return Column(co_m / nn, T.DOUBLE, cnt > 0)
+        if name == "covar_samp":
+            return Column(co_m / (n - 1.0).clamp(min=1.0), T.DOUBLE, cnt > 1)
+        if name == "corr":
+            denom = torch.sqrt(v1_m * v2_m)
+            ok = torch.logical_and(cnt > 1, denom > 0)
+            return Column(co_m / torch.where(ok, denom, 1.0), T.DOUBLE, ok)
+        # regr_slope, and regr_intercept = (sum_y - slope * sum_x) / n
+        ok = torch.logical_and(cnt > 1, v2_m > 0)
+        slope = co_m / torch.where(ok, v2_m, 1.0)
+        if name == "regr_slope":
+            return Column(slope, T.DOUBLE, ok)
+        return Column((s1 - slope * s2) / nn, T.DOUBLE, ok)
     if name in MOMENT:
         s, sq, cnt = states[0].data, states[1].data, states[2].data
         n = cnt.to(torch.float64)
@@ -325,7 +726,7 @@ def _finalize(spec: AggSpec, states: list[Column]) -> Column:
         else:
             data = value.data.to(torch.float64) / torch.where(nonempty, cnt.data, 1)
         return Column(data.to(out_dt), spec.out_type, nonempty)
-    # sum/min/max/any_value
+    # sum/min/max/any_value/bool_and/bool_or
     data = value.data
     if data.ndim == 2 and isinstance(spec.out_type, T.DecimalType):
         if not spec.out_type.is_long:
@@ -415,6 +816,11 @@ class AggregationOperator:
     ):
         if mode not in ("single", "partial", "final", "merge"):
             raise ValueError(f"aggregation mode: {mode}")
+        if group_channels and any(s.name == "approx_distinct" for s in aggregates):
+            # a grouped sketch would need [groups, HLL_M] register states;
+            # the planner rewrites grouped approx_distinct to an exact
+            # DISTINCT count instead, so SQL never reaches this
+            raise NotImplementedError("grouped approx_distinct")
         self.group_channels = list(group_channels)
         self.aggregates = list(aggregates)
         self.input_types = list(input_types)
@@ -471,7 +877,35 @@ class AggregationOperator:
             return None
         return sizes, prod
 
+    def _slot_keys(self, batch: Batch, sizes, offsets, n: int) -> list:
+        """The group key columns of slots 0..n-1 of a mixed-radix slot code
+        (each key's code = value - offset, its NULL in the last slot of a
+        nullable key), decoded from the slot index."""
+        idx = torch.arange(n, dtype=torch.int64, device=batch.device)
+        cols: list[Column] = []
+        div = 1
+        divs = []
+        for size in reversed(sizes):
+            divs.append(div)
+            div *= size
+        for ch, size, offset, div in zip(self.group_channels, sizes, offsets, reversed(divs)):
+            c = batch.columns[ch]
+            code = (idx // div) % size
+            valid = None if c.valid is None else code < (size - 1)
+            cols.append(Column((code + offset).to(c.data.dtype), c.type, valid, c.dictionary))
+        return cols
+
+    def _append_states(self, cols: list, batch: Batch, perm, live, gid, nseg, out_cap) -> None:
+        """Each aggregate's state columns (PARTIAL/MERGE) or result column."""
+        for spec in self.aggregates:
+            state_cols = self._reduce_one(batch, spec, perm, live, gid, nseg, out_cap)
+            if self.mode in ("partial", "merge"):
+                cols.extend(state_cols)
+            else:
+                cols.append(_finalize(spec, state_cols))
+
     def _direct_reduce(self, batch: Batch, sizes, prod: int) -> Batch:
+        _note_group_path("direct")
         dev = batch.device
         cap = batch.capacity
         live = batch.mask()
@@ -486,20 +920,7 @@ class AggregationOperator:
         nseg = prod + 1
         occupancy = segment_sum(live.to(torch.int64), gid, nseg)[:prod]
         out_live = occupancy > 0
-        # decode positional slot -> group key codes
-        idx = torch.arange(prod, dtype=torch.int64, device=dev)
-        divs = []
-        d = 1
-        for size in reversed(sizes):
-            divs.append(d)
-            d *= size
-        divs.reverse()
-        cols: list[Column] = []
-        for ch, size, div in zip(self.group_channels, sizes, divs):
-            c = batch.columns[ch]
-            code = (idx // div) % size
-            valid = None if c.valid is None else code < (size - 1)
-            cols.append(Column(code.to(c.data.dtype), c.type, valid, c.dictionary))
+        cols = self._slot_keys(batch, sizes, [0] * len(sizes), prod)
         if self.use_pallas and self.mode in ("single", "partial"):
             kernel_cols = self._pallas_direct_sums(batch, live, gid, prod)
             if kernel_cols is not None:
@@ -513,12 +934,7 @@ class AggregationOperator:
                     cols.append(_finalize(spec, state_cols))
             return Batch(cols, out_live)
         perm = torch.arange(cap, dtype=torch.int64, device=dev)
-        for spec in self.aggregates:
-            state_cols = self._reduce_one(batch, spec, perm, live, gid, nseg, prod)
-            if self.mode in ("partial", "merge"):
-                cols.extend(state_cols)
-            else:
-                cols.append(_finalize(spec, state_cols))
+        self._append_states(cols, batch, perm, live, gid, nseg, prod)
         return Batch(cols, out_live)
 
     #: one-hot matmul path bounds: groups (one-hot width) and rows (chunk
@@ -708,9 +1124,101 @@ class AggregationOperator:
                 )
         return out
 
+    # -- the range-positional (sort-free) path ---------------------------------
+
+    #: group-domain cap for the range-positional path (the mixed-radix
+    #: offset code over each key's live (min, max)); beyond it, the sort
+    POSITIONAL_LIMIT = 1 << 24
+
+    def _positional_static_eligible(self, batch: Batch) -> bool:
+        """Type-level eligibility for the range-positional path: every
+        group key is an int-family scalar (ints, dates, short decimals,
+        dictionary codes, booleans) — the generalized BigintGroupByHash
+        dense path (reference: operator/BigintGroupByHash.java), with the
+        dense domain read from the data's (min, max) instead of assumed.
+        Holistic aggregates (`streaming` False) need the sorted numbering."""
+        if not self.group_channels or not self.streaming:
+            return False
+        for ch in self.group_channels:
+            col = batch.columns[ch]
+            if col.lengths is not None or col.data.ndim > 1:
+                return False  # array keys and long-decimal limb planes sort
+            if col.data.dtype.is_floating_point:
+                return False
+        return True
+
+    def _key_stats(self, batch: Batch):
+        """Per-key (min, max) over the live, non-NULL key values: one host
+        read for all keys."""
+        live = batch.mask()
+        big = torch.iinfo(torch.int64).max
+        stats = []
+        for ch in self.group_channels:
+            col = batch.columns[ch]
+            d = col.data.to(torch.int64)
+            v = live if col.valid is None else torch.logical_and(live, col.valid)
+            stats.append(torch.where(v, d, big).min())
+            stats.append(torch.where(v, d, -big).max())
+        host = torch.stack(stats).tolist()
+        return host[0::2], host[1::2]
+
+    def _positional_try(self, batch: Batch) -> Optional[Batch]:
+        """Sort-free grouped reduction when the key domain is dense enough:
+        gid = the mixed-radix offset code from each key's (min, size), the
+        group keys decoded back from the slot index.  None when the domain
+        is too large: over POSITIONAL_LIMIT, or much larger than the input
+        (O(domain) segment slots)."""
+        if not self._positional_static_eligible(batch):
+            return None
+        mins, maxs = self._key_stats(batch)
+        prod = 1
+        sizes = []
+        for ch, lo, hi in zip(self.group_channels, mins, maxs):
+            # an empty or all-NULL key keeps only its NULL slot
+            size = max(hi - lo + 1, 0) + (batch.columns[ch].valid is not None)
+            if size <= 0:
+                return None
+            sizes.append(size)
+            prod *= size
+            if prod > self.POSITIONAL_LIMIT:
+                return None
+        if prod > max(1 << 16, 8 * batch.capacity):
+            return None
+        nseg = next_pow2(prod, floor=16)
+        out = self._range_step(batch, mins, sizes, nseg)
+        # the output is sparse (occupancy-masked): compact it when the live
+        # groups fill under half the domain, so downstream steps stay small
+        cc = next_pow2(max(out.num_rows_host(), 1), floor=16)
+        if cc * 2 <= nseg:
+            out = out.compact_device(out_capacity=cc)
+        return out
+
+    def _range_step(self, batch: Batch, mins, sizes, out_cap: int) -> Batch:
+        _note_group_path("positional")
+        cap = batch.capacity
+        live = batch.mask()
+        gid = torch.zeros(cap, dtype=torch.int64, device=batch.device)
+        for ch, lo, size in zip(self.group_channels, mins, sizes):
+            col = batch.columns[ch]
+            size_v = size - (col.valid is not None)  # the non-NULL slots
+            code = (col.data.to(torch.int64) - lo).clamp(0, max(size_v - 1, 0))
+            if col.valid is not None:
+                code = torch.where(col.valid, code, size_v)
+            gid = gid * size + code
+        gid = torch.where(live, gid, out_cap)
+        nseg = out_cap + 1
+        occupancy = segment_sum(live.to(torch.int64), gid, nseg)[:out_cap]
+        cols = self._slot_keys(batch, sizes, mins, out_cap)
+        perm = torch.arange(cap, dtype=torch.int64, device=batch.device)
+        self._append_states(cols, batch, perm, live, gid, nseg, out_cap)
+        return Batch(cols, occupancy > 0)
+
     def _reduce_full(self, big: Batch) -> Batch:
         """One-shot reduction of a batch: compact away dead slack first,
-        then reduce."""
+        then the positional path if the key domain allows it (the direct
+        path first: its dictionary keys need no host read), else the sorted
+        step.  push() applies a fused projection before any reduction, so
+        `big` is always the projected batch here."""
         n = big.num_rows_host()
         cap = next_pow2(max(n, 1), floor=1)
         if cap < big.capacity:
@@ -718,6 +1226,10 @@ class AggregationOperator:
         else:
             cap = next_pow2(big.capacity, floor=1)
             big = _pad_device(big, cap)
+        if self._direct_group_info(big) is None:
+            out = self._positional_try(big)
+            if out is not None:
+                return out
         return self._reduce_step(big, out_cap=cap)
 
     def _reduce_step(self, batch: Batch, out_cap: int) -> Batch:
@@ -728,6 +1240,7 @@ class AggregationOperator:
         direct = self._direct_group_info(batch) if self.streaming else None
         if direct is not None:
             return self._direct_reduce(batch, *direct)
+        _note_group_path("sorted")
         perm = multi_key_sort_perm(batch, [SortKey(ch) for ch in gch])
         gid, ngroups, new_group = group_ids_from_sorted(batch, perm, gch)
         live = batch.mask()[perm]
@@ -913,10 +1426,16 @@ class AggregationOperator:
                 elif d.ndim == 2 and isinstance(col.type, T.DecimalType) and kind in ("min", "max", "any"):
                     red2 = _reduce128(d, gid, nseg, kind, v)[:out_cap]
                     state_cols.append(Column(red2, col.type, None))
+                elif spec.name in BIVARIATE and d.dtype == torch.float64:
+                    red = _order_free_sum(d, gid, nseg, v)[:out_cap]
+                    state_cols.append(Column(red, col.type, None))
                 else:
                     red = segment_reduce(d, gid, nseg, kind, valid=v)[:out_cap]
                     state_cols.append(Column(red, col.type, None, col.dictionary))
             return state_cols
+        if spec.name in BIVARIATE:
+            return [c.map_rows(lambda t: t[:out_cap])
+                    for c in _bivariate_states(batch, spec, perm, live, gid, nseg)]
         out = []
         sts = _state_types(spec, self.input_types)
         for (kind, arg), st in zip(_primitives(spec), sts):
@@ -926,6 +1445,12 @@ class AggregationOperator:
                 out.append(Column(red, T.BIGINT, None))
                 continue
             col = batch.columns[arg]
+            if kind == "checksum":
+                # the int64 sum wraps, so every fold order gives one value
+                h = _checksum_words(col, spec.name)[perm]
+                red = segment_reduce(h, gid, nseg, "sum", valid=live)[:out_cap]
+                out.append(Column(red, T.BIGINT, None))
+                continue
             if kind != "count":
                 _scalar_arg(col, spec.name)
             d = col.data[perm]
@@ -972,13 +1497,22 @@ class AggregationOperator:
                     col = batch.columns[ch]
                     v = live if col.valid is None else torch.logical_and(live, col.valid)
                     ch += 1
+                    if kind == "hll":
+                        # elementwise max of the register rows
+                        regs = torch.where(v[:, None], col.data, torch.iinfo(torch.int32).min)
+                        states.append(_hll_state(regs.amax(dim=0)))
+                        continue
                     if kind == "sum" and isinstance(col.type, T.DecimalType) and col.type.is_long:
                         red = _sum128(col.data, gid0, 1, v, sum_bound=spec.sum_bound)
                     elif col.data.ndim == 2 and isinstance(col.type, T.DecimalType) and kind in ("min", "max", "any"):
                         red = _reduce128(col.data, gid0, 1, kind, v)
+                    elif spec.name in BIVARIATE and col.data.dtype == torch.float64:
+                        red = _order_free_sum(col.data, gid0, 1, v)
                     else:
                         red = _masked_reduce(col.data, v, kind)
                     states.append(Column(red, col.type, None, col.dictionary))
+            elif spec.name in BIVARIATE:
+                states = _bivariate_states(batch, spec, None, live, gid0, 1)
             else:
                 sts = _state_types(spec, self.input_types)
                 for (kind, arg), st in zip(_primitives(spec), sts):
@@ -986,6 +1520,14 @@ class AggregationOperator:
                         states.append(Column(live.sum(dtype=torch.int64)[None], T.BIGINT))
                         continue
                     col = batch.columns[arg]
+                    if kind == "checksum":
+                        red = _masked_reduce(_checksum_words(col, spec.name), live, "sum")
+                        states.append(Column(red, T.BIGINT, None))
+                        continue
+                    if kind == "hll":
+                        v = live if col.valid is None else torch.logical_and(live, col.valid)
+                        states.append(_hll_state(_hll_registers(col, v)))
+                        continue
                     if kind != "count":
                         _scalar_arg(col, spec.name)
                     v = live if col.valid is None else torch.logical_and(live, col.valid)

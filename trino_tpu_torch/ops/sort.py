@@ -7,8 +7,8 @@ ORDER BY sorts its whole input on the device; over its memory budget it
 becomes an external sort: the accumulated batches are compacted and moved
 off the card as a run (to the filesystem through the spill tier, or host
 RAM), and the runs merge at the end in one host lexsort
-(ops/merge.py).  Array columns in spilled runs are not ported yet (the port
-has no array columns).
+(ops/merge.py).  Array and map columns ride in the spilled runs as payload,
+their lengths with them.
 """
 
 from __future__ import annotations

@@ -134,6 +134,29 @@ catches nothing and never falls back to the CPU):
      same query, computed by the reference process (after its phase 5g
      part), the mesh A1 equal to the local A1, and A1's estimates within
      4% of the exact distinct counts;
+  5i. the holistic aggregates, TABLESAMPLE and MATCH_RECOGNIZE at TPC-H sf1
+     (HOLISTIC_QUERIES, nothing reduced): H1 global over lineitem (three
+     approx_percentile qdigest sketches, min_by, max_by and max_by's n
+     form); H2 the median and min_by/max_by per customer (~100,000
+     groups; locally only the sorted group path, on the mesh the
+     single-stage repartition and no partial states); H3 the mesh join of
+     orders and lineitem under approx_percentile, max_by, min_by and
+     count (the mesh run must launch the sorted-probe kernel; each
+     launch's P, n_match and S logged from an untimed capture run, the
+     largest kept for phase 6); S1 a 10% Bernoulli sample of lineitem
+     (local only: its mesh run must raise NotImplementedError naming
+     SampleNode, as the JAX mesh does; its total within 1% of 600,122);
+     M1 Trino's V-shape example over orders (partitions by customer, the
+     DEFINE masks on the card, the pattern walk on the host, whose seconds
+     are logged apart from the device part).  Each through LocalQueryRunner
+     and the 4-worker mesh on the card, cold and warm, with wall time, peak
+     device memory, the kernels' launches and the group path of each
+     grouped reduction; one profiled warm run each of the local H2 and the
+     mesh H3; every result held to the port's CPU run of the same query
+     (computed by the reference process after its phase 5h part), the
+     values min_by/max_by pick among tied keys to the tied rows (witness
+     queries the reference process runs), the mesh H1 equal to the local
+     H1, H1's estimates within 1/32 relative of the exact percentiles;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows)
      and time it there;
@@ -149,7 +172,8 @@ catches nothing and never falls back to the CPU):
      at the inputs of the largest and of the smallest-n_match semi-join
      launch of phase 5b, and timed at the largest; bit-exact and timed at
      the inputs of the largest launch of phases 5c, 5d and 5g; bit-exact
-     at the largest launch of phase 5e;
+     at the largest launch of phase 5e; bit-exact and timed at the largest
+     launch of the mesh H3 (phase 5i);
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -162,7 +186,9 @@ exact, |kernel - plain| <= 5e-5 * (sum of |values| in the cell), the f32
 summation bound of the kernel (~530 sequential additions * 2**-24).  Q1 over
 DOUBLE with the f32 kernel against the CPU's f64 path: relative 5e-5 on
 doubles (all summed values are non-negative), counts exact; every other
-double relative 1e-9.  The sorted-probe kernel: bit-exact.
+double relative 1e-9.  A min_by/max_by value where keys tie: the value
+of any of the tied rows (which one depends on the rows' arrival order).
+The sorted-probe kernel: bit-exact.
 """
 
 import json
@@ -303,6 +329,95 @@ AGGREGATE_QUERIES = {
 AGGREGATE_EXACT = "select count(distinct l_orderkey), count(distinct l_partkey) from lineitem"
 #: the phase 5h query whose mesh run must launch the sorted-probe kernel
 AGGREGATE_K2_QUERY = "A3"
+
+#: phase 5i: the holistic aggregates, TABLESAMPLE and MATCH_RECOGNIZE at TPC-H
+#: sf1 (nothing reduced).  H1 global streaming sketches and min_by/max_by
+#: over all of lineitem; H2 per customer (~100,000 groups); H3 the mesh join
+#: (K2) under holistic aggregates; S1 a 10% Bernoulli sample (local only:
+#: the mesh raises, as the JAX mesh does); M1 Trino's V-shape example from
+#: the row-pattern-recognition documentation, over orders.
+HOLISTIC_QUERIES = {
+    "H1": (
+        "select approx_percentile(l_extendedprice, 0.5), approx_percentile(l_discount, 0.9), "
+        "approx_percentile(cast(l_quantity as double), 0.99), "
+        "min_by(l_orderkey, l_extendedprice), max_by(l_comment, l_shipdate), "
+        "max_by(l_orderkey, l_extendedprice, 3) from lineitem"
+    ),
+    "H2": (
+        "select o_custkey, approx_percentile(o_totalprice, 0.5) m, "
+        "min_by(o_orderdate, o_totalprice), max_by(o_orderkey, o_orderdate, 2) "
+        "from orders group by o_custkey order by m desc, o_custkey limit 20"
+    ),
+    "H3": (
+        "select o_orderpriority, approx_percentile(l_extendedprice, 0.25), "
+        "max_by(l_orderkey, l_extendedprice), min_by(l_shipmode, l_receiptdate), count(*) "
+        "from orders join lineitem on o_orderkey = l_orderkey "
+        "group by o_orderpriority order by o_orderpriority"
+    ),
+    "S1": (
+        "select l_returnflag, l_linestatus, count(*), sum(l_quantity) "
+        "from lineitem tablesample bernoulli (10) group by 1, 2 order by 1, 2"
+    ),
+    "M1": (
+        "select * from orders match_recognize (partition by o_custkey "
+        "order by o_orderdate, o_orderkey measures first(o_totalprice) as strt, "
+        "min(down.o_totalprice) as bottom, last(up.o_totalprice) as top, "
+        "match_number() as mno one row per match after match skip past last row "
+        "pattern (strt down+ up+) define down as o_totalprice < prev(o_totalprice), "
+        "up as o_totalprice > prev(o_totalprice))"
+    ),
+}
+#: the phase 5i queries the mesh does not run (it must raise, naming the node)
+HOLISTIC_LOCAL_ONLY = {"S1": "SampleNode"}
+#: the phase 5i query whose mesh run must launch the sorted-probe kernel
+HOLISTIC_K2_QUERY = "H3"
+#: the exact nearest-rank percentiles H1's estimates are held to (within
+#: 1/32 relative): the grouped percentile, which is exact, over one group
+HOLISTIC_EXACT = (
+    "select g, approx_percentile(l_extendedprice, 0.5), approx_percentile(l_discount, 0.9), "
+    "approx_percentile(cast(l_quantity as double), 0.99) "
+    "from (select 1 g, l_extendedprice, l_discount, l_quantity from lineitem) group by g"
+)
+#: min_by/max_by pick the first row that holds a group's extreme key, and
+#: the rows' arrival order (parallel split readers, the mesh's exchanges)
+#: decides which one that is when keys tie: any of the tied rows' values is
+#: right (SQL leaves the choice open).  Per query: the result columns that
+#: hold the group keys, then per column (result column, min | max, n of the
+#: n form or None, the SQL of witness rows (group keys..., key, value) that
+#: hold every row at or beyond each group's n-th extreme key; "{groups}" is
+#: the result's group keys).  A column passes when its value is one the
+#: witness rows admit.
+HOLISTIC_TIES = {
+    "H1": ((), (
+        (3, "min", None, "select l_extendedprice, l_orderkey from lineitem "
+         "where l_extendedprice = (select min(l_extendedprice) from lineitem)"),
+        (4, "max", None, "select l_shipdate, l_comment from lineitem "
+         "where l_shipdate = (select max(l_shipdate) from lineitem)"),
+        (5, "max", 3, "select l_extendedprice, l_orderkey from lineitem "
+         "where l_extendedprice >= (select min(p) from (select l_extendedprice p "
+         "from lineitem order by p desc limit 3) t)"),
+    )),
+    "H2": ((0,), (
+        (2, "min", None, "select o_custkey, o_totalprice, o_orderdate from orders "
+         "where o_custkey in ({groups})"),
+        (3, "max", 2, "select o_custkey, o_orderdate, o_orderkey from orders "
+         "where o_custkey in ({groups})"),
+    )),
+    "H3": ((0,), (
+        (2, "max", None, "select o_orderpriority, l_extendedprice, l_orderkey "
+         "from orders join lineitem on o_orderkey = l_orderkey "
+         "where l_extendedprice >= (select min(m) from (select o_orderpriority, "
+         "max(l_extendedprice) m from orders join lineitem on o_orderkey = l_orderkey "
+         "group by o_orderpriority) t)"),
+        (3, "min", None, "select o_orderpriority, l_receiptdate, l_shipmode "
+         "from orders join lineitem on o_orderkey = l_orderkey "
+         "where l_receiptdate <= (select max(m) from (select o_orderpriority, "
+         "min(l_receiptdate) m from orders join lineitem on o_orderkey = l_orderkey "
+         "group by o_orderpriority) t)"),
+    )),
+}
+#: S1 keeps ~10% of lineitem's 6,001,215 rows: its count within 1% of this
+HOLISTIC_SAMPLE_ROWS = 600_122
 
 Q1_DOUBLE = """select l_returnflag, l_linestatus,
        sum(cast(l_quantity as double)), sum(cast(l_extendedprice as double)),
@@ -1076,8 +1191,9 @@ def tpcds_cpu_reference(out_path: str) -> int:
     ".window", then phase 5f's queries under the budgets the card process
     writes to `out_path` + ".budgets", pickled to `out_path` + ".memory",
     then phase 5g's, pickled to `out_path` + ".arrays", then phase 5h's,
-    pickled to `out_path` + ".aggregates".  It runs beside the card phases,
-    on its own cores."""
+    pickled to `out_path` + ".aggregates", then phase 5i's, pickled to
+    `out_path` + ".holistic".  It runs beside the card phases, on its own
+    cores."""
     import pickle
 
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
@@ -1105,6 +1221,7 @@ def tpcds_cpu_reference(out_path: str) -> int:
     memory_cpu_reference(out_path)
     arrays_cpu_reference(out_path)
     aggregates_cpu_reference(out_path)
+    holistic_cpu_reference(out_path)
     return 0
 
 
@@ -1124,13 +1241,14 @@ def start_tpcds_reference(here: str):
 #: it writes them in this order, so the last phase's wait is its end
 REFERENCE_SUFFIX = {
     "5d": "", "5e": ".window", "5f": ".memory", "5g": ".arrays", "5h": ".aggregates",
+    "5i": ".holistic",
 }
-LAST_REFERENCE_PHASE = "5h"
+LAST_REFERENCE_PHASE = "5i"
 
 
 def wait_tpcds_reference(proc, path: str, phase: str) -> dict:
-    """The reference's results of phase 5d, 5e, 5f, 5g or 5h, as soon as
-    they are written (after 5h's, the process has ended)."""
+    """The reference's results of phase 5d, 5e, 5f, 5g, 5h or 5i, as soon
+    as they are written (after 5i's, the process has ended)."""
     import pickle
     import shutil
 
@@ -2165,6 +2283,226 @@ def run_aggregate_path(reference) -> dict:
     return {"k1_launches": k1_launches, "k2_launches": k2_launches}
 
 
+# -- phase 5i: the holistic aggregates, TABLESAMPLE and MATCH_RECOGNIZE ----------
+
+
+def holistic_witness_sql(name: str, sql: str, rows: list) -> str:
+    """A HOLISTIC_TIES witness query with "{groups}" filled from `rows`
+    (the result's group keys; H2's customer keys)."""
+    group_cols = HOLISTIC_TIES[name][0]
+    groups = sorted({r[c] for r in rows for c in group_cols})
+    return sql.format(groups=", ".join(str(g) for g in groups))
+
+
+def holistic_cpu_reference(out_path: str) -> None:
+    """The reference process's phase 5i part: the port's CPU run of every
+    HOLISTIC_QUERIES query, of HOLISTIC_EXACT and of every HOLISTIC_TIES
+    witness query at tpch.sf1, pickled to `out_path` + ".holistic" as
+    {name: (column names, type names, rows, seconds, the ORDER BY and
+    LIMIT)}, the exact percentiles under "exact" and the witness rows
+    under ("ties", query, column)."""
+    import pickle
+
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import result_order
+
+    t_part = time.perf_counter()
+    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    out = {}
+    for name, sql in list(HOLISTIC_QUERIES.items()) + [("exact", HOLISTIC_EXACT)]:
+        order = result_order(cpu.create_plan(sql))
+        t0 = time.perf_counter()
+        res = cpu.execute(sql)
+        out[name] = (res.column_names, [t.name for t in res.types], res.rows,
+                     time.perf_counter() - t0, order)
+    for name, (_, columns) in HOLISTIC_TIES.items():
+        for col, _, _, sql in columns:
+            out["ties", name, col] = cpu.execute(
+                holistic_witness_sql(name, sql, out[name][2])
+            ).rows
+    log(f"holistic cpu reference (5i): {time.perf_counter() - t_part:.1f} s of CPU work")
+    with open(out_path + ".holistic.part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".holistic.part", out_path + ".holistic")
+
+
+def tie_admissible(value, kind: str, n, pairs: list) -> bool:
+    """Whether `value` is a right min_by/max_by result for one group whose
+    witness rows are `pairs` [(key, value)]: the value of a row at the
+    extreme key, or (the n form) an array whose j-th element is the value
+    of a row at the j-th extreme key.  NULL keys are skipped, and in the n
+    form NULL values too."""
+    pairs = [(k, v) for k, v in pairs if k is not None and (n is None or v is not None)]
+    keys = sorted((k for k, _ in pairs), reverse=kind == "max")
+    if n is None:
+        return value is None if not keys else value in {v for k, v in pairs if k == keys[0]}
+    m = min(n, len(keys))
+    return isinstance(value, list) and len(value) == m and all(
+        value[j] in {v for k, v in pairs if k == keys[j]} for j in range(m)
+    )
+
+
+def mask_ties(name: str, rows: list, witness: dict) -> list:
+    """`rows` with every HOLISTIC_TIES column checked against its witness
+    rows and replaced by a marker (raises on a value no tied row holds)."""
+    if name not in HOLISTIC_TIES:
+        return rows
+    group_cols, columns = HOLISTIC_TIES[name]
+    out = [list(r) for r in rows]
+    for col, kind, n, _ in columns:
+        by_group: dict = {}
+        for w in witness["ties", name, col]:
+            by_group.setdefault(tuple(w[: len(group_cols)]), []).append(tuple(w[len(group_cols):]))
+        for r in out:
+            g = tuple(r[c] for c in group_cols)
+            if not tie_admissible(r[col], kind, n, by_group.get(g, [])):
+                raise AssertionError(
+                    f"{name} column {col} group {g}: {r[col]!r} is no {kind}_by value "
+                    f"of the tied rows {by_group.get(g, [])[:8]}"
+                )
+            r[col] = "<tie-checked>"
+    return [tuple(r) for r in out]
+
+
+def run_holistic_path(reference, capture: dict) -> dict:
+    """Phase 5i: HOLISTIC_QUERIES through the local runner and the 4-worker
+    mesh on the card (S1 local only: its mesh run must raise
+    NotImplementedError naming SampleNode, as the JAX mesh does), cold and
+    warm, with wall time, peak device memory, the kernels' launches, the
+    group path of each grouped reduction (`ops.aggregation.GROUP_PATHS`),
+    the mesh's aggregation events and, for M1, the device and host seconds
+    of the pattern operator (`ops.pattern.PATTERN_LOG`: the sort and the
+    DEFINE masks apart from the host walk and the measures).  The local H2
+    must take only the sorted group path and the mesh H2 the single-stage
+    repartition with no partial states; the mesh H3 must launch the
+    sorted-probe kernel.  After the path's counts are read: one profiled
+    warm run each of the local H2 and the mesh H3, and one untimed capture
+    run of the mesh H3 that logs each sorted-probe launch's (P, cap_b,
+    n_match, S) and keeps the largest launch's inputs in `capture` (held
+    in phase 6).  Every result is held to the reference process's CPU run
+    (min_by/max_by values to the tied rows, `mask_ties`); the mesh H1
+    equals the local H1; H1's estimates lie within 1/32 relative of the
+    exact percentiles; S1's total is within 1% of 600,122."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch.ops import aggregation as agg
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.ops import pattern
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import assert_rows_match
+
+    local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    results = {}
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    for name, sql in HOLISTIC_QUERIES.items():
+        for where in ("local", "mesh"):
+            r = mesh if where == "mesh" else local
+            if where == "mesh" and name in HOLISTIC_LOCAL_ONLY:
+                node = HOLISTIC_LOCAL_ONLY[name]
+                try:
+                    r.execute(sql)
+                except NotImplementedError as e:
+                    if node not in str(e):
+                        raise
+                    log(f"holistic {name}_mesh raises NotImplementedError as the JAX mesh does: {e}")
+                else:
+                    raise AssertionError(f"{name} mesh: ran, but the mesh has no {node}")
+                continue
+            walls = []
+            for attempt in ("cold", "warm"):
+                agg.GROUP_PATHS.clear()
+                pattern.PATTERN_LOG.clear()
+                k1, k2 = gs.grouped_sums.launches, ls.locate_sorted.launches
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = r.execute(sql)  # rows come back to the host
+                wall = time.perf_counter() - t0
+                walls.append(wall)
+                k1 = gs.grouped_sums.launches - k1
+                k2 = ls.locate_sorted.launches - k2
+                paths = dict(agg.GROUP_PATHS)
+                events = {} if where == "local" else dict(r.last_stage_executor.counters)
+                if name == HOLISTIC_K2_QUERY and where == "mesh" and k2 == 0:
+                    raise AssertionError(f"{name} mesh {attempt}: no locate_sorted launch")
+                if name == "H2" and where == "local" and set(paths) != {"sorted"}:
+                    raise AssertionError(f"H2 local {attempt}: group paths {paths}")
+                if name == "H2" and where == "mesh" and (
+                    not events.get("agg_single_stage") or events.get("agg_partial_states")
+                ):
+                    raise AssertionError(f"H2 mesh {attempt}: aggregation events {events}")
+                walk = ""
+                if pattern.PATTERN_LOG:
+                    rows_in, parts, matches, dev_s, walk_s, out_s = pattern.PATTERN_LOG[-1]
+                    walk = (f" pattern_rows={rows_in} partitions={parts} matches={matches} "
+                            f"pattern_device_s={dev_s!r} pattern_walk_host_s={walk_s!r} "
+                            f"pattern_output_host_s={out_s!r}")
+                log(
+                    f"holistic {name}_{where} {attempt}: wall_s={wall!r} "
+                    f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                    f"group_paths={paths} "
+                    f"grouped_sums_launches={k1} locate_sorted_launches={k2} "
+                    f"rows={len(res.rows)}{walk}"
+                    + ("" if where == "local" else f" mesh_events={events}")
+                )
+            results[name, where] = (res, walls[0], walls[1])
+    profile_warm("H2_local", local, HOLISTIC_QUERIES["H2"])
+    profile_warm("H3_mesh", mesh, HOLISTIC_QUERIES["H3"])
+    k1_launches = gs.grouped_sums.launches  # read just after the path
+    k2_launches = ls.locate_sorted.launches
+    log(f"holistic path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+
+    # untimed, after the counts were read: the mesh H3's sorted-probe launch
+    # shapes, and the largest launch's inputs for phase 6
+    capture["query"] = HOLISTIC_K2_QUERY
+    probe_kernel, probe_rec = shape_recording_probe(capture)
+    mesh_runner.locate_sorted = probe_rec
+    try:
+        mesh.execute(HOLISTIC_QUERIES[HOLISTIC_K2_QUERY])
+    finally:
+        mesh_runner.locate_sorted = probe_kernel
+    log(f"{HOLISTIC_K2_QUERY}_mesh sorted-probe launches (P, cap_b, n_match, S): "
+        f"{capture.get('shapes', {}).get(HOLISTIC_K2_QUERY, [])}")
+
+    cpu = reference("5i")
+    for name in HOLISTIC_QUERIES:
+        names, types, rows, cpu_s, order = cpu[name]
+        if not rows:
+            raise AssertionError(f"{name}: the CPU reference returned no rows")
+        expected = mask_ties(name, rows, cpu)
+        for where in ("local", "mesh"):
+            if (name, where) not in results:
+                continue
+            res, cold, warm = results[name, where]
+            if res.column_names != names or [t.name for t in res.types] != types:
+                raise AssertionError(f"{name} {where}: columns differ from the CPU run")
+            assert_rows_match(mask_ties(name, res.rows, cpu), expected, order,
+                              float_rtol=DOUBLE_RTOL)
+            log(f"holistic {name}_{where}: cold_s={cold!r} warm_s={warm!r} "
+                f"matches the CPU run ({len(rows)} rows, cpu wall_s={cpu_s!r})")
+        log(f"holistic {name}: first row {rows[0]}")
+    h1_local = mask_ties("H1", results["H1", "local"][0].rows, cpu)
+    h1_mesh = mask_ties("H1", results["H1", "mesh"][0].rows, cpu)
+    if h1_mesh != h1_local:
+        raise AssertionError(f"H1: mesh {h1_mesh} / local {h1_local}")
+    exact = cpu["exact"][2][0][1:]
+    for i, (est, want) in enumerate(zip(results["H1", "local"][0].rows[0][:3], exact)):
+        rel = abs(float(est) - float(want)) / abs(float(want))
+        if rel > 1 / 32:
+            raise AssertionError(f"H1 approx_percentile #{i}: {est} vs exact {want}")
+        log(f"holistic H1 approx_percentile #{i}: {est} vs exact {want} "
+            f"(relative error {rel!r})")
+    sampled = sum(r[2] for r in results["S1", "local"][0].rows)
+    if abs(sampled - HOLISTIC_SAMPLE_ROWS) > 0.01 * HOLISTIC_SAMPLE_ROWS:
+        raise AssertionError(f"S1 sampled {sampled} rows, not ~{HOLISTIC_SAMPLE_ROWS}")
+    log(f"holistic S1: {sampled} rows sampled of 6,001,215 "
+        f"({(sampled - HOLISTIC_SAMPLE_ROWS) / HOLISTIC_SAMPLE_ROWS!r} off 10%)")
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -2239,7 +2577,7 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 
 
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
-                        tdw: dict, arrays: dict) -> dict:
+                        tdw: dict, arrays: dict, holistic: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -2254,6 +2592,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured in phase 5e")
     if "largest" not in arrays:
         raise AssertionError("no sorted-probe launch was captured in phase 5g")
+    if "largest" not in holistic:
+        raise AssertionError("no sorted-probe launch was captured in phase 5i")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -2261,6 +2601,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"tpcds_largest_{tds['largest_query']}",) + tds["largest"]]
     cases += [(f"tpcds_window_largest_{tdw['largest_query']}",) + tdw["largest"]]
     cases += [(f"arrays_largest_{arrays['largest_query']}",) + arrays["largest"]]
+    cases += [(f"holistic_largest_{holistic['largest_query']}",) + holistic["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -2281,6 +2622,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     tds_largest["query"] = tds["largest_query"]
     arrays_largest = time_probe_inputs("arrays_largest", dev, arrays["largest"])
     arrays_largest["query"] = arrays["largest_query"]
+    holistic_largest = time_probe_inputs("holistic_largest", dev, holistic["largest"])
+    holistic_largest["query"] = holistic["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -2293,6 +2636,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "function_path_inputs": func_largest,
         "tpcds_inputs": tds_largest,
         "arrays_inputs": arrays_largest,
+        "holistic_inputs": holistic_largest,
     }
 
 
@@ -2415,18 +2759,23 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     arrays_k1: dict = {}
     arr_path = timed("5g", run_array_path, tpcds_reference, arrays, arrays_k1)
     agg_path = timed("5h", run_aggregate_path, tpcds_reference)
-    k1["launches"] += arr_path["k1_launches"] + agg_path["k1_launches"]
+    holistic: dict = {}
+    hol_path = timed("5i", run_holistic_path, tpcds_reference, holistic)
+    k1["launches"] += (
+        arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
+    )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
-        "aggregates": agg_path["k1_launches"],
+        "aggregates": agg_path["k1_launches"], "holistic": hol_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
-    k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays)
+    k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
+               holistic)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
         + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
-        + arr_path["k2_launches"] + agg_path["k2_launches"]
+        + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -2440,6 +2789,7 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
         "memory": mem_path["launches"],
         "arrays": arr_path["k2_launches"],
         "aggregates": agg_path["k2_launches"],
+        "holistic": hol_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

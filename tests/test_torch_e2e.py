@@ -161,8 +161,8 @@ def test_session_and_use_statements():
     r.execute("set session page_rows = 4096")
     assert r.properties.get("page_rows") == 4096
     assert r.execute("select count(*) from nation").rows == [(25,)]
-    # joins, semi joins, LIKE and window functions run in the port;
-    # TABLESAMPLE is still out of it
+    # joins, semi joins, LIKE, window functions and TABLESAMPLE run in the
+    # port
     joined = r.execute(
         "select n_name, r_name from nation join region "
         "on n_regionkey = r_regionkey"
@@ -177,5 +177,10 @@ def test_session_and_use_statements():
     assert sorted(row[0] for row in liked.rows) == ["ALGERIA", "ARGENTINA"]
     ranked = r.execute("select rank() over (order by n_name) from nation")
     assert sorted(row[0] for row in ranked.rows) == list(range(1, 26))
-    with pytest.raises(NotImplementedError, match="SampleNode"):
-        r.execute("select n_name from nation tablesample bernoulli (50)")
+    sampled = r.execute("select n_name from nation tablesample bernoulli (50)").rows
+    # the port reads the splits under a sample in order: the JAX package's
+    # rows under serial split readers
+    jax = JaxRunner(catalog="tpch", schema="tiny")
+    jax.execute("set session task_concurrency = 1")
+    assert sampled == jax.execute("select n_name from nation tablesample bernoulli (50)").rows
+    assert 0 < len(sampled) < 25

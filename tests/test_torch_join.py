@@ -262,11 +262,12 @@ UNPORTED = {
         "select cast(o_custkey as varchar) from orders", "varchar on columns"
     ),
     "holistic_aggregate": (
-        "select o_orderstatus, approx_percentile(o_totalprice, 0.5) from orders group by 1",
-        "approx_percentile",
+        "with recursive t(n) as (select 1 union all select n + 1 from t where n < 3) "
+        "select * from t",
+        "WITH RECURSIVE",
     ),
-    "sample": ("select o_custkey from orders tablesample bernoulli (10)", "SampleNode"),
-    "array_form": ("select min_by(o_custkey, o_totalprice) from orders", "min_by"),
+    "sample": ("select split_part(o_comment, ' ', 1) from orders", "split_part"),
+    "array_form": ("create table t as select o_custkey from orders", "CreateTableAs"),
 }
 
 
@@ -274,11 +275,13 @@ UNPORTED = {
 def test_unported_pieces_raise(runners, piece):
     """Each piece still unported raises NotImplementedError naming it,
     never wrong rows (LIKE, year, substr, long-decimal division, DISTINCT
-    aggregates, window functions, arrays and array_agg now run: see
+    aggregates, window functions, arrays and array_agg, the holistic
+    aggregates, TABLESAMPLE and MATCH_RECOGNIZE now run: see
     test_torch_functions.py, test_torch_distinct.py, test_torch_window.py,
-    test_torch_arrays.py and test_torch_collect.py; the holistic_aggregate
-    and array_form cases now hold the two holistic aggregates left for a
-    later slice)."""
+    test_torch_arrays.py, test_torch_collect.py, test_torch_holistic.py and
+    test_torch_pattern.py).  The holistic_aggregate, sample and array_form
+    cases keep their names and now hold WITH RECURSIVE, split_part and
+    CREATE TABLE AS, which later slices port."""
     _, port_runner = runners
     sql, name = UNPORTED[piece]
     with pytest.raises(NotImplementedError, match=name):

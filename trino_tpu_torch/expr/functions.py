@@ -1272,6 +1272,37 @@ def _parse_scalar(s: str, to: T.Type):
     raise ValueError(f"cannot parse {s!r} as {to.name}")
 
 
+# ---------------------------------------------------------------------------
+# MATCH_RECOGNIZE navigation (ops/pattern.py rewrites PREV/NEXT into these)
+
+
+def _nav_shift(ctx: ExprCompiler, call: Call, v: Val, n: Val, pid: Val, step: int) -> Val:
+    """`v` at the row `step * n` positions away within the same partition
+    (`pid`, the partition id of each sorted row; dead slots hold -1), NULL
+    past the partition's or the batch's edge."""
+    k = int(n.data) * step
+    cap = ctx.capacity
+    data = torch.broadcast_to(v.data, (cap,) + tuple(v.data.shape[1:]))
+    idx = torch.arange(cap, dtype=torch.int64, device=ctx.device) + k
+    src = idx.clamp(0, cap - 1)
+    inside = torch.logical_and(idx >= 0, idx < cap)
+    same = torch.logical_and(inside, pid.data[src] == pid.data)
+    valid = v.valid
+    if isinstance(valid, torch.Tensor):
+        valid = torch.broadcast_to(valid, (cap,))[src]
+    return Val(data[src], _and_valid(valid, same), call.type, v.dictionary)
+
+
+@register("$nav_prev")
+def _nav_prev(ctx, call, v, n, pid):
+    return _nav_shift(ctx, call, v, n, pid, -1)
+
+
+@register("$nav_next")
+def _nav_next(ctx, call, v, n, pid):
+    return _nav_shift(ctx, call, v, n, pid, 1)
+
+
 # array, JSON and map functions register into FUNCTIONS on import
 from trino_tpu_torch.expr import arrays as _arrays  # noqa: E402,F401
 from trino_tpu_torch.expr import maps as _maps  # noqa: E402,F401

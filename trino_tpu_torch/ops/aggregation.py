@@ -31,9 +31,14 @@ sum of 64-bit value hashes, merged by addition), global approx_distinct
 (a HyperLogLog sketch of HLL_M int32 registers, an array-typed state merged
 by elementwise max), the collect aggregates array_agg (with ORDER BY),
 map_agg and listagg (eager, sort-based group numbering; the padded width K
-is the largest group, one host read), and MarkDistinctOperator (the mark
-column of mixed DISTINCT sets).  The other holistic aggregates
-(percentile, min_by, max_by) are not ported yet.
+is the largest group, one host read), the global approx_percentile (a
+qdigest state of NBUCKETS int64 counts, ops/qdigest.py, an array-typed
+state merged by addition), the exact grouped percentile (a re-sort by
+group keys and value, the nearest-rank row), min_by/max_by and their n
+form (the value at each group's extreme key; an array of the n extreme
+keys' values), and MarkDistinctOperator (the mark column of mixed DISTINCT
+sets).  The holistic aggregates (percentile, min_by, max_by and the
+collect family) run single-stage only, over the sorted group numbering.
 
 Group ids, by path (GROUP_PATHS counts each grouped reduction's):
   direct     dictionary/boolean keys with a small code domain;
@@ -85,8 +90,9 @@ class AggSpec:
     """One SQL aggregate: name in {count, count_star, sum, min, max, avg,
     any_value, bool_and, bool_or, stddev_samp, stddev_pop, var_samp,
     var_pop, covar_samp, covar_pop, corr, regr_slope, regr_intercept,
-    checksum, approx_distinct, array_agg, map_agg, listagg}, arg = input
-    channel (None for count_star)."""
+    checksum, approx_distinct, approx_percentile, percentile, min_by,
+    max_by, array_agg, map_agg, listagg}, arg = input channel (None for
+    count_star)."""
 
     name: str
     arg: Optional[int]
@@ -99,16 +105,14 @@ class AggSpec:
     #: bivariate family, map_agg's values, the ORDER BY key of array_agg and
     #: listagg
     arg2: Optional[int] = None
-    #: literal parameter: array_agg's ORDER BY (ascending, nulls_first);
-    #: listagg's (separator, ascending, nulls_first)
+    #: literal parameter: the percentile fraction; min_by/max_by's n;
+    #: array_agg's ORDER BY (ascending, nulls_first); listagg's
+    #: (separator, ascending, nulls_first)
     param: object = None
 
 
 #: the collect subset of the holistic aggregates (padded-array group state)
 COLLECT_AGGS = ("array_agg", "map_agg", "listagg")
-
-#: SQL names of the internal aggregate names, for NotImplementedError text
-_SQL_NAME = {"percentile": "approx_percentile"}
 
 #: the latest data-dependent widths collect aggregates took, one entry
 #: (aggregate, group slots, K) per host read (read and cleared by callers
@@ -140,18 +144,24 @@ def _note_group_path(path: str) -> None:
     GROUP_PATHS[path] = GROUP_PATHS.get(path, 0) + 1
 
 
-def _unported(name: str) -> NotImplementedError:
-    sql = _SQL_NAME.get(name, name)
-    label = sql if sql == name else f"{sql} ({name})"
-    return NotImplementedError(f"aggregate {label}: not ported yet")
-
-
 def _scalar_arg(col: Column, name: str) -> None:
     """Raise for an array or map argument where the aggregate reads values
     (count reads only validity).  The JAX package has no such path either:
     it fails on the shape, or reduces the padded slots as if they were rows."""
     if col.lengths is not None:
         raise NotImplementedError(f"{name} over an {col.type.name} column")
+
+
+def _minmax_by_args(spec, vcol: Column, kcol: Column, n_form: bool) -> None:
+    """Raise for the min_by/max_by arguments the JAX package reads wrongly
+    (limb planes as two keys, padded slots as rows): an array or map value
+    or key, a long-decimal key, and a long-decimal value of the n form."""
+    _scalar_arg(vcol, spec.name)
+    _scalar_arg(kcol, spec.name)
+    if kcol.data.ndim > 1:
+        raise NotImplementedError(f"{spec.name} over a long-decimal key")
+    if n_form and vcol.data.ndim > 1:
+        raise NotImplementedError(f"{spec.name}(value, key, n) over a long-decimal value")
 
 
 def _group_ranks(varg, gid_c, cap: int, nseg: int):
@@ -408,10 +418,14 @@ def _hll_estimate(registers: torch.Tensor) -> torch.Tensor:
 
 def _primitives(spec: AggSpec):
     """Primitive states per SQL aggregate (kinds: sum/count/min/max/any,
-    sum_f/sumsq (the f64 sums of the moments), checksum, hll and the bi_*
-    sums of the bivariate family)."""
+    sum_f/sumsq (the f64 sums of the moments), checksum, hll, qdigest and
+    the bi_* sums of the bivariate family)."""
     if spec.name == "approx_distinct":
         return [("hll", spec.arg)]
+    if spec.name == "approx_percentile":
+        # the log-bucket quantile sketch (reference: qdigest states), merged
+        # by elementwise count addition
+        return [("qdigest", spec.arg)]
     if spec.name == "count_star":
         return [("count_star", None)]
     if spec.name == "count":
@@ -444,7 +458,7 @@ def _primitives(spec: AggSpec):
             ("bi_sumsq_1", spec.arg), ("bi_sumsq_2", spec.arg2),
             ("bi_sum_12", spec.arg), ("bi_count", spec.arg),
         ]
-    raise _unported(spec.name)
+    raise NotImplementedError(f"aggregate: {spec.name}")
 
 
 def _state_types(spec: AggSpec, input_types) -> list[T.Type]:
@@ -452,6 +466,8 @@ def _state_types(spec: AggSpec, input_types) -> list[T.Type]:
     for kind, arg in _primitives(spec):
         if kind == "hll":
             out.append(T.ArrayType(T.INTEGER))
+        elif kind == "qdigest":
+            out.append(T.ArrayType(T.BIGINT))
         elif kind in ("count", "count_star", "checksum", "bi_count"):
             out.append(T.BIGINT)
         elif kind in ("sum_f", "sumsq") or kind.startswith("bi_sum"):
@@ -473,9 +489,10 @@ def _state_types(spec: AggSpec, input_types) -> list[T.Type]:
 def _merge_primitives(spec: AggSpec):
     """How each state column merges in FINAL/MERGE mode: counts, checksums
     and the f64 sums are already-reduced values and merge by adding; HLL
-    registers merge by elementwise max."""
+    registers merge by elementwise max, qdigest counts by elementwise
+    addition."""
     return [
-        kind if kind == "hll"
+        kind if kind in ("hll", "qdigest")
         else "sum" if kind in ("count", "count_star", "sum_f", "sumsq", "checksum")
         or kind.startswith("bi_")
         else kind
@@ -654,6 +671,8 @@ def _finalize(spec: AggSpec, states: list[Column]) -> Column:
     name = spec.name
     if name == "approx_distinct":
         return Column(_hll_estimate(states[0].data), T.BIGINT, None)
+    if name == "approx_percentile":
+        return _qdigest_result(spec, states[0].data)
     if name in ("count", "count_star"):
         return Column(states[0].data, T.BIGINT, None)
     if name == "checksum":
@@ -745,6 +764,55 @@ def _finalize(spec: AggSpec, states: list[Column]) -> Column:
     return Column(data.to(out_dt), spec.out_type, nonempty, states[0].dictionary)
 
 
+def _qdigest_result(spec: AggSpec, counts: torch.Tensor) -> Column:
+    """The one-row approx_percentile column of a merged qdigest state: the
+    bucket estimate rescaled to the output type (a decimal rounds half to
+    even, as the JAX package's jnp.round; a long decimal splits into limb
+    planes as the double-to-long-decimal cast does), NULL over no rows."""
+    from trino_tpu_torch.ops import qdigest as qd
+
+    p = float(spec.param if spec.param is not None else 0.5)
+    if counts.ndim == 2:
+        counts = counts[0]
+    val, total = qd.estimate(counts, p)
+    valid = (total > 0)[None]
+    out_t = spec.out_type
+    if isinstance(out_t, T.DecimalType):
+        r = torch.round(val * out_t.scale_factor)
+        if out_t.is_long:
+            from trino_tpu_torch.types.int128 import TWO64
+
+            h = torch.floor(r / float(TWO64))
+            lf = r - h * float(TWO64)
+            l = torch.where(lf >= float(1 << 63), lf - float(TWO64), lf)
+            planes = torch.stack([h.to(torch.int64), l.to(torch.int64)])
+            return Column(planes[None, :], out_t, valid)
+        return Column(r.to(torch.int64)[None], out_t, valid)
+    return Column(val.to(torch_dtype(out_t.np_dtype))[None], out_t, valid)
+
+
+def _qdigest_state(counts: torch.Tensor) -> Column:
+    """One sketch as a one-row array(bigint) state column."""
+    from trino_tpu_torch.ops import qdigest as qd
+
+    lengths = torch.full((1,), qd.NBUCKETS, dtype=torch.int32, device=counts.device)
+    return Column(counts[None, :], T.ArrayType(T.BIGINT), None, None, lengths)
+
+
+def _qdigest_input(col: Column) -> torch.Tensor:
+    """The logical doubles a qdigest counts: a decimal descaled by XLA's
+    reciprocal multiply (`_logical_double`), long-decimal limb planes read
+    as one 128-bit value and divided by the scale factor, as the JAX
+    package divides them."""
+    _scalar_arg(col, "approx_percentile")
+    if col.data.ndim == 2:
+        from trino_tpu_torch.types import int128 as i128
+
+        f = i128.to_float128(col.data[:, 0], col.data[:, 1])
+        return f * (1.0 / float(col.type.scale_factor))
+    return _logical_double(col.data, col.type)
+
+
 def _masked_reduce(data, valid, kind: str):
     """Whole-column null-skipping reduction to a 1-element tensor (global
     aggregation)."""
@@ -816,11 +884,14 @@ class AggregationOperator:
     ):
         if mode not in ("single", "partial", "final", "merge"):
             raise ValueError(f"aggregation mode: {mode}")
-        if group_channels and any(s.name == "approx_distinct" for s in aggregates):
-            # a grouped sketch would need [groups, HLL_M] register states;
-            # the planner rewrites grouped approx_distinct to an exact
-            # DISTINCT count instead, so SQL never reaches this
-            raise NotImplementedError("grouped approx_distinct")
+        if group_channels and any(
+            s.name in ("approx_distinct", "approx_percentile") for s in aggregates
+        ):
+            # a grouped sketch would need [groups, HLL_M] or [groups,
+            # NBUCKETS] states; the planner rewrites grouped approx_distinct
+            # to an exact DISTINCT count and a grouped approx_percentile to
+            # the exact percentile instead, so SQL never reaches this
+            raise NotImplementedError("grouped approx_distinct or approx_percentile")
         self.group_channels = list(group_channels)
         self.aggregates = list(aggregates)
         self.input_types = list(input_types)
@@ -1277,13 +1348,139 @@ class AggregationOperator:
 
     def _holistic_one(self, batch, spec, perm, live, gid_c, nseg, out_cap) -> Column:
         """A holistic aggregate's output column: single-stage only."""
-        if spec.name not in COLLECT_AGGS:
-            raise _unported(spec.name)
         if self.mode != "single":
             raise NotImplementedError(f"{spec.name} requires single-stage aggregation")
+        if spec.name == "percentile":
+            return self._percentile_one(batch, spec, out_cap)
+        if spec.name in ("min_by", "max_by"):
+            return self._minmax_by_one(batch, spec, perm, live, gid_c, nseg, out_cap)
         if spec.name == "listagg":
             return self._listagg_one(batch, spec, out_cap)
         return self._collect_one(batch, spec, perm, live, gid_c, nseg, out_cap)
+
+    def _minmax_by_n(self, batch: Batch, spec: AggSpec, nseg: int, out_cap: int) -> Column:
+        """min_by/max_by(value, key, n): the values at each group's n
+        extreme keys, as a padded [groups, n] array in key order (reference:
+        MinMaxByNAggregation's TypedHeap; a sort-based engine takes the
+        first n of the key-sorted run instead).  NULL keys and NULL values
+        are skipped: the rectangular layout carries no per-element NULLs."""
+        n = int(spec.param)
+        want_min = spec.name == "min_by"
+        cap = batch.capacity
+        dev = batch.device
+        kcol = batch.columns[spec.arg2]
+        vcol = batch.columns[spec.arg]
+        _minmax_by_args(spec, vcol, kcol, n_form=True)
+        keys = [SortKey(ch) for ch in self.group_channels] + [SortKey(spec.arg2, want_min)]
+        perm = multi_key_sort_perm(batch, keys)
+        live = batch.mask()[perm]
+        if self.group_channels:
+            gid_c, _, _ = group_ids_from_sorted(batch, perm, self.group_channels)
+        else:
+            gid_c = torch.zeros(cap, dtype=torch.int64, device=dev)
+        varg = live
+        if kcol.valid is not None:
+            varg = torch.logical_and(varg, kcol.valid[perm])
+        if vcol.valid is not None:
+            varg = torch.logical_and(varg, vcol.valid[perm])
+        pos_in_group, counts = _group_ranks(varg, gid_c, cap, nseg)
+        keep = torch.logical_and(varg, pos_in_group < n)
+        scatter_g = torch.where(keep, gid_c, nseg)  # the rest: the spare row
+        scatter_p = pos_in_group.clamp(0, n - 1)
+        dt = torch_dtype(spec.out_type.element.np_dtype)
+        out = torch.zeros((nseg + 1, n), dtype=dt, device=dev)
+        out[scatter_g, scatter_p] = vcol.data[perm].to(dt)
+        lengths = counts[:out_cap].clamp(max=n).to(torch.int32)
+        return Column(out[:out_cap], spec.out_type, None, vcol.dictionary, lengths)
+
+    def _minmax_by_one(self, batch: Batch, spec: AggSpec, perm, live, gid_c, nseg: int,
+                       out_cap: int) -> Column:
+        """min_by/max_by(value, key): the VALUE at each group's extreme KEY
+        (reference: MinMaxByNAggregation, N = 1): the extreme key by a
+        segmented reduction, then the first sorted row holding it selects
+        the value.  Rows with NULL keys are skipped; ties pick the first
+        sorted row.  NaN orders as largest (the sort's rule): max_by takes
+        a NaN-key row, min_by only when every key of the group is NaN."""
+        if spec.param is not None:
+            return self._minmax_by_n(batch, spec, nseg, out_cap)
+        from trino_tpu_torch.ops.common import _max_sentinel, _min_sentinel
+
+        cap = batch.capacity
+        dev = batch.device
+        vcol = batch.columns[spec.arg]
+        kcol = batch.columns[spec.arg2]
+        _minmax_by_args(spec, vcol, kcol, n_form=False)
+        kd = kcol.data[perm]
+        vkey = live if kcol.valid is None else torch.logical_and(live, kcol.valid[perm])
+        want_min = spec.name == "min_by"
+        sent = _max_sentinel(kd.dtype) if want_min else _min_sentinel(kd.dtype)
+        keyed = torch.where(vkey, kd, sent)
+        red = "min" if want_min else "max"
+        if kd.dtype.is_floating_point:
+            nan = torch.isnan(keyed)
+            if want_min:
+                # NaN must win only when every key is NaN: it reduces as +inf
+                keyed = torch.where(nan, float("inf"), keyed)
+                kext = segment_reduce(keyed, gid_c, nseg, red)
+            else:
+                # a NaN key is the group's extreme (the JAX package's
+                # segment_max propagates it); reduced explicitly, since the
+                # scatter reductions' NaN handling differs by device
+                has_nan = segment_sum(nan.to(torch.int64), gid_c, nseg) > 0
+                kext = segment_reduce(torch.where(nan, float("-inf"), keyed), gid_c, nseg, red)
+                kext = torch.where(has_nan, float("nan"), kext)
+        else:
+            kext = segment_reduce(keyed, gid_c, nseg, red)
+        pos = torch.arange(cap, dtype=torch.int64, device=dev)
+        kext_g = kext[gid_c.clamp(0, nseg - 1)]
+        match = keyed == kext_g
+        if kd.dtype.is_floating_point:
+            # NaN != NaN: a NaN extreme matches its NaN-key rows
+            match = torch.logical_or(
+                match, torch.logical_and(torch.isnan(keyed), torch.isnan(kext_g))
+            )
+        at_ext = torch.logical_and(vkey, match)
+        first = segment_reduce(torch.where(at_ext, pos, cap), gid_c, nseg, "min")
+        idx = first[:out_cap].clamp(0, cap - 1)
+        rows = perm[idx]
+        has_key = segment_sum(vkey.to(torch.int64), gid_c, nseg)[:out_cap] > 0
+        valid = has_key
+        if vcol.valid is not None:
+            valid = torch.logical_and(valid, vcol.valid[rows])
+        return Column(vcol.data[rows], spec.out_type, valid, vcol.dictionary)
+
+    def _percentile_one(self, batch: Batch, spec: AggSpec, out_cap: int) -> Column:
+        """Exact per-group percentile: re-sort by (group keys, value) and
+        pick each group's nearest-rank row (reference role:
+        ApproximateLongPercentileAggregations via qdigest; a sort-based
+        engine computes the exact rank instead).  The global form is the
+        one-group case."""
+        gch = self.group_channels
+        cap = batch.capacity
+        dev = batch.device
+        col = batch.columns[spec.arg]
+        _scalar_arg(col, spec.name)
+        perm2 = multi_key_sort_perm(batch, [SortKey(ch) for ch in gch] + [SortKey(spec.arg)])
+        if gch:
+            gid2, _, _ = group_ids_from_sorted(batch, perm2, gch)
+        else:
+            gid2 = torch.zeros(cap, dtype=torch.int64, device=dev)
+        varg = batch.mask()[perm2]
+        if col.valid is not None:
+            varg = torch.logical_and(varg, col.valid[perm2])
+        pos = torch.arange(cap, dtype=torch.int64, device=dev)
+        gid_c = gid2.clamp(max=out_cap)
+        nseg = out_cap + 1
+        # NULLs sort last within the group: the group's first live row
+        # starts the non-NULL run, whose length is the valid count
+        start = segment_reduce(torch.where(varg, pos, cap), gid_c, nseg, "min")
+        nvalid = segment_sum(varg.to(torch.int64), gid_c, nseg)
+        p = float(spec.param if spec.param is not None else 0.5)
+        target = start + torch.round(
+            p * (nvalid - 1).clamp(min=0).to(torch.float64)
+        ).to(torch.int64)
+        rows = perm2[target[:out_cap].clamp(0, cap - 1)]
+        return Column(col.data[rows], spec.out_type, nvalid[:out_cap] > 0, col.dictionary)
 
     def _collect_one(self, batch: Batch, spec: AggSpec, perm, live, gid_c, nseg, out_cap) -> Column:
         """array_agg / map_agg: scatter each group's run into a padded
@@ -1486,7 +1683,7 @@ class AggregationOperator:
         cols = []
         for spec in self.aggregates:
             if spec.name in HOLISTIC_AGGS:
-                # one global group: the grouped collect with gid 0
+                # one global group: the grouped form with gid 0
                 perm0 = torch.arange(batch.capacity, dtype=torch.int64, device=batch.device)
                 cols.append(self._holistic_one(batch, spec, perm0, live, gid0, 2, 1))
                 continue
@@ -1501,6 +1698,11 @@ class AggregationOperator:
                         # elementwise max of the register rows
                         regs = torch.where(v[:, None], col.data, torch.iinfo(torch.int32).min)
                         states.append(_hll_state(regs.amax(dim=0)))
+                        continue
+                    if kind == "qdigest":
+                        # elementwise sum of the count rows
+                        counts = torch.where(v[:, None], col.data, 0).sum(dim=0)
+                        states.append(_qdigest_state(counts))
                         continue
                     if kind == "sum" and isinstance(col.type, T.DecimalType) and col.type.is_long:
                         red = _sum128(col.data, gid0, 1, v, sum_bound=spec.sum_bound)
@@ -1527,6 +1729,12 @@ class AggregationOperator:
                     if kind == "hll":
                         v = live if col.valid is None else torch.logical_and(live, col.valid)
                         states.append(_hll_state(_hll_registers(col, v)))
+                        continue
+                    if kind == "qdigest":
+                        from trino_tpu_torch.ops import qdigest as qd
+
+                        v = live if col.valid is None else torch.logical_and(live, col.valid)
+                        states.append(_qdigest_state(qd.histogram(_qdigest_input(col), v)))
                         continue
                     if kind != "count":
                         _scalar_arg(col, spec.name)
@@ -1654,7 +1862,10 @@ class AggregationOperator:
         merger = AggregationOperator(
             list(range(len(self.group_channels))),
             [
-                AggSpec(s.name, self._state_channel(i), s.out_type, s.sum_bound)
+                AggSpec(
+                    s.name, self._state_channel(i), s.out_type,
+                    sum_bound=s.sum_bound, param=s.param,
+                )
                 for i, s in enumerate(self.aggregates)
             ],
             [c.type for c in states_batch.columns],

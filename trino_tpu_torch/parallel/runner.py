@@ -54,14 +54,19 @@ restacks onto the same alignment and runs the same locate/expand steps, so
 the sorted-probe kernel launches on every wave of every shard) and the
 aggregation's exchange runs in group-hash waves (`_wave_agg_exchange`).
 Wave and spill events count in `counters` (`memory_wave`, `spill_bytes`).
+A grouped aggregation counts `agg_single_stage` when it repartitions the
+raw rows and aggregates each group whole on one worker (DISTINCT, and the
+partitionable holistic aggregates percentile, min_by and max_by), and
+`agg_partial_states` when it exchanges partial states (a global
+aggregation's states are gathered to the coordinator, an approx_percentile
+sketch among them).  The collect aggregates, a global holistic aggregate
+and MATCH_RECOGNIZE run in the coordinator fragment, where the fragmenter
+places them; a TABLESAMPLE raises, as the JAX mesh does.
 
 Not ported (each raises NotImplementedError when a session asks for it):
-fault tolerance and task retries, bucketed table layouts, the
-partitionable holistic aggregates on the mesh (percentile, min_by,
-max_by; the collect aggregates run in the coordinator fragment, where the
-fragmenter places them), `resize_mesh`, membership heartbeats,
-prewarm, the per-fragment profile (`last_mesh_profile`) and the compile
-observatory.  The
+fault tolerance and task retries, bucketed table layouts, `resize_mesh`,
+membership heartbeats, prewarm, the per-fragment profile
+(`last_mesh_profile`) and the compile observatory.  The
 collective-schedule license (verify/schedule.py) is not ported either: the
 executor dispatches strictly lazily, which the JAX package defines as the
 same results.
@@ -217,7 +222,9 @@ def _sig(symbols) -> tuple:
 
 def _spec_sig(specs) -> tuple:
     """Full AggSpec fingerprint for step-cache keys."""
-    return tuple((s.name, s.arg, s.out_type.name, s.sum_bound) for s in specs)
+    return tuple(
+        (s.name, s.arg, s.out_type.name, s.sum_bound, s.arg2, repr(s.param)) for s in specs
+    )
 
 
 def _check_ported_knobs(properties) -> None:
@@ -796,7 +803,7 @@ class StageExecutor:
         merge_specs = [
             AggSpec(
                 s.name, partial_op._state_channel(i), s.out_type,
-                sum_bound=s.sum_bound,
+                sum_bound=s.sum_bound, param=s.param,
             )
             for i, s in enumerate(specs)
         ]
@@ -814,20 +821,17 @@ class StageExecutor:
         src = self._to_stacked(self._raw_remote(node.source))
         ngroups = len(node.group_symbols)
         assert ngroups, "grouped aggregation expected in distributed fragment"
-        holistic = [
-            a.function for _, a in node.aggregations
-            if a.function in PARTITIONABLE_HOLISTIC
-        ]
-        if holistic:
-            raise NotImplementedError(
-                f"holistic aggregates on the mesh ({', '.join(holistic)}): not ported yet"
-            )
-        if any(a.distinct for _, a in node.aggregations):
+        if any(
+            a.distinct or a.function in PARTITIONABLE_HOLISTIC
+            for _, a in node.aggregations
+        ):
             # repartition the raw rows on the group keys so every group is
-            # whole on one worker, then dedupe and aggregate there in one
-            # stage: no partial/merge states, no coordinator gather
+            # whole on one worker, then aggregate there in one stage (a
+            # uniform DISTINCT dedupes first): no partial/merge states, no
+            # coordinator gather
             return self._spmd_single_stage(node, src)
         states, specs, partial_op = self._agg_partial(node, src)
+        self.bump("agg_partial_states")
         final_op = self._final_op(specs, partial_op, states)
         # fused exchange: bucketize + all-to-all + the FINAL aggregation
         chans = list(range(ngroups))
@@ -965,9 +969,11 @@ class StageExecutor:
 
     def _spmd_single_stage(self, node: P.AggregationNode, src: _Dist) -> _Dist:
         """Repartition on the group keys, then a per-worker single-stage
-        aggregation (the mesh's home of the DISTINCT shapes; reference:
-        single-step aggregation over hash distribution).  The dedupe
-        pre-aggregation and the aggregation run as the exchange's consumer."""
+        aggregation (the mesh's home of the DISTINCT shapes and of the
+        partitionable holistic aggregates; reference: single-step
+        aggregation over hash distribution).  The dedupe pre-aggregation (a
+        uniform DISTINCT) and the aggregation run as the exchange's
+        consumer."""
         from trino_tpu_torch.runtime.local_planner import (
             build_agg_inputs,
             build_distinct_dedupe,
@@ -978,32 +984,37 @@ class StageExecutor:
         stacked = src.stacked
         slot_cap = ex.exchange_slot_cap(stacked, key_channels, self.wm)
         fcap = self.wm.n * slot_cap
-        dd_proj, dd_symbols = build_distinct_dedupe(node, src)
-        dedupe = AggregationOperator(
-            list(range(len(dd_proj))), [], [e.type for e in dd_proj],
-            self.wm.device, mode="single",
-        )
-        pre_dd = FilterProjectOperator(None, dd_proj)._make_step()
-        proj, specs, input_types = build_agg_inputs(
-            node, PhysicalPlan(iter(()), dd_symbols)
-        )
+        agg_src = src
+        dd_keys = ()
+        dedupe = pre_dd = None
+        if any(a.distinct for _, a in node.aggregations):
+            dd_proj, dd_symbols = build_distinct_dedupe(node, src)
+            dedupe = AggregationOperator(
+                list(range(len(dd_proj))), [], [e.type for e in dd_proj],
+                self.wm.device, mode="single",
+            )
+            pre_dd = FilterProjectOperator(None, dd_proj)._make_step()
+            agg_src = PhysicalPlan(iter(()), dd_symbols)
+            dd_keys = tuple(e.key() for e in dd_proj)
+        proj, specs, input_types = build_agg_inputs(node, agg_src)
         op = AggregationOperator(
             list(range(ngroups)), specs, input_types, self.wm.device, mode="single"
         )
         pre_agg = FilterProjectOperator(None, proj)._make_step()
 
         def single_step(b: Batch) -> Batch:
-            b = dedupe._reduce_step(pre_dd(b), out_cap=fcap)
+            if dedupe is not None:
+                b = dedupe._reduce_step(pre_dd(b), out_cap=fcap)
             return op._reduce_step(pre_agg(b), out_cap=fcap)
 
         out = ex.fused_repartition(
             stacked, key_channels, self.wm, single_step,
-            ("agg_single", tuple(e.key() for e in dd_proj),
-             tuple(e.key() for e in proj), _spec_sig(specs), fcap,
-             _sig(src.symbols)),
+            ("agg_single", dd_keys, tuple(e.key() for e in proj),
+             _spec_sig(specs), fcap, _sig(src.symbols)),
             slot_cap,
         )
         self.bump("repartition_collective")
+        self.bump("agg_single_stage")
         return self._dist(
             out, node.outputs,
             placements=((tuple(s.name for s in node.group_symbols),)),
@@ -1014,6 +1025,7 @@ class StageExecutor:
         """Global aggregation over a distributed child: partial per worker,
         gather the single state rows, final merge on the coordinator."""
         states, specs, partial_op = self._agg_partial(node, src)
+        self.bump("agg_partial_states")
         final_op = self._final_op(specs, partial_op, states)
         gathered = unstack_batch(states)
         cap = next_pow2(gathered.capacity, floor=1)

@@ -449,7 +449,101 @@ class LogicalPlanner:
         """relation MATCH_RECOGNIZE (...) -> PatternRecognitionNode
         (reference: sql/analyzer's pattern-recognition analysis +
         RelationPlanner.visitPatternRecognitionRelation)."""
-        raise NotImplementedError("MATCH_RECOGNIZE: not ported yet")
+        import dataclasses
+
+        from trino_tpu_torch.ops.pattern import parse_pattern, pattern_variables
+
+        src = self.plan_relation(mr.relation, outer, ctes)
+        scope = src.scope()
+        an = ExprAnalyzer(scope)
+        pvars = set(pattern_variables(parse_pattern(mr.pattern)))
+
+        def make_strip(allowed):
+            """Pattern-variable qualifiers (A.price) resolve to the source
+            column.  Inside DEFINE only the variable being defined may
+            qualify (a reference to ANOTHER variable means 'the last row
+            matched to it' — the vectorized evaluator cannot honor that, so
+            it must be an error, never a silently-wrong current-row read)."""
+
+            def strip_qualifiers(node):
+                if not isinstance(node, ast.Node):
+                    return node
+                if (
+                    isinstance(node, ast.Identifier)
+                    and len(node.parts) > 1
+                    and node.parts[0].lower() in pvars
+                ):
+                    q = node.parts[0].lower()
+                    if allowed is not None and q not in allowed:
+                        raise AnalysisError(
+                            f"cross-variable reference {q}.{node.parts[1]} "
+                            "in DEFINE is not supported (only the variable "
+                            "being defined may qualify)"
+                        )
+                    node = ast.Identifier(tuple(node.parts[1:]))
+                kwargs = {}
+                for f in dataclasses.fields(node):
+                    v = getattr(node, f.name)
+                    if isinstance(v, ast.Node):
+                        kwargs[f.name] = strip_qualifiers(v)
+                    elif isinstance(v, tuple):
+                        kwargs[f.name] = tuple(
+                            strip_qualifiers(x) if isinstance(x, ast.Node) else x
+                            for x in v
+                        )
+                    else:
+                        kwargs[f.name] = v
+                return dataclasses.replace(node, **kwargs)
+
+            return strip_qualifiers
+
+        strip_qualifiers = make_strip(None)
+
+        def col_symbol(e: ast.Node, what: str) -> P.Symbol:
+            ir_e = an.analyze(strip_qualifiers(e))
+            if not isinstance(ir_e, SymbolRef):
+                raise AnalysisError(
+                    f"MATCH_RECOGNIZE {what} must be a column reference"
+                )
+            return P.Symbol(ir_e.name, ir_e.type)
+
+        partition_by = [col_symbol(e, "PARTITION BY") for e in mr.partition_by]
+        order_by = [
+            (col_symbol(it.expr, "ORDER BY"), it.ascending, it.nulls_first)
+            for it in mr.order_by
+        ]
+        defines = [
+            (v.lower(), an.analyze(make_strip({v.lower()})(cond)))
+            for v, cond in mr.defines
+        ]
+        for v, _ in defines:
+            if v not in pvars:
+                raise AnalysisError(
+                    f"DEFINE variable {v} not used in PATTERN"
+                )
+        measures = []
+        for e, name in mr.measures:
+            spec, out_t = self._analyze_measure(e, pvars, an, strip_qualifiers)
+            measures.append((P.Symbol(name, out_t), spec))
+        node = P.PatternRecognitionNode(
+            src.node,
+            partition_by,
+            order_by,
+            defines,
+            mr.pattern,
+            measures,
+            mr.rows_per_match,
+            mr.after_match,
+        )
+        if mr.rows_per_match == "one":
+            fields = [Field(s.name, s) for s in partition_by] + [
+                Field(s.name, s) for s, _ in measures
+            ]
+        else:
+            fields = list(src.fields) + [
+                Field(s.name, s) for s, _ in measures
+            ]
+        return RelationPlan(node, fields)
 
     def _analyze_measure(self, e: ast.Node, pvars, an, strip):
         """-> (MeasureSpec, out_type).  Supported shapes (reference:

@@ -14,8 +14,10 @@ MarkDistinct, Join (inner, left, right as a flipped left, full, and cross
 as a nested loop), SemiJoin (IN and EXISTS marks, with a residual over
 source ++ filtering symbols), Union (INTERSECT, EXCEPT and ROLLUP plan
 through it), EnforceSingleRow, Exchange (a pass-through; a merge
-re-sorts), Window, Sort, TopN, Limit and Output.  Any other
-node raises NotImplementedError naming it (unnest and sample among them).
+re-sorts), Window, Unnest, Sample (its scans fed serially),
+PatternRecognition, Sort, TopN, Limit and Output: every node the JAX
+package's planner has.  Any other node raises NotImplementedError naming
+it.
 
 Memory budgets (`query_max_memory`, `query_max_memory_bytes`, and the
 shared pool's limit): the planner holds a per-query reservation tree
@@ -31,6 +33,7 @@ waves.  `memory_wave_partitions` pins the wave count.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterable
 
 import torch
@@ -120,6 +123,11 @@ class LocalExecutionPlanner:
         #: build-side key ranges registered by inner-join builds, keyed by
         #: the probe symbol they prune (DynamicFilterService role)
         self.dynamic_filters: dict = {}
+        #: > 0 while planning below a SampleNode: its scans feed serially,
+        #: since the kept rows follow the batches' arrival order
+        self._serial_scans = 0
+        #: plan-position counter that seeds each SampleNode's salt
+        self._sample_seq = 0
 
     def _budget(self) -> int:
         """The device budget blocking operators plan against: the session
@@ -178,7 +186,7 @@ class LocalExecutionPlanner:
 
             return make
 
-        if concurrency > 1 and len(splits) > 1:
+        if concurrency > 1 and len(splits) > 1 and not self._serial_scans:
             # intra-task parallelism: split readers (host decode + copy to
             # the device) drain through a local exchange
             from trino_tpu_torch.runtime.local_exchange import parallel_feed
@@ -248,6 +256,35 @@ class LocalExecutionPlanner:
         src = self.plan(node.source)
         exprs = [src.rewrite(e) for _, e in node.unnest]
         op = UnnestOperator(exprs, with_ordinality=node.ordinality is not None)
+        return PhysicalPlan(op.process(src.stream), node.outputs)
+
+    def _visit_SampleNode(self, node: P.SampleNode) -> PhysicalPlan:
+        from trino_tpu_torch.ops.sample import SampleOperator
+
+        # the kept rows follow each batch's arrival position, so the scans
+        # below feed their splits in order: the same statement samples the
+        # same rows run after run, on every device (the JAX package's
+        # parallel split readers may reorder them)
+        self._serial_scans += 1
+        try:
+            src = self.plan(node.source)
+        finally:
+            self._serial_scans -= 1
+        # deterministic per plan position: re-planning the same query
+        # samples the same rows
+        self._sample_seq += 1
+        op = SampleOperator(node.ratio, seed=self._sample_seq)
+        return PhysicalPlan(op.process(src.stream), src.symbols)
+
+    def _visit_PatternRecognitionNode(self, node: P.PatternRecognitionNode) -> PhysicalPlan:
+        from trino_tpu_torch.ops.pattern import PatternRecognitionOperator
+
+        src = self.plan(node.source)
+        # the DEFINEs rewritten to channel space over the source layout
+        rewritten = dataclasses.replace(
+            node, defines=[(v, src.rewrite(e)) for v, e in node.defines]
+        )
+        op = PatternRecognitionOperator(rewritten, src.symbols, self.device)
         return PhysicalPlan(op.process(src.stream), node.outputs)
 
     # -- aggregation ----------------------------------------------------------

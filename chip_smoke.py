@@ -157,9 +157,28 @@ catches nothing and never falls back to the CPU):
      values min_by/max_by pick among tied keys to the tied rows (witness
      queries the reference process runs), the mesh H1 equal to the local
      H1, H1's estimates within 1/32 relative of the exact percentiles;
+  5j. the temporal types and the rest of the scalar-function layer at TPC-H
+     sf1 (TEMPORAL_QUERIES, nothing reduced): T1 an hourly report in Q1's
+     shape over timestamps (the local run with `pallas_agg` on must launch
+     the grouped-sums kernel on every run); T2 delivery lateness in hours
+     over the orders x lineitem join (the mesh run must launch the
+     sorted-probe kernel); T3 time zones over orders (AT TIME ZONE,
+     with_timezone, from_unixtime with zones, tz values rendered with their
+     offsets and one ordering the rows); T4 a word histogram through a
+     split_part table over the o_comment dictionary; T5 a breadth pass over
+     customer (pads, translate, levenshtein_distance, bitwise, url_encode,
+     codepoint, atan2, truncate, log, width_bucket); T6 concat_ws and format
+     rendered per row on the host over customer's 150,000 rows.  Each
+     through LocalQueryRunner and the 4-worker mesh on the card, cold and
+     warm, with wall time, peak device memory, the kernels' launches, the
+     group paths, the host tables built over a dictionary (entries and
+     seconds) and the per-row renders' seconds; one profiled warm run each
+     of the local T1 and the mesh T2; every result held to the port's CPU
+     run of the same query (computed by the reference process after its
+     phase 5i part), the local T1's f32 kernel sums to relative 5e-5;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows)
-     and time it there;
+     and of the local T1's largest launch, and time it there;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -173,7 +192,7 @@ catches nothing and never falls back to the CPU):
      launch of phase 5b, and timed at the largest; bit-exact and timed at
      the inputs of the largest launch of phases 5c, 5d and 5g; bit-exact
      at the largest launch of phase 5e; bit-exact and timed at the largest
-     launch of the mesh H3 (phase 5i);
+     launch of the mesh H3 (phase 5i) and of the mesh T2 (phase 5j);
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -181,7 +200,8 @@ The TPC-H text pools (comments) are drawn from a generator seeded with
 Python's string hash, so the script runs itself, and so its reference
 process, under PYTHONHASHSEED=0: both then see the same c_comment words.
 
-Tolerances: integers, decimals, dates and strings exact.  Kernel sums: counts
+Tolerances: integers, decimals, dates, timestamps, tz values (instant and
+offset) and strings exact.  Kernel sums: counts
 exact, |kernel - plain| <= 5e-5 * (sum of |values| in the cell), the f32
 summation bound of the kernel (~530 sequential additions * 2**-24).  Q1 over
 DOUBLE with the f32 kernel against the CPU's f64 path: relative 5e-5 on
@@ -419,6 +439,72 @@ HOLISTIC_TIES = {
 #: S1 keeps ~10% of lineitem's 6,001,215 rows: its count within 1% of this
 HOLISTIC_SAMPLE_ROWS = 600_122
 
+#: phase 5j: the temporal types and the rest of the scalar-function layer at
+#: TPC-H sf1 (nothing reduced).  T1 an hourly report in Q1's shape (the local
+#: run with `pallas_agg` on: K1); T2 delivery lateness in hours over the
+#: orders x lineitem join (the mesh run: K2); T3 time zones over orders, tz
+#: values rendered with their offsets and one ordering the rows; T4 a word
+#: histogram over the o_comment dictionary (a split_part table); T5 a
+#: data-quality breadth pass over customer (pad, translate, levenshtein,
+#: bitwise, url, math tables and functions); T6 the per-row host renders
+#: (concat_ws, format) over customer's 150,000 rows.  Named zones resolve on
+#: the host clock when a query is planned, so only Asia/Kolkata (no DST) and
+#: fixed offsets appear: the card run and the reference agree whenever they
+#: run.
+TEMPORAL_QUERIES = {
+    "T1": (
+        "select l_returnflag, l_linestatus, sum(cast(l_extendedprice as double)), "
+        "avg(cast(l_discount as double)), count(*) from lineitem "
+        "where date_add('hour', l_linenumber, cast(l_shipdate as timestamp)) "
+        "<= timestamp '1998-09-02 00:00:00' "
+        "and hour(date_add('minute', l_orderkey % 1440, cast(l_shipdate as timestamp))) "
+        "between 8 and 17 group by 1, 2 order by 1, 2"
+    ),
+    "T2": (
+        "select o_orderpriority, count(*), "
+        "sum(date_diff('hour', cast(o_orderdate as timestamp), cast(l_receiptdate as timestamp))), "
+        "max(date_trunc('day', cast(l_commitdate as timestamp))) "
+        "from orders join lineitem on o_orderkey = l_orderkey "
+        "where to_unixtime(cast(l_receiptdate as timestamp)) "
+        "> to_unixtime(cast(l_commitdate as timestamp)) group by 1 order by 1"
+    ),
+    "T3": (
+        "select o_orderkey, cast(o_orderdate as timestamp) at time zone 'Asia/Kolkata' a, "
+        "with_timezone(cast(o_orderdate as timestamp), '+05:30') w, "
+        "timezone_hour(from_unixtime(o_orderkey * 997, 'Asia/Kolkata')), "
+        "cast(from_unixtime(o_orderkey * 997, '-03:30') as timestamp), "
+        "minute(from_unixtime(o_orderkey * 997)), second(from_unixtime(o_orderkey * 997)), "
+        "millisecond(from_unixtime(cast(o_orderkey as double) / 1000)) "
+        "from orders order by w desc, o_orderkey limit 20"
+    ),
+    "T4": (
+        "select split_part(o_comment, ' ', 2) w, count(*), sum(o_totalprice) "
+        "from orders group by 1 order by 2 desc, 1 limit 10"
+    ),
+    "T5": (
+        "select width_bucket(c_acctbal, -1000, 10000, 11) b, count(*), "
+        "max(lpad(c_name, 22, '*')), "
+        "min(rpad(translate(c_mktsegment, 'AEIOU', 'aeiou'), 12, '.')), "
+        "max(levenshtein_distance(c_phone, '25-989-741-2988')), "
+        "sum(bit_count(c_custkey, 64)), sum(bitwise_xor(c_custkey, c_nationkey)), "
+        "max(url_encode(c_address)), max(codepoint(substr(c_name, 1, 1))), "
+        "sum(truncate(atan2(c_acctbal, 100.0) * 1000)), count_if(is_nan(log(2, c_acctbal))) "
+        "from customer group by 1 order by 1"
+    ),
+    "T6": (
+        "select concat_ws('|', c_name, c_mktsegment, c_phone), "
+        "format('%s owes %.2f', c_name, c_acctbal), typeof(c_acctbal) "
+        "from customer order by c_custkey limit 5"
+    ),
+}
+#: the phase 5j query whose local run takes the grouped-sums kernel
+#: (`pallas_agg` on), and the one whose mesh join takes the sorted probe
+TEMPORAL_K1_QUERY, TEMPORAL_K2_QUERY = "T1", "T2"
+#: the phase 5j queries whose host tables over a dictionary are timed, and
+#: the one whose per-row host renders are
+TEMPORAL_TABLE_QUERIES = ("T4", "T5")
+TEMPORAL_RENDER_QUERY = "T6"
+
 Q1_DOUBLE = """select l_returnflag, l_linestatus,
        sum(cast(l_quantity as double)), sum(cast(l_extendedprice as double)),
        sum(cast(l_extendedprice as double) * (1 - cast(l_discount as double))),
@@ -621,15 +707,16 @@ def check_grouped_sums(dev) -> dict:
     }
 
 
-def check_grouped_sums_captured(dev, capture: dict) -> dict:
+def check_grouped_sums_captured(dev, capture: dict, path: str = "arrays") -> dict:
     """The grouped-sums kernel held to its plain version, and timed, at the
-    inputs of the largest launch of phase 5g's local U1 (captured in an
-    untimed run after the path's counts were read)."""
+    inputs of the largest launch of one path's kernel query (phase 5g's
+    local U1, phase 5j's local T1), captured in an untimed run after the
+    path's counts were read."""
     if "largest" not in capture:
-        raise AssertionError("no grouped-sums launch was captured in phase 5g")
+        raise AssertionError(f"no grouped-sums launch was captured on the {path} path")
     gids, mask, values, g = capture["largest"]
-    max_abs_err = hold_grouped_sums(f"arrays_{capture['query']}", gids, mask, values, g)
-    out = time_grouped_sums(f"arrays_{capture['query']}", gids, mask, values, g, dev)
+    max_abs_err = hold_grouped_sums(f"{path}_{capture['query']}", gids, mask, values, g)
+    out = time_grouped_sums(f"{path}_{capture['query']}", gids, mask, values, g, dev)
     return {**out, "max_abs_err": max_abs_err, "query": capture["query"]}
 
 
@@ -1192,8 +1279,8 @@ def tpcds_cpu_reference(out_path: str) -> int:
     writes to `out_path` + ".budgets", pickled to `out_path` + ".memory",
     then phase 5g's, pickled to `out_path` + ".arrays", then phase 5h's,
     pickled to `out_path` + ".aggregates", then phase 5i's, pickled to
-    `out_path` + ".holistic".  It runs beside the card phases, on its own
-    cores."""
+    `out_path` + ".holistic", then phase 5j's, pickled to `out_path` +
+    ".temporal".  It runs beside the card phases, on its own cores."""
     import pickle
 
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
@@ -1222,6 +1309,7 @@ def tpcds_cpu_reference(out_path: str) -> int:
     arrays_cpu_reference(out_path)
     aggregates_cpu_reference(out_path)
     holistic_cpu_reference(out_path)
+    temporal_cpu_reference(out_path)
     return 0
 
 
@@ -1241,14 +1329,14 @@ def start_tpcds_reference(here: str):
 #: it writes them in this order, so the last phase's wait is its end
 REFERENCE_SUFFIX = {
     "5d": "", "5e": ".window", "5f": ".memory", "5g": ".arrays", "5h": ".aggregates",
-    "5i": ".holistic",
+    "5i": ".holistic", "5j": ".temporal",
 }
-LAST_REFERENCE_PHASE = "5i"
+LAST_REFERENCE_PHASE = "5j"
 
 
 def wait_tpcds_reference(proc, path: str, phase: str) -> dict:
-    """The reference's results of phase 5d, 5e, 5f, 5g, 5h or 5i, as soon
-    as they are written (after 5i's, the process has ended)."""
+    """The reference's results of phase 5d, 5e, 5f, 5g, 5h, 5i or 5j, as
+    soon as they are written (after 5j's, the process has ended)."""
     import pickle
     import shutil
 
@@ -2503,6 +2591,153 @@ def run_holistic_path(reference, capture: dict) -> dict:
     return {"k1_launches": k1_launches, "k2_launches": k2_launches}
 
 
+# -- phase 5j: the temporal types and the scalar-function breadth ----------------
+
+
+def temporal_cpu_reference(out_path: str) -> None:
+    """The reference process's phase 5j part: the port's CPU run of every
+    TEMPORAL_QUERIES query at tpch.sf1, pickled to `out_path` + ".temporal"
+    as {name: (column names, type names, rows, seconds, the ORDER BY and
+    LIMIT)}."""
+    import pickle
+
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import result_order
+
+    t_part = time.perf_counter()
+    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    out = {}
+    for name, sql in TEMPORAL_QUERIES.items():
+        order = result_order(cpu.create_plan(sql))
+        t0 = time.perf_counter()
+        res = cpu.execute(sql)
+        out[name] = (res.column_names, [t.name for t in res.types], res.rows,
+                     time.perf_counter() - t0, order)
+    log(f"temporal cpu reference (5j): {time.perf_counter() - t_part:.1f} s of CPU work")
+    with open(out_path + ".temporal.part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".temporal.part", out_path + ".temporal")
+
+
+def run_temporal_path(reference, k1_capture: dict, probe_record: dict) -> dict:
+    """Phase 5j: TEMPORAL_QUERIES through the local runner and the 4-worker
+    mesh on the card, cold and warm, with wall time, peak device memory,
+    the kernels' launches, the group path of each grouped reduction, the
+    host tables built over a dictionary (`expr.functions.HOST_TABLE_LOG`:
+    function, dictionary entries, seconds; a table is kept across batches
+    and queries, so a warm run finds it built) and the per-row host renders
+    (`expr.functions.ROW_RENDER_LOG`: function, rows, seconds).  The local
+    T1 (with `pallas_agg` on) must launch the grouped-sums kernel on every
+    run and the mesh T2 the sorted-probe kernel.  After the path's counts
+    are read: one profiled warm run each of the local T1 and the mesh T2,
+    and one untimed capture run of each that keeps the largest launch's
+    inputs (the local T1's grouped sums in `k1_capture`, held in phase 6a;
+    the mesh T2's sorted probe in `probe_record`, held in phase 6).  Every
+    result is held to the reference process's CPU run: doubles to relative
+    1e-9, except the local T1's f32 kernel sums (KERNEL_RTOL, as phases 4
+    and 5g); everything else exact, tz values in their offsets too."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch.expr import functions as fns
+    from trino_tpu_torch.ops import aggregation as agg
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import assert_rows_match
+
+    local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    kernel_local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    kernel_local.execute("set session pallas_agg = true")
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+
+    def runner(name, where):
+        return mesh if where == "mesh" else kernel_local if name == TEMPORAL_K1_QUERY else local
+
+    results = {}
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    for name, sql in TEMPORAL_QUERIES.items():
+        for where in ("local", "mesh"):
+            r = runner(name, where)
+            walls = []
+            for attempt in ("cold", "warm"):
+                agg.GROUP_PATHS.clear()
+                fns.HOST_TABLE_LOG.clear()
+                fns.ROW_RENDER_LOG.clear()
+                k1, k2 = gs.grouped_sums.launches, ls.locate_sorted.launches
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = r.execute(sql)  # rows come back to the host
+                wall = time.perf_counter() - t0
+                walls.append(wall)
+                k1 = gs.grouped_sums.launches - k1
+                k2 = ls.locate_sorted.launches - k2
+                if name == TEMPORAL_K1_QUERY and where == "local" and k1 == 0:
+                    raise AssertionError(f"{name} local {attempt}: no grouped_sums launch")
+                if name == TEMPORAL_K2_QUERY and where == "mesh" and k2 == 0:
+                    raise AssertionError(f"{name} mesh {attempt}: no locate_sorted launch")
+                tables = [(f, n, round(t, 6)) for f, n, t in fns.HOST_TABLE_LOG]
+                renders = [(f, n, round(t, 6)) for f, n, t in fns.ROW_RENDER_LOG]
+                log(
+                    f"temporal {name}_{where} {attempt}: wall_s={wall!r} "
+                    f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                    f"group_paths={dict(agg.GROUP_PATHS)} "
+                    f"grouped_sums_launches={k1} locate_sorted_launches={k2} "
+                    f"host_tables(function, entries, s)={tables} "
+                    f"host_table_s={sum(t for _, _, t in fns.HOST_TABLE_LOG)!r} "
+                    f"row_renders(function, rows, s)={renders} "
+                    f"row_render_s={sum(t for _, _, t in fns.ROW_RENDER_LOG)!r} "
+                    f"rows={len(res.rows)}"
+                    + ("" if where == "local" else f" mesh_events={r.last_stage_executor.counters}")
+                )
+            results[name, where] = (res, walls[0], walls[1])
+    profile_warm("T1_local", kernel_local, TEMPORAL_QUERIES["T1"])
+    profile_warm("T2_mesh", mesh, TEMPORAL_QUERIES["T2"])
+    k1_launches = gs.grouped_sums.launches  # read just after the path
+    k2_launches = ls.locate_sorted.launches
+    log(f"temporal path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+
+    # untimed, after the counts were read: the kernels' largest inputs
+    gs_orig, gs_rec = grouped_sums_recorder(k1_capture)
+    probe_kernel, probe_rec = shape_recording_probe(probe_record)
+    k1_capture["query"] = TEMPORAL_K1_QUERY
+    probe_record["query"] = TEMPORAL_K2_QUERY
+    gs._launch = gs_rec
+    try:
+        kernel_local.execute(TEMPORAL_QUERIES[TEMPORAL_K1_QUERY])
+    finally:
+        gs._launch = gs_orig
+    mesh_runner.locate_sorted = probe_rec
+    try:
+        mesh.execute(TEMPORAL_QUERIES[TEMPORAL_K2_QUERY])
+    finally:
+        mesh_runner.locate_sorted = probe_kernel
+    log(f"{TEMPORAL_K2_QUERY}_mesh sorted-probe launches (P, cap_b, n_match, S): "
+        f"{probe_record.get('shapes', {}).get(TEMPORAL_K2_QUERY, [])}")
+    if "largest" in k1_capture:
+        gids, _, values, g = k1_capture["largest"]
+        log(f"{TEMPORAL_K1_QUERY}_local largest grouped-sums launch: N={gids.shape[0]} "
+            f"G={g} K={values.shape[1]}")
+
+    cpu = reference("5j")
+    for name in TEMPORAL_QUERIES:
+        names, types, rows, cpu_s, order = cpu[name]
+        if not rows:
+            raise AssertionError(f"{name}: the CPU reference returned no rows")
+        for where in ("local", "mesh"):
+            res, cold, warm = results[name, where]
+            if res.column_names != names or [t.name for t in res.types] != types:
+                raise AssertionError(f"{name} {where}: columns differ from the CPU run")
+            kernel_f32 = name == TEMPORAL_K1_QUERY and where == "local"
+            assert_rows_match(res.rows, rows, order,
+                              float_rtol=KERNEL_RTOL if kernel_f32 else DOUBLE_RTOL)
+            log(f"temporal {name}_{where}: cold_s={cold!r} warm_s={warm!r} "
+                f"matches the CPU run ({len(rows)} rows, cpu wall_s={cpu_s!r})")
+        log(f"temporal {name}: first row {rows[0]}")
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -2577,7 +2812,7 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 
 
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
-                        tdw: dict, arrays: dict, holistic: dict) -> dict:
+                        tdw: dict, arrays: dict, holistic: dict, temporal: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -2594,6 +2829,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured in phase 5g")
     if "largest" not in holistic:
         raise AssertionError("no sorted-probe launch was captured in phase 5i")
+    if "largest" not in temporal:
+        raise AssertionError("no sorted-probe launch was captured in phase 5j")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -2602,6 +2839,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"tpcds_window_largest_{tdw['largest_query']}",) + tdw["largest"]]
     cases += [(f"arrays_largest_{arrays['largest_query']}",) + arrays["largest"]]
     cases += [(f"holistic_largest_{holistic['largest_query']}",) + holistic["largest"]]
+    cases += [(f"temporal_largest_{temporal['largest_query']}",) + temporal["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -2624,6 +2862,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     arrays_largest["query"] = arrays["largest_query"]
     holistic_largest = time_probe_inputs("holistic_largest", dev, holistic["largest"])
     holistic_largest["query"] = holistic["largest_query"]
+    temporal_largest = time_probe_inputs("temporal_largest", dev, temporal["largest"])
+    temporal_largest["query"] = temporal["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -2637,6 +2877,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "tpcds_inputs": tds_largest,
         "arrays_inputs": arrays_largest,
         "holistic_inputs": holistic_largest,
+        "temporal_inputs": temporal_largest,
     }
 
 
@@ -2761,21 +3002,28 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     agg_path = timed("5h", run_aggregate_path, tpcds_reference)
     holistic: dict = {}
     hol_path = timed("5i", run_holistic_path, tpcds_reference, holistic)
+    temporal_k1: dict = {}
+    temporal: dict = {}
+    tem_path = timed("5j", run_temporal_path, tpcds_reference, temporal_k1, temporal)
     k1["launches"] += (
         arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
+        + tem_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
         "aggregates": agg_path["k1_launches"], "holistic": hol_path["k1_launches"],
+        "temporal": tem_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
+    k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
-               holistic)
+               holistic, temporal)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
         + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
         + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
+        + tem_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -2790,6 +3038,7 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
         "arrays": arr_path["k2_launches"],
         "aggregates": agg_path["k2_launches"],
         "holistic": hol_path["k2_launches"],
+        "temporal": tem_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

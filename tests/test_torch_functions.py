@@ -16,8 +16,9 @@ literal) and the casts (varchar that does not parse becomes NULL, varchar
 to long decimals, double to long decimals, literals to varchar).  Then the
 same families as SQL through both LocalQueryRunners, over VALUES rows made
 from a numpy seed and over tpch.tiny columns.  Where the JAX package
-raises, the port raises NotImplementedError too; the timestamp family
-raises in the port by name.
+raises, the port raises NotImplementedError too, the timestamp family's
+unsupported units and its column-to-varchar cast by name (the timestamp
+family itself is held to the JAX package in test_torch_temporal.py).
 
 Tolerances: integers, decimals (both limbs), dates, booleans and strings
 exact, with the same validity; doubles relative 1e-9 (transcendental
@@ -352,15 +353,22 @@ def test_port_raises_where_jax_raises(name):
 
 
 def test_timestamp_family_raises_by_name():
-    """The JAX package runs these; the port leaves timestamps for later."""
-    for fn in ("year", "month", "date_trunc_month"):
-        e = tir.Call(fn, [tir.Literal(0, TT.TIMESTAMP)], TT.BIGINT)
-        with pytest.raises(NotImplementedError, match="timestamp"):
-            TCompiler(TB).column(e)
-    with pytest.raises(NotImplementedError, match="timestamp"):
+    """What the JAX package refuses in the timestamp family, the port
+    refuses by name: a date_trunc, date_add or date_diff unit it does not
+    know, and a timestamp column cast to varchar."""
+    ts = tir.Literal(0, TT.TIMESTAMP)
+    for fn, args in (
+        ("date_trunc", [tir.Literal("millisecond", TT.VARCHAR), ts]),
+        ("date_add", [tir.Literal("decade", TT.VARCHAR), tir.Literal(1, TT.BIGINT), ts]),
+        ("date_diff", [tir.Literal("century", TT.VARCHAR), ts, ts]),
+    ):
+        with pytest.raises(NotImplementedError, match=f"{fn} unit"):
+            TCompiler(TB).column(tir.Call(fn, args, TT.TIMESTAMP))
+    dates = tir.InputRef(CH["dt"], TT.DATE)
+    with pytest.raises(NotImplementedError, match="timestamp -> varchar on columns"):
         TCompiler(TB).column(
-            tir.SpecialForm(tir.Form.CAST, [tir.Literal("2020-01-01 00:00:00", TT.VARCHAR)],
-                            TT.TIMESTAMP)
+            tir.SpecialForm(tir.Form.CAST, [tir.SpecialForm(tir.Form.CAST, [dates], TT.TIMESTAMP)],
+                            TT.VARCHAR)
         )
 
 

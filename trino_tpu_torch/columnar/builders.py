@@ -20,9 +20,11 @@ from trino_tpu_torch.columnar.dictionary import StringDictionary
 from trino_tpu_torch.types import (
     DATE,
     TIMESTAMP,
+    TIMESTAMP_TZ,
     DecimalType,
     Type,
     is_string_kind,
+    pack_tz,
 )
 
 _EPOCH_DATE = datetime.date(1970, 1, 1)
@@ -38,6 +40,17 @@ def _to_device_scalar(v, t: Type):
         return (v - _EPOCH_DATE).days
     if t is TIMESTAMP and isinstance(v, datetime.datetime):
         return int((v - _EPOCH_TS).total_seconds() * 1_000_000)
+    if t.name == "time" and isinstance(v, datetime.time):
+        return (v.hour * 3600 + v.minute * 60 + v.second) * 1_000_000 + v.microsecond
+    if t is TIMESTAMP_TZ and isinstance(v, datetime.datetime):
+        off = v.utcoffset()
+        off_min = int(off.total_seconds() // 60) if off is not None else 0
+        utc = v.replace(tzinfo=None) - datetime.timedelta(minutes=off_min)
+        # timedelta floor division: total_seconds() * 1000 as a float
+        # truncates toward zero and puts every pre-epoch fractional value
+        # 1 ms high
+        millis = (utc - _EPOCH_TS) // datetime.timedelta(milliseconds=1)
+        return pack_tz(millis, off_min)
     return v
 
 

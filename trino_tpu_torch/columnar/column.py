@@ -151,24 +151,21 @@ class Column:
         )
 
 
-#: scalar types whose rendering the port has not taken over yet
-_UNPORTED_RENDER = frozenset(
-    {
-        "time",
-        "interval year to month",
-        "interval day to second",
-        "timestamp with time zone",
-    }
-)
-
-
 def decode_values(data, valid, t: Type, dictionary, row_mask=None, lengths=None) -> list:
     """Host numpy column -> python values (the JAX package's
     Column.to_pylist): arrays decode to lists, maps to dicts."""
     import datetime
     from decimal import Context, Decimal
 
-    from trino_tpu_torch.types import DATE, TIMESTAMP, ArrayType, DecimalType, MapType
+    from trino_tpu_torch.types import (
+        DATE,
+        TIMESTAMP,
+        ArrayType,
+        DecimalType,
+        MapType,
+        unpack_tz_millis,
+        unpack_tz_offset,
+    )
 
     n = data.shape[0]
     rows = range(n) if row_mask is None else np.nonzero(np.asarray(row_mask))[0]
@@ -196,8 +193,6 @@ def decode_values(data, valid, t: Type, dictionary, row_mask=None, lengths=None)
                     decode_values(data[i, : int(lengths[i])], None, elem, dictionary)
                 )
         return out
-    if t.name in _UNPORTED_RENDER:
-        raise NotImplementedError(f"rendering {t.name}: not ported yet")
     is_dec = isinstance(t, DecimalType)
     is_long_dec = is_dec and t.is_long and data.ndim == 2
     if is_long_dec:
@@ -228,6 +223,28 @@ def decode_values(data, valid, t: Type, dictionary, row_mask=None, lengths=None)
                 datetime.datetime(1970, 1, 1)
                 + datetime.timedelta(microseconds=int(data[i]))
             )
+        elif t.name == "time":
+            us = int(data[i]) % 86_400_000_000
+            out.append(
+                (datetime.datetime(1970, 1, 1) + datetime.timedelta(microseconds=us)).time()
+            )
+        elif t.name == "interval year to month":
+            mo = int(data[i])
+            sign = "-" if mo < 0 else ""
+            out.append(f"{sign}{abs(mo) // 12}-{abs(mo) % 12}")
+        elif t.name == "interval day to second":
+            us = int(data[i])
+            sign = "-" if us < 0 else ""
+            d_, rem = divmod(abs(us), 86_400_000_000)
+            h_, rem = divmod(rem, 3_600_000_000)
+            m_, rem = divmod(rem, 60_000_000)
+            s_, frac = divmod(rem, 1_000_000)
+            out.append(f"{sign}{d_} {h_:02d}:{m_:02d}:{s_:02d}.{frac // 1000:03d}")
+        elif t.name == "timestamp with time zone":
+            # the instant, shown in the value's own zone offset
+            p = int(data[i])
+            tz = datetime.timezone(datetime.timedelta(minutes=int(unpack_tz_offset(p))))
+            out.append(datetime.datetime.fromtimestamp(unpack_tz_millis(p) / 1000.0, tz))
         elif np.issubdtype(data.dtype, np.floating):
             out.append(float(data[i]))
         elif data.dtype == np.dtype(bool):

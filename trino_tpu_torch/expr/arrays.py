@@ -20,7 +20,7 @@ value, and zip_with of arrays of different lengths is NULL.
 from __future__ import annotations
 
 import json
-from collections import OrderedDict, deque
+from collections import deque
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ from trino_tpu_torch.columnar.column import pad_slots, take_table, torch_dtype
 from trino_tpu_torch.expr.compiler import Val, _and_valid, _valid_arr
 from trino_tpu_torch.expr.functions import (
     FUNCTIONS,
+    _host_table,
     _literal_str,
     _require_dict,
     register,
@@ -234,39 +235,28 @@ def _repeat(ctx, call, elem, count):
 #: (read and cleared by callers that time this host work; bounded)
 SPLIT_TABLE_LOG: deque = deque(maxlen=4096)
 
-#: split's tables by (dictionary, delimiter, limit), the dictionary keyed by
-#: its values: every batch of a column carries an equal dictionary, so the
-#: table is built once, not once a batch (the JAX package builds it once a
-#: trace)
-_SPLIT_TABLES: "OrderedDict" = OrderedDict()
-_SPLIT_TABLES_LIMIT = 16
-
 
 def _split_table(d: StringDictionary, sep: str, lim):
     """(pieces dictionary, codes [|d|, K], lengths [|d|]) of split over
-    every dictionary value."""
+    every dictionary value, kept across batches with the string
+    functions' tables (functions._host_table)."""
     import time
 
-    key = (d, sep, lim)
-    hit = _SPLIT_TABLES.get(key)
-    if hit is not None:
-        _SPLIT_TABLES.move_to_end(key)
-        return hit
-    t0 = time.perf_counter()
-    pieces_per = [(s.split(sep, lim - 1) if lim else s.split(sep)) for s in d.values]
-    nd = StringDictionary(sorted({p for ps in pieces_per for p in ps}))
-    ix = nd.index
-    k = max(1, max((len(ps) for ps in pieces_per), default=1))
-    table = np.zeros((len(d.values), k), np.int32)
-    lens_t = np.zeros(len(d.values), np.int32)
-    for i, ps in enumerate(pieces_per):
-        lens_t[i] = len(ps)
-        table[i, : len(ps)] = [ix[p] for p in ps]
-    SPLIT_TABLE_LOG.append((time.perf_counter() - t0, len(d.values), k))
-    _SPLIT_TABLES[key] = (nd, table, lens_t)
-    while len(_SPLIT_TABLES) > _SPLIT_TABLES_LIMIT:
-        _SPLIT_TABLES.popitem(last=False)
-    return nd, table, lens_t
+    def build(d):
+        t0 = time.perf_counter()
+        pieces_per = [(s.split(sep, lim - 1) if lim else s.split(sep)) for s in d.values]
+        nd = StringDictionary(sorted({p for ps in pieces_per for p in ps}))
+        ix = nd.index
+        k = max(1, max((len(ps) for ps in pieces_per), default=1))
+        table = np.zeros((len(d.values), k), np.int32)
+        lens_t = np.zeros(len(d.values), np.int32)
+        for i, ps in enumerate(pieces_per):
+            lens_t[i] = len(ps)
+            table[i, : len(ps)] = [ix[p] for p in ps]
+        SPLIT_TABLE_LOG.append((time.perf_counter() - t0, len(d.values), k))
+        return nd, table, lens_t
+
+    return _host_table("split", (sep, lim), d, build)
 
 
 @register("split")

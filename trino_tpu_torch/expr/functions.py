@@ -1,23 +1,27 @@
 """Scalar function library (reference: operator/scalar/* plus the per-type
 operators in type/*Operators.java).
 
-Port of trino_tpu/expr/functions.py up to its casts: short- and
+Port of trino_tpu/expr/functions.py, the whole of it: short- and
 long-decimal arithmetic (division and modulus over int128 limbs, rounded
-half away from zero), comparisons (numeric, date and dictionary-coded
-strings), the numeric functions, the civil-date functions over DATE
-values, the dictionary string functions (LIKE, the regexp family, substr,
-the case/trim/replace maps, length, strpos, concat) and the cast family.
-String functions evaluate over the dictionary on the host and gather a
-table by code on the device; every gather clamps its codes first, as the
-JAX package's ``take(mode="clip")`` does, so a NULL row's code may be
-anything.  Timestamp and time-zone values, the string/url/math/bitwise
-breadth past the casts and ``concat_ws`` raise NotImplementedError by name.
-The array, JSON and lambda functions live in expr/arrays.py and the map
-functions in expr/maps.py; both register here when this module loads.
+half away from zero), comparisons (numeric, temporal and dictionary-coded
+strings), the numeric and math functions, the bitwise family, the civil
+calendar over DATE, TIMESTAMP and TIMESTAMP WITH TIME ZONE values, time of
+day and time zones, the dictionary string functions (LIKE, the regexp
+family, substr, the case/trim/replace/pad/translate maps, split_part, the
+url family, length, strpos, levenshtein_distance, concat), concat_ws and
+format, and the cast family.  String functions evaluate over the
+dictionary on the host and gather a table by code on the device; every
+gather clamps its codes first, as the JAX package's ``take(mode="clip")``
+does, so a NULL row's code may be anything.  concat_ws and format render
+each row on the host.  The array, JSON and lambda functions live in
+expr/arrays.py and the map functions in expr/maps.py; both register here
+when this module loads.
 """
 
 from __future__ import annotations
 
+import time
+from collections import OrderedDict, deque
 from typing import Callable
 
 import numpy as np
@@ -46,7 +50,7 @@ def dispatch(ctx: ExprCompiler, call: Call) -> Val:
 
     fn = FUNCTIONS.get(call.name)
     if fn is None:
-        raise NotImplementedError(f"scalar function not ported yet: {call.name}")
+        raise NotImplementedError(f"scalar function not implemented: {call.name}")
     # lambda arguments pass through unevaluated: the handler binds their
     # parameters over array elements and evaluates the body itself
     vals = [a if isinstance(a, Lambda) else ctx.value(a) for a in call.args]
@@ -641,9 +645,12 @@ FUNCTIONS["least"] = _minmax(False)
 
 
 # ---------------------------------------------------------------------------
-# dates (civil calendar math on day numbers; Howard Hinnant's algorithms).
-# DATE values only: over TIMESTAMP and TIMESTAMP WITH TIME ZONE these
-# functions raise until the timestamp family is ported.
+# dates and timestamps (civil calendar math on day numbers; Howard Hinnant's
+# algorithms).  A DATE is int32 days, a TIMESTAMP int64 micros, a TIME int64
+# micros since midnight and a TIMESTAMP WITH TIME ZONE the packed
+# utc_millis * 4096 + (offset minutes + 2048).  Every division and remainder
+# below floors (torch's // and % on integer tensors), so values before 1970
+# land in the right day.
 
 
 def _civil_from_days(days):
@@ -670,10 +677,27 @@ def _days_from_civil(y, m, d):
     return era * 146097 + doe - 719468
 
 
-def _as_days(v: Val, what: str) -> torch.Tensor:
-    if v.type is T.TIMESTAMP or v.type is T.TIMESTAMP_TZ:
-        raise NotImplementedError(f"{what} over {v.type.name}: not ported yet")
+_DAY_US = 86_400_000_000
+
+
+def _tz_local_micros(v: Val) -> torch.Tensor:
+    """Wall-clock micros in the value's own zone (packed tz layout)."""
+    p = _i64(v.data)
+    return (T.unpack_tz_millis(p) + T.unpack_tz_offset(p) * 60_000) * 1000
+
+
+def _as_days(v: Val) -> torch.Tensor:
+    if v.type is T.TIMESTAMP:
+        return _i64(v.data) // _DAY_US
+    if v.type is T.TIMESTAMP_TZ:
+        return _tz_local_micros(v) // _DAY_US
     return _i64(v.data)
+
+
+def _day_micros(v: Val) -> torch.Tensor:
+    """Micros since local midnight of a time, timestamp or timestamptz."""
+    us = _tz_local_micros(v) if v.type is T.TIMESTAMP_TZ else _i64(v.data)
+    return us % _DAY_US
 
 
 def _const(ctx, x: int) -> torch.Tensor:
@@ -682,40 +706,40 @@ def _const(ctx, x: int) -> torch.Tensor:
 
 @register("year")
 def _year(ctx, call, a):
-    y, _, _ = _civil_from_days(_as_days(a, "year"))
+    y, _, _ = _civil_from_days(_as_days(a))
     return Val(y, a.valid, T.BIGINT)
 
 
 @register("month")
 def _month(ctx, call, a):
-    _, m, _ = _civil_from_days(_as_days(a, "month"))
+    _, m, _ = _civil_from_days(_as_days(a))
     return Val(m, a.valid, T.BIGINT)
 
 
 @register("day")
 @register("day_of_month")
 def _day(ctx, call, a):
-    _, _, d = _civil_from_days(_as_days(a, "day"))
+    _, _, d = _civil_from_days(_as_days(a))
     return Val(d, a.valid, T.BIGINT)
 
 
 @register("quarter")
 def _quarter(ctx, call, a):
-    _, m, _ = _civil_from_days(_as_days(a, "quarter"))
+    _, m, _ = _civil_from_days(_as_days(a))
     return Val((m - 1) // 3 + 1, a.valid, T.BIGINT)
 
 
 @register("day_of_week")
 @register("dow")
 def _dow(ctx, call, a):
-    d = _as_days(a, "day_of_week")
+    d = _as_days(a)
     return Val((d + 3) % 7 + 1, a.valid, T.BIGINT)  # 1 = Monday .. 7 = Sunday
 
 
 @register("day_of_year")
 @register("doy")
 def _doy(ctx, call, a):
-    d = _as_days(a, "day_of_year")
+    d = _as_days(a)
     y, _, _ = _civil_from_days(d)
     jan1 = _days_from_civil(y, _const(ctx, 1), _const(ctx, 1))
     return Val(d - jan1 + 1, a.valid, T.BIGINT)
@@ -743,53 +767,52 @@ def _add_months_days(ctx, days, k):
     return _days_from_civil(ny, nm, torch.minimum(d, last))
 
 
+def _temporal_micros(v: Val):
+    """(local micros, kind) of a date, timestamp or timestamptz value;
+    kind is 'date', 'ts' or 'tz'."""
+    if v.type is T.TIMESTAMP_TZ:
+        return _tz_local_micros(v), "tz"
+    if v.type is T.TIMESTAMP:
+        return _i64(v.data), "ts"
+    return _i64(v.data) * _DAY_US, "date"
+
+
+def _temporal_pack(us, kind: str, v: Val):
+    """Local micros back to the value's representation (a timestamptz
+    keeps its zone offset)."""
+    if kind == "tz":
+        off = T.unpack_tz_offset(_i64(v.data))
+        return T.pack_tz(us // 1000 - off * 60_000, off)
+    if kind == "ts":
+        return us
+    return us // _DAY_US
+
+
+def _add_months(ctx, v: Val, k, valid, rt) -> Val:
+    """v + k months, keeping the time of day (month-end clamping)."""
+    us, kind = _temporal_micros(v)
+    days = _add_months_days(ctx, us // _DAY_US, k)
+    return Val(_temporal_pack(days * _DAY_US + us % _DAY_US, kind, v), valid, rt)
+
+
 @register("date_add_months")
 def _date_add_months(ctx, call, a, n):
-    days = _add_months_days(ctx, _as_days(a, "date_add_months"), _i64(n.data))
-    return Val(days, _and_valid(a.valid, n.valid), call.type)
+    return _add_months(ctx, a, _i64(n.data), _and_valid(a.valid, n.valid), call.type)
 
 
 @register("date_trunc_month")
 def _date_trunc_month(ctx, call, a):
-    y, m, _ = _civil_from_days(_as_days(a, "date_trunc_month"))
+    y, m, _ = _civil_from_days(_as_days(a))
     return Val(_days_from_civil(y, m, _const(ctx, 1)), a.valid, T.DATE)
 
 
 @register("date_trunc_year")
 def _date_trunc_year(ctx, call, a):
-    y, _, _ = _civil_from_days(_as_days(a, "date_trunc_year"))
+    y, _, _ = _civil_from_days(_as_days(a))
     one = _const(ctx, 1)
     return Val(_days_from_civil(y, one, one), a.valid, T.DATE)
 
 
-@register("date_trunc")
-def _date_trunc(ctx, call, unit, v):
-    """date_trunc(unit, date) (reference: scalar/DateTimeFunctions truncate
-    family); a time unit leaves a DATE as it is."""
-    u = _literal_str(unit, "date_trunc").lower()
-    days = _as_days(v, "date_trunc")
-    if u in ("second", "minute", "hour"):
-        return Val(v.data, v.valid, call.type, v.dictionary)
-    one = _const(ctx, 1)
-    if u == "day":
-        out = days
-    elif u == "week":
-        # ISO weeks start on Monday; 1970-01-01 was a Thursday
-        out = days - (days + 3) % 7
-    elif u in ("month", "year", "quarter"):
-        y, m, _ = _civil_from_days(days)
-        if u == "month":
-            out = _days_from_civil(y, m, one)
-        elif u == "quarter":
-            out = _days_from_civil(y, ((m - 1) // 3) * 3 + 1, one)
-        else:
-            out = _days_from_civil(y, one, one)
-    else:
-        raise NotImplementedError(f"date_trunc unit {u!r}")
-    return Val(out, v.valid, call.type)
-
-
-_DAY_US = 86_400_000_000
 _TIME_UNIT_US = {
     "millisecond": 1000,
     "second": 1_000_000,
@@ -801,32 +824,67 @@ _TIME_UNIT_US = {
 _MONTH_UNITS = {"month": 1, "quarter": 3, "year": 12}
 
 
+@register("date_trunc")
+def _date_trunc(ctx, call, unit, v):
+    """date_trunc(unit, date | timestamp | timestamptz), keeping the input
+    type (reference: scalar/DateTimeFunctions truncate family); a time unit
+    leaves a DATE as it is."""
+    u = _literal_str(unit, "date_trunc").lower()
+    us, kind = _temporal_micros(v)
+    if u in ("second", "minute", "hour"):
+        if kind == "date":
+            return Val(v.data, v.valid, call.type, v.dictionary)
+        step = _TIME_UNIT_US[u]
+        return Val(_temporal_pack((us // step) * step, kind, v), v.valid, call.type)
+    days = us // _DAY_US
+    one = _const(ctx, 1)
+    if u == "day":
+        out = days
+    elif u == "week":
+        # ISO weeks start on Monday; 1970-01-01 was a Thursday
+        out = days - (days + 3) % 7
+    elif u in _MONTH_UNITS:
+        y, m, _ = _civil_from_days(days)
+        if u == "month":
+            out = _days_from_civil(y, m, one)
+        elif u == "quarter":
+            out = _days_from_civil(y, ((m - 1) // 3) * 3 + 1, one)
+        else:
+            out = _days_from_civil(y, one, one)
+    else:
+        raise NotImplementedError(f"date_trunc unit {u!r}")
+    return Val(_temporal_pack(out * _DAY_US, kind, v), v.valid, call.type)
+
+
 @register("date_add")
 def _date_add_general(ctx, call, unit, n, v):
-    """date_add(unit, value, date) (reference: DateTimeFunctions.addFieldValue*)."""
+    """date_add(unit, value, date | timestamp | timestamptz) (reference:
+    DateTimeFunctions.addFieldValue*)."""
     u = _literal_str(unit, "date_add").lower().rstrip("s")
     k = _i64(n.data)
     valid = _and_valid(v.valid, n.valid)
-    days = _as_days(v, "date_add")
     if u in _MONTH_UNITS:
-        return Val(_add_months_days(ctx, days, k * _MONTH_UNITS[u]), valid, call.type)
+        return _add_months(ctx, v, k * _MONTH_UNITS[u], valid, call.type)
     step = _TIME_UNIT_US.get(u)
     if step is None:
         raise NotImplementedError(f"date_add unit {u!r}")
-    if step < _DAY_US:
+    us, kind = _temporal_micros(v)
+    if kind == "date" and step < _DAY_US:
         raise TypeError(f"date_add({u!r}) on a DATE value")
-    return Val(days + k * (step // _DAY_US), valid, call.type)
+    return Val(_temporal_pack(us + k * step, kind, v), valid, call.type)
 
 
 @register("date_diff")
 def _date_diff_general(ctx, call, unit, a, b):
-    """date_diff(unit, from, to): complete units between two dates,
-    truncated toward zero (reference: DateTimeFunctions.diffDate)."""
+    """date_diff(unit, from, to): complete units between the two local
+    times, truncated toward zero (reference: DateTimeFunctions.diffDate and
+    diffTimestamp; a partial trailing unit does not count)."""
     u = _literal_str(unit, "date_diff").lower().rstrip("s")
-    da = _as_days(a, "date_diff")
-    db = _as_days(b, "date_diff")
+    va, _ = _temporal_micros(a)
+    vb, _ = _temporal_micros(b)
     valid = _and_valid(a.valid, b.valid)
     if u in _MONTH_UNITS:
+        da, db = va // _DAY_US, vb // _DAY_US
         ya, ma, _ = _civil_from_days(da)
         yb, mb, _ = _civil_from_days(db)
         months = (yb * 12 + mb) - (ya * 12 + ma)
@@ -845,8 +903,151 @@ def _date_diff_general(ctx, call, unit, a, b):
     step = _TIME_UNIT_US.get(u)
     if step is None:
         raise NotImplementedError(f"date_diff unit {u!r}")
-    diff = (db - da) * _DAY_US
+    diff = vb - va
+    # truncated toward zero: -30 minutes is 0 complete hours, not -1
     return Val(torch.sign(diff) * (diff.abs() // step), valid, call.type)
+
+
+# ---------------------------------------------------------------------------
+# time of day and timestamp with time zone (reference:
+# operator/scalar/DateTimeFunctions.java and the SPI's DateTimeEncoding)
+
+
+@register("hour")
+def _hour(ctx, call, a):
+    return Val(_day_micros(a) // 3_600_000_000, a.valid, T.BIGINT)
+
+
+@register("minute")
+def _minute(ctx, call, a):
+    return Val(_day_micros(a) // 60_000_000 % 60, a.valid, T.BIGINT)
+
+
+@register("second")
+def _second(ctx, call, a):
+    return Val(_day_micros(a) // 1_000_000 % 60, a.valid, T.BIGINT)
+
+
+@register("millisecond")
+def _millisecond(ctx, call, a):
+    return Val(_day_micros(a) // 1000 % 1000, a.valid, T.BIGINT)
+
+
+@register("$tz_instant")
+def _tz_instant(ctx, call, a):
+    """Packed tz -> the UTC instant's micros (a TIMESTAMP in the UTC session
+    zone): comparisons and ORDER BY over timestamptz go through it."""
+    return Val(T.unpack_tz_millis(_i64(a.data)) * 1000, a.valid, T.TIMESTAMP)
+
+
+def _zone_offset_of(zone: Val, what: str) -> int:
+    """Minutes east of UTC of a literal zone: a fixed offset exactly, a
+    named zone at the offset in force now (types.zone_offset_minutes)."""
+    return T.zone_offset_minutes(_literal_str(zone, what))
+
+
+@register("at_timezone")
+def _at_timezone(ctx, call, v, zone):
+    """`v AT TIME ZONE z`: the same instant, shown in zone z (reference:
+    scalar/AtTimeZone.java)."""
+    off = _zone_offset_of(zone, "AT TIME ZONE")
+    if v.type is T.TIMESTAMP_TZ:
+        millis = T.unpack_tz_millis(_i64(v.data))
+    elif v.type is T.TIMESTAMP:
+        # the session zone is UTC: the local timestamp is the instant
+        millis = _i64(v.data) // 1000
+    elif v.type is T.DATE:
+        millis = _i64(v.data) * 86_400_000
+    else:
+        raise TypeError(f"AT TIME ZONE on {v.type.name}")
+    return Val(T.pack_tz(millis, off), v.valid, T.TIMESTAMP_TZ)
+
+
+@register("with_timezone")
+def _with_timezone(ctx, call, v, zone):
+    """with_timezone(timestamp, zone): the wall time v read in zone z
+    (reference: scalar/WithTimeZone.java)."""
+    off = _zone_offset_of(zone, "with_timezone")
+    utc = _i64(v.data) // 1000 - off * 60_000
+    return Val(T.pack_tz(utc, off), v.valid, T.TIMESTAMP_TZ)
+
+
+@register("$tz_add_micros")
+def _tz_add_micros(ctx, call, v, delta):
+    """timestamptz + a day-to-second interval: the UTC instant moves, the
+    zone offset stays (reference: DateTimeOperators tz + interval)."""
+    p = _i64(v.data)
+    millis = T.unpack_tz_millis(p) + _i64(delta.data) // 1000
+    return Val(
+        millis * T.TZ_SHIFT + p % T.TZ_SHIFT,
+        _and_valid(v.valid, delta.valid),
+        T.TIMESTAMP_TZ,
+    )
+
+
+_TWO63 = 9223372036854775808.0  # 2**63, the first double past INT64_MAX
+
+
+def _saturating_i64(f: torch.Tensor) -> torch.Tensor:
+    """f64 -> int64 truncated toward zero, NaN to 0 and out-of-range values
+    saturated: XLA's float-to-int conversion, which the JAX package's
+    from_unixtime takes.  A CUDA or C++ cast of NaN or of an out-of-range
+    value is undefined, so every such value is replaced before the cast."""
+    ok = torch.logical_not(torch.isnan(f))
+    # the largest double below 2**63 converts exactly
+    fc = torch.where(ok, f, 0.0).clamp(-_TWO63, _TWO63 - 1024.0)
+    return torch.where(f >= _TWO63, torch.iinfo(torch.int64).max, fc.to(torch.int64))
+
+
+def _unix_millis(v: Val) -> torch.Tensor:
+    """Seconds since the epoch -> whole milliseconds, truncated toward
+    zero.  A decimal converts exactly from its scaled integer (the JAX
+    package reads a short decimal's scaled integer as seconds and fails on
+    a long decimal's limb planes; ROADMAP lists the difference)."""
+    t = v.type
+    if isinstance(t, T.DecimalType):
+        from trino_tpu_torch.types import int128 as i128
+
+        if t.scale <= 3:
+            h, l = i128.rescale128(*_to_planes(v, t.scale), t.scale, 3)
+        else:
+            h, l, _ = i128.truncdiv_pow10(*_to_planes(v, t.scale), t.scale - 3)
+        return l
+    return _saturating_i64(v.data.to(torch.float64) * 1000.0)
+
+
+@register("from_unixtime")
+def _from_unixtime(ctx, call, secs, zone=None):
+    off = _zone_offset_of(zone, "from_unixtime") if zone is not None else 0
+    millis = _unix_millis(secs)
+    if call.type is T.TIMESTAMP:
+        return Val(millis * 1000, secs.valid, T.TIMESTAMP)
+    return Val(T.pack_tz(millis, off), secs.valid, T.TIMESTAMP_TZ)
+
+
+@register("to_unixtime")
+def _to_unixtime(ctx, call, v):
+    if v.type is T.TIMESTAMP_TZ:
+        millis = T.unpack_tz_millis(_i64(v.data))
+        return Val(millis.to(torch.float64) / 1000.0, v.valid, T.DOUBLE)
+    return Val(v.data.to(torch.float64) / 1_000_000.0, v.valid, T.DOUBLE)
+
+
+@register("timezone_minute")
+def _timezone_minute(ctx, call, v):
+    off = T.unpack_tz_offset(_i64(v.data))
+    return Val(torch.sign(off) * (off.abs() % 60), v.valid, T.BIGINT)
+
+
+@register("timezone_hour")
+def _timezone_hour(ctx, call, v):
+    off = T.unpack_tz_offset(_i64(v.data))
+    # truncated toward zero: -03:30 is hour -3, minute -30
+    return Val(
+        off // 60 + torch.logical_and(off < 0, off % 60 != 0).to(torch.int64),
+        v.valid,
+        T.BIGINT,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -864,6 +1065,35 @@ def _literal_str(v: Val, what: str) -> str:
     if s is None:
         raise NotImplementedError(f"{what}: pattern/argument must be a literal")
     return s
+
+
+#: (function, dictionary entries, host seconds) of each table built over a
+#: dictionary (not of the ones found kept); read and cleared by callers
+#: that time this host work; bounded
+HOST_TABLE_LOG: deque = deque(maxlen=4096)
+
+#: the string functions' tables by (function, its literal arguments, the
+#: dictionary's values).  The port evaluates each batch eagerly, where the
+#: JAX package builds a table once a trace; every batch of a column carries
+#: an equal dictionary, so the table is built once
+_HOST_TABLES: "OrderedDict" = OrderedDict()
+_HOST_TABLES_LIMIT = 32
+
+
+def _host_table(what: str, args: tuple, d: StringDictionary, build):
+    """`build(d)`, kept under (what, args, d)."""
+    key = (what, args, d)
+    hit = _HOST_TABLES.get(key)
+    if hit is not None:
+        _HOST_TABLES.move_to_end(key)
+        return hit
+    t0 = time.perf_counter()
+    out = build(d)
+    HOST_TABLE_LOG.append((what, len(d), time.perf_counter() - t0))
+    _HOST_TABLES[key] = out
+    while len(_HOST_TABLES) > _HOST_TABLES_LIMIT:
+        _HOST_TABLES.popitem(last=False)
+    return out
 
 
 def _dict_table(outs: list) -> tuple:
@@ -933,15 +1163,25 @@ def _regexp_replace(ctx, call, value, pattern, repl=None):
     r = _literal_str(repl, "regexp_replace") if repl is not None else ""
     # SQL backreferences are $1; Python's re uses \1
     r = re.sub(r"\$(\d+)", r"\\\1", r)
-    return _string_map(ctx, call, value, lambda s: rx.sub(r, s), "regexp_replace")
+    return _string_map(
+        ctx, call, value, lambda s: rx.sub(r, s), "regexp_replace", (rx.pattern, r)
+    )
 
 
-def _string_map(ctx, call, value: Val, fn, what: str) -> Val:
+def _string_map(ctx, call, value: Val, fn, what: str, args: tuple) -> Val:
     """Map a Python string function over the dictionary: a new dictionary
-    and a code table."""
+    and a code table, kept under (what, args) (`args` are the literal
+    arguments that, with `what`, define `fn`)."""
     d = _require_dict(value, what)
-    nd, table = _dict_table([fn(s) for s in d.values])
+    nd, table = _host_table(what, args, d, lambda d: _dict_table([fn(s) for s in d.values]))
     return Val(take_table(table, value.data), value.valid, call.type, nd)
+
+
+def _int_table(value: Val, what: str, args: tuple, build) -> torch.Tensor:
+    """An int64 table over the dictionary (`build(d)`), kept as
+    `_string_map`'s are, gathered by code."""
+    d = _require_dict(value, what)
+    return take_table(_host_table(what, args, d, build), value.data)
 
 
 @register("substr")
@@ -964,23 +1204,23 @@ def _substr(ctx, call, value, start, length=None):
                 return ""
         return s[begin : begin + ln] if ln is not None else s[begin:]
 
-    return _string_map(ctx, call, value, fn, "substr")
+    return _string_map(ctx, call, value, fn, "substr", (s0, ln))
 
 
 @register("upper")
 def _upper(ctx, call, value):
-    return _string_map(ctx, call, value, str.upper, "upper")
+    return _string_map(ctx, call, value, str.upper, "upper", ())
 
 
 @register("lower")
 def _lower(ctx, call, value):
-    return _string_map(ctx, call, value, str.lower, "lower")
+    return _string_map(ctx, call, value, str.lower, "lower", ())
 
 
 def _trim_fn(name: str, method):
     def handler(ctx, call, value, chars=None):
         cs = _literal_str(chars, name) if chars is not None else None
-        return _string_map(ctx, call, value, lambda s: method(s, cs), name)
+        return _string_map(ctx, call, value, lambda s: method(s, cs), name, (cs,))
 
     return handler
 
@@ -992,14 +1232,14 @@ FUNCTIONS["rtrim"] = _trim_fn("rtrim", str.rstrip)
 
 @register("reverse")
 def _reverse(ctx, call, value):
-    return _string_map(ctx, call, value, lambda s: s[::-1], "reverse")
+    return _string_map(ctx, call, value, lambda s: s[::-1], "reverse", ())
 
 
 @register("replace")
 def _replace(ctx, call, value, find, repl=None):
     f = _literal_str(find, "replace")
     r = _literal_str(repl, "replace") if repl is not None else ""
-    return _string_map(ctx, call, value, lambda s: s.replace(f, r), "replace")
+    return _string_map(ctx, call, value, lambda s: s.replace(f, r), "replace", (f, r))
 
 
 @register("length")
@@ -1049,7 +1289,9 @@ def _concat(ctx, call, *vals):
     pre = "".join(_literal_str(v, "concat") for v in vals[: col_ix[0]])
     post = "".join(_literal_str(v, "concat") for v in vals[col_ix[-1] + 1 :])
     if len(col_ix) == 1:
-        out = _string_map(ctx, call, vals[col_ix[0]], lambda s: pre + s + post, "concat")
+        out = _string_map(
+            ctx, call, vals[col_ix[0]], lambda s: pre + s + post, "concat", (pre, post)
+        )
         return Val(out.data, valid, call.type, out.dictionary)
     # two dictionary columns: the |da| x |db| pair dictionary is built once
     # on the host, and each row is one gather (reference role:
@@ -1068,6 +1310,521 @@ def _concat(ctx, call, *vals):
     nb = len(db)
     flat = _i64(a.data).clamp(0, len(da) - 1) * nb + _i64(b.data).clamp(0, nb - 1)
     return Val(take_table(table, flat), valid, call.type, merged)
+
+
+@register("hamming_distance")
+def _unsupported(ctx, call, *vals):
+    raise NotImplementedError(call.name)
+
+
+# ---------------------------------------------------------------------------
+# string breadth (reference: operator/scalar/StringFunctions.java,
+# SplitPart, PadFunctions, TranslateFunction, UrlFunctions.java)
+
+
+@register("split_part")
+def _split_part(ctx, call, value, delim, index):
+    dl = _literal_str(delim, "split_part")
+    ix = int(index.data)
+
+    def fn(s: str) -> str:
+        if ix < 1:
+            return ""
+        parts = s.split(dl) if dl else [s]
+        return parts[ix - 1] if ix <= len(parts) else ""
+
+    return _string_map(ctx, call, value, fn, "split_part", (dl, ix))
+
+
+def _pad(name: str, left: bool):
+    def handler(ctx, call, value, size, pad=None):
+        n = int(size.data)
+        p = _literal_str(pad, name) if pad is not None else " "
+
+        def fn(s: str) -> str:
+            if len(s) >= n:
+                return s[:n]
+            fill = (p * n)[: n - len(s)] if p else ""
+            return fill + s if left else s + fill
+
+        return _string_map(ctx, call, value, fn, name, (n, p))
+
+    return handler
+
+
+FUNCTIONS["lpad"] = _pad("lpad", left=True)
+FUNCTIONS["rpad"] = _pad("rpad", left=False)
+
+
+@register("translate")
+def _translate(ctx, call, value, frm, to):
+    f = _literal_str(frm, "translate")
+    t = _literal_str(to, "translate")
+    table = {}
+    for i, ch in enumerate(f):
+        if ord(ch) not in table:  # the first occurrence wins (TranslateFunction)
+            table[ord(ch)] = t[i] if i < len(t) else None
+    return _string_map(
+        ctx, call, value, lambda s: s.translate(table), "translate", (f, t)
+    )
+
+
+@register("codepoint")
+def _codepoint(ctx, call, value):
+    out = _int_table(
+        value, "codepoint", (),
+        lambda d: np.fromiter((ord(s[0]) if s else 0 for s in d.values), np.int64, len(d)),
+    )
+    return Val(out, value.valid, call.type)
+
+
+@register("chr")
+def _chr(ctx, call, value):
+    # literal only: a column of code points would need a data-dependent
+    # dictionary, which the JAX package's trace-time compilation cannot build
+    if value.data.ndim != 0:
+        raise NotImplementedError("chr() supports only literal arguments")
+    d = StringDictionary([chr(int(value.data))])
+    return Val(ctx.tensor(0, torch.int32), value.valid, call.type, d)
+
+
+@register("normalize")
+def _normalize(ctx, call, value, form=None):
+    import unicodedata
+
+    f = _literal_str(form, "normalize") if form is not None else "NFC"
+    return _string_map(
+        ctx, call, value, lambda s: unicodedata.normalize(f, s), "normalize", (f,)
+    )
+
+
+def _levenshtein(a: str, b: str) -> int:
+    """Edit distance, the row-by-row dynamic program."""
+    if len(a) < len(b):
+        a, b = b, a
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1]
+
+
+@register("levenshtein_distance")
+def _levenshtein_distance(ctx, call, value, target):
+    t = _literal_str(target, "levenshtein_distance")
+    out = _int_table(
+        value, "levenshtein_distance", (t,),
+        lambda d: np.fromiter((_levenshtein(s, t) for s in d.values), np.int64, len(d)),
+    )
+    return Val(out, value.valid, call.type)
+
+
+def _url_part(part: str):
+    from urllib.parse import urlparse
+
+    def get(s: str) -> str:
+        try:
+            u = urlparse(s)
+            if part == "host":
+                return u.hostname or ""
+            if part == "protocol":
+                return u.scheme or ""
+            if part == "path":
+                return u.path or ""
+            if part == "query":
+                return u.query or ""
+            if part == "fragment":
+                return u.fragment or ""
+            if part == "port":
+                return str(u.port) if u.port is not None else ""
+        except ValueError:
+            return ""
+        return ""
+
+    return get
+
+
+def _url_extract(part: str):
+    name = f"url_extract_{part}"
+
+    def handler(ctx, call, value):
+        get = _url_part(part)
+        if part != "port":
+            return _string_map(ctx, call, value, get, name, ())
+        out = _int_table(
+            value, name, (),
+            lambda d: np.fromiter(
+                ((int(p) if p else -1) for p in map(get, d.values)), np.int64, len(d)
+            ),
+        )
+        # no port -> NULL
+        return Val(out, _and_valid(value.valid, out >= 0), call.type)
+
+    return handler
+
+
+for _part in ("host", "protocol", "path", "query", "fragment", "port"):
+    FUNCTIONS[f"url_extract_{_part}"] = _url_extract(_part)
+
+
+@register("url_encode")
+def _url_encode(ctx, call, value):
+    from urllib.parse import quote_plus
+
+    return _string_map(ctx, call, value, quote_plus, "url_encode", ())
+
+
+@register("url_decode")
+def _url_decode(ctx, call, value):
+    from urllib.parse import unquote_plus
+
+    return _string_map(ctx, call, value, unquote_plus, "url_decode", ())
+
+
+# ---------------------------------------------------------------------------
+# math breadth (reference: operator/scalar/MathFunctions.java)
+
+
+def _unary_math(fn):
+    def handler(ctx, call, v):
+        return Val(fn(_to_float(v)), v.valid, call.type)
+
+    return handler
+
+
+FUNCTIONS["asin"] = _unary_math(torch.asin)
+FUNCTIONS["acos"] = _unary_math(torch.acos)
+FUNCTIONS["atan"] = _unary_math(torch.atan)
+FUNCTIONS["sinh"] = _unary_math(torch.sinh)
+FUNCTIONS["cosh"] = _unary_math(torch.cosh)
+FUNCTIONS["tanh"] = _unary_math(torch.tanh)
+# truncated toward zero
+FUNCTIONS["truncate"] = _unary_math(lambda f: torch.sign(f) * torch.floor(f.abs()))
+FUNCTIONS["is_nan"] = _unary_math(torch.isnan)
+FUNCTIONS["is_finite"] = _unary_math(torch.isfinite)
+FUNCTIONS["is_infinite"] = _unary_math(torch.isinf)
+
+
+@register("atan2")
+def _atan2(ctx, call, y, x):
+    return Val(
+        torch.atan2(_to_float(y), _to_float(x)), _and_valid(y.valid, x.valid), call.type
+    )
+
+
+@register("log")
+def _log(ctx, call, base, x):
+    # ln x / ln b, as the JAX package computes it (not through log2/log10)
+    return Val(
+        torch.log(_to_float(x)) / torch.log(_to_float(base)),
+        _and_valid(base.valid, x.valid),
+        call.type,
+    )
+
+
+def _double_constant(value: float):
+    return lambda ctx, call: Val(ctx.tensor(value, torch.float64), None, call.type)
+
+
+FUNCTIONS["e"] = _double_constant(np.e)
+FUNCTIONS["pi"] = _double_constant(np.pi)
+FUNCTIONS["nan"] = _double_constant(np.nan)
+FUNCTIONS["infinity"] = _double_constant(np.inf)
+
+
+@register("width_bucket")
+def _width_bucket(ctx, call, v, lo, hi, n):
+    """width_bucket(x, lo, hi, n): 0 below the range, n + 1 above it; equal
+    bounds or a bucket count below 1 give NULL (the reference raises; an
+    error is not expressible row by row).  A NaN operand gives 0, as the
+    JAX package's float-to-int conversion of NaN does."""
+    x, a, b = _to_float(v), _to_float(lo), _to_float(hi)
+    k = n.data.to(torch.float64)
+    ok = torch.logical_and(b != a, k > 0)
+    raw = torch.floor((x - a) / torch.where(ok, b - a, 1.0) * k) + 1
+    # maximum and minimum carry a NaN through, as jnp.clip does
+    out = torch.minimum(torch.maximum(torch.where(ok, raw, 0.0), torch.zeros_like(k)),
+                        k.clamp(min=0) + 1)
+    out = _saturating_i64(out)
+    valid = _and_valid(_and_valid(v.valid, lo.valid), _and_valid(hi.valid, n.valid))
+    return Val(out, _and_valid(valid, ok), call.type)
+
+
+# ---------------------------------------------------------------------------
+# bitwise (reference: operator/scalar/BitwiseFunctions.java)
+
+
+def _shift_left(a, b):
+    # a shift by a negative amount or by 64 or more is 0, as in XLA (C++ and
+    # CUDA leave it undefined): the amount is clamped before the shift
+    out = a << b.clamp(0, 63)
+    return torch.where(torch.logical_or(b < 0, b > 63), 0, out)
+
+
+def _shift_right_arithmetic(a, b):
+    # past the width the sign fills every bit (XLA); clamped as above
+    out = a >> b.clamp(0, 63)
+    return torch.where(torch.logical_or(b < 0, b > 63), torch.where(a < 0, -1, 0), out)
+
+
+def _binary_bitwise(fn):
+    def handler(ctx, call, a, b):
+        return Val(fn(_i64(a.data), _i64(b.data)), _and_valid(a.valid, b.valid), call.type)
+
+    return handler
+
+
+FUNCTIONS["bitwise_and"] = _binary_bitwise(torch.bitwise_and)
+FUNCTIONS["bitwise_or"] = _binary_bitwise(torch.bitwise_or)
+FUNCTIONS["bitwise_xor"] = _binary_bitwise(torch.bitwise_xor)
+FUNCTIONS["bitwise_left_shift"] = _binary_bitwise(_shift_left)
+FUNCTIONS["bitwise_right_shift_arithmetic"] = _binary_bitwise(_shift_right_arithmetic)
+
+
+@register("bitwise_not")
+def _bitwise_not(ctx, call, a):
+    return Val(torch.bitwise_not(_i64(a.data)), a.valid, call.type)
+
+
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64's 64-bit pattern (SWAR; torch has neither
+    uint64 arithmetic nor a popcount).  >> is arithmetic, so every shift is
+    masked before its bits are summed; the subtraction, addition and
+    multiplication wrap modulo 2**64 as unsigned ones would."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + ((x >> 4) & 0x0F0F0F0F0F0F0F0F)) & 0x0F0F0F0F0F0F0F0F
+    return ((x * 0x0101010101010101) >> 56) & 0xFF
+
+
+@register("bit_count")
+def _bit_count(ctx, call, a, bits=None):
+    x = _i64(a.data)
+    if bits is not None:
+        nb = int(bits.data)
+        if nb < 64:
+            x = x & ((1 << nb) - 1)
+    return Val(_popcount64(x), a.valid, call.type)
+
+
+@register("typeof")
+def _typeof(ctx, call, v):
+    d = StringDictionary([v.type.name])
+    return Val(ctx.tensor(0, torch.int32), None, call.type, d)
+
+
+@register("version")
+def _version(ctx, call):
+    d = StringDictionary(["trino-tpu 0.4"])
+    return Val(ctx.tensor(0, torch.int32), None, call.type, d)
+
+
+# ---------------------------------------------------------------------------
+# concat_ws and format: rendered on the host, row by row (the JAX package
+# runs a projection that holds either outside its jitted program, through
+# EAGER_FUNCS; the port evaluates every expression eagerly and needs no such
+# set)
+
+#: (function, rows, host seconds) of each row render; read and cleared by
+#: callers that time this host work; bounded
+ROW_RENDER_LOG: deque = deque(maxlen=4096)
+
+
+def _render_tz(millis: int, offset_minutes: int) -> str:
+    """A packed timestamptz as local-time text with its offset."""
+    import datetime
+
+    dt = datetime.datetime(1970, 1, 1) + datetime.timedelta(
+        milliseconds=millis + offset_minutes * 60_000
+    )
+    sign = "+" if offset_minutes >= 0 else "-"
+    om = abs(offset_minutes)
+    return f"{dt.isoformat(sep=' ')} {sign}{om // 60:02d}:{om % 60:02d}"
+
+
+def _host_rows(ctx, v: Val):
+    """(data, valid) of a value broadcast to the batch's rows, on the host."""
+    cap = ctx.capacity
+    d = torch.broadcast_to(v.data, (cap,)).cpu().numpy()
+    if v.valid is None:
+        return d, np.ones(cap, dtype=bool)
+    return d, torch.broadcast_to(v.valid, (cap,)).cpu().numpy()
+
+
+def _rendered_val(ctx, call, outs: list, valid: np.ndarray) -> Val:
+    nd = StringDictionary.from_unsorted(outs)
+    codes = ctx.tensor(np.asarray(nd.encode(outs), np.int32), torch.int32)
+    return Val(
+        codes, None if valid.all() else ctx.tensor(valid, torch.bool), call.type, nd
+    )
+
+
+@register("concat_ws")
+def _concat_ws(ctx, call, sep, *parts):
+    """concat_ws(sep, v1, ..., vn) over three or more values, rendered per
+    row on the host (reference: operator/scalar/ConcatWsFunction.java: NULL
+    values are skipped, a NULL separator gives NULL).  The analyzer
+    rewrites two or fewer values into compiled IF/concat forms, which never
+    reach here."""
+    t0 = time.perf_counter()
+    cap = ctx.capacity
+
+    def strings_of(v: Val) -> list:
+        if v.is_literal_null:
+            return [None] * cap
+        d, va = _host_rows(ctx, v)
+        vals = v.dictionary.values if v.dictionary is not None else None
+        out = []
+        for i in range(cap):
+            if not va[i]:
+                out.append(None)
+            elif vals is not None:
+                c = int(d[i])
+                out.append(vals[c] if 0 <= c < len(vals) else "")
+            else:
+                out.append(str(d[i]))  # numpy's text of the value
+        return out
+
+    sep_s = strings_of(sep)
+    part_s = [strings_of(p) for p in parts]
+    outs, valid = [], np.ones(cap, dtype=bool)
+    for i in range(cap):
+        if sep_s[i] is None:
+            valid[i] = False
+            outs.append("")
+            continue
+        outs.append(sep_s[i].join(p[i] for p in part_s if p[i] is not None))
+    out = _rendered_val(ctx, call, outs, valid)
+    ROW_RENDER_LOG.append(("concat_ws", cap, time.perf_counter() - t0))
+    return out
+
+
+def _format_template(f: str) -> tuple:
+    """Java format directives (%s %d %x %X %o %f %e %g with the -, +, space,
+    #, 0 and , flags, width and precision) -> (one Python str.format
+    template, the conversion of each directive)."""
+    import re
+
+    if re.search(r"%\d+\$", f):
+        raise NotImplementedError("format: %n$ argument indexes")
+    pieces, specs = [], []
+    last = 0
+    for m in re.finditer(r"%([-+0, #]*)(\d*)(?:\.(\d+))?([a-zA-Z%])", f):
+        pieces.append(f[last : m.start()].replace("{", "{{").replace("}", "}}"))
+        last = m.end()
+        flags, width, prec, conv = m.groups()
+        if conv == "%":
+            pieces.append("%")
+            continue
+        if conv not in "sdxXofeEgG":
+            raise NotImplementedError(f"format: unsupported directive %{conv}")
+        spec = ""
+        if "-" in flags:
+            spec += "<"
+        elif conv == "s" and width:
+            spec += ">"  # Java right-aligns %Ns; Python left-aligns strings
+        if "+" in flags:
+            spec += "+"
+        elif " " in flags:
+            spec += " "
+        if "#" in flags:
+            spec += "#"
+        if "0" in flags and "-" not in flags:
+            spec += "0"
+        spec += width
+        if "," in flags and conv in "dfeEgG":
+            spec += ","
+        if prec:
+            spec += "." + prec
+        pieces.append("{%d:%s}" % (len(specs), spec + conv))
+        specs.append(conv)
+    pieces.append(f[last:].replace("{", "{{").replace("}", "}}"))
+    return "".join(pieces), specs
+
+
+def _format_column(t: T.Type, d: np.ndarray, dictionary) -> list:
+    """Python values of one format argument's rows."""
+    import datetime
+
+    if dictionary is not None:
+        vals = dictionary.values
+        return [vals[int(c)] if 0 <= int(c) < len(vals) else "" for c in d]
+    if isinstance(t, T.DecimalType) and t.scale > 0:
+        q = 10**t.scale
+        return [
+            f"{'-' if int(c) < 0 else ''}{abs(int(c)) // q}.{abs(int(c)) % q:0{t.scale}d}"
+            for c in d
+        ]
+    if t.name == "timestamp with time zone":
+        return [
+            _render_tz(int(T.unpack_tz_millis(int(c))), int(T.unpack_tz_offset(int(c))))
+            for c in d
+        ]
+    if t.name == "date":
+        epoch = datetime.date(1970, 1, 1)
+        return [(epoch + datetime.timedelta(days=int(c))).isoformat() for c in d]
+    if t.name == "timestamp":
+        ep = datetime.datetime(1970, 1, 1)
+        return [
+            (ep + datetime.timedelta(microseconds=int(c))).isoformat(sep=" ") for c in d
+        ]
+    if t.name == "boolean":
+        return ["true" if c else "false" for c in d]
+    if d.dtype.kind == "f":
+        return [float(c) for c in d]
+    return [int(c) for c in d]
+
+
+@register("format")
+def _format(ctx, call, fmt, *args):
+    """format(fmt, args...) (reference: operator/scalar/FormatFunction.java,
+    the Java directive subset of `_format_template`), rendered per row on
+    the host.  A NULL argument renders as 'null' under %s, as Java's
+    formatter does; under a numeric directive it makes the row NULL."""
+    t0 = time.perf_counter()
+    f = _literal_str(fmt, "format")
+    cap = ctx.capacity
+    if any(a.lengths is not None for a in args):
+        raise NotImplementedError("format is not supported in this expression context")
+    if any(_is_long_dec(a.type) for a in args):
+        raise NotImplementedError("format over a long decimal")
+    template, specs = _format_template(f)
+    if len(specs) != len(args):
+        raise NotImplementedError(f"format: {len(specs)} directives but {len(args)} arguments")
+    avalids, cols = [], []
+    for a in args:
+        if a.is_literal_null:
+            avalids.append(np.zeros(cap, dtype=bool))
+            cols.append([None] * cap)
+            continue
+        d, va = _host_rows(ctx, a)
+        avalids.append(va)
+        cols.append(_format_column(a.type, d, a.dictionary))
+    outs = []
+    valid = np.ones(cap, dtype=bool)
+    for i in range(cap):
+        row = []
+        for j, conv in enumerate(specs):
+            if not avalids[j][i]:
+                if conv == "s":
+                    row.append("null")
+                    continue
+                valid[i] = False
+                break
+            v = cols[j][i]
+            if conv in "dxXo" and not isinstance(v, int):
+                v = int(float(v))
+            elif conv in "feEgG" and not isinstance(v, float):
+                v = float(v)
+            elif conv == "s":
+                v = str(v)
+            row.append(v)
+        outs.append(template.format(*row) if valid[i] else "")
+    out = _rendered_val(ctx, call, outs, valid)
+    ROW_RENDER_LOG.append(("format", cap, time.perf_counter() - t0))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1196,18 +1953,47 @@ def compile_cast(ctx: ExprCompiler, v: Val, to: T.Type) -> Val:
             d = _i64(v.data)
             return Val(d.to(tdt), _int_range_valid(v.valid, d, to.np_dtype), to)
         return Val(v.data.to(tdt), v.valid, to)
+    temporal = _cast_temporal(v, to)
+    if temporal is not None:
+        return temporal
     if to is T.BOOLEAN:
         return Val(v.data != 0, v.valid, to)
     if frm is T.BOOLEAN:
         return Val(v.data.to(torch_dtype(to.np_dtype)), v.valid, to)
-    raise NotImplementedError(f"cast {frm.name} -> {to.name}: not ported yet")
+    raise NotImplementedError(f"cast {frm.name} -> {to.name}")
+
+
+def _cast_temporal(v: Val, to: T.Type):
+    """The casts among date, time, timestamp and timestamptz (the session
+    zone is UTC; reference: DateTimeOperators' cast family over packed
+    values), or None for any other pair."""
+    frm = v.type
+    d = _i64(v.data)
+    if to is T.DATE and frm is T.TIMESTAMP:
+        return Val(d // _DAY_US, v.valid, to)
+    if to is T.TIME and frm is T.TIMESTAMP:
+        return Val(d % _DAY_US, v.valid, to)
+    if to is T.TIMESTAMP and frm is T.TIME:
+        return Val(d, v.valid, to)
+    if to is T.TIMESTAMP and frm is T.DATE:
+        return Val(d * _DAY_US, v.valid, to)
+    if frm is T.TIMESTAMP_TZ and to is T.TIMESTAMP:
+        # the wall clock in the value's zone: the cast drops the zone, not
+        # the offset
+        return Val(_tz_local_micros(v), v.valid, to)
+    if frm is T.TIMESTAMP_TZ and to is T.DATE:
+        return Val(_tz_local_micros(v) // _DAY_US, v.valid, to)
+    if to is T.TIMESTAMP_TZ and frm is T.TIMESTAMP:
+        return Val(T.pack_tz(d // 1000, 0), v.valid, to)
+    if to is T.TIMESTAMP_TZ and frm is T.DATE:
+        return Val(T.pack_tz(d * 86_400_000, 0), v.valid, to)
+    return None
 
 
 def _cast_from_varchar(ctx, v: Val, to: T.Type) -> Val:
-    """varchar -> numeric/decimal/date/boolean through a parse table over
-    the dictionary (NULL where an entry does not parse)."""
-    if to is T.TIMESTAMP or to is T.TIMESTAMP_TZ or to is T.TIME:
-        raise NotImplementedError(f"cast {v.type.name} -> {to.name}: not ported yet")
+    """varchar -> numeric/decimal/date/time/timestamp/boolean through a
+    parse table over the dictionary (NULL where an entry does not parse; a
+    timestamptz never parses, as in the JAX package)."""
     d = _require_dict(v, "cast from varchar")
     ok = np.ones(len(d), dtype=bool)
     if isinstance(to, T.DecimalType) and to.is_long:
@@ -1269,6 +2055,16 @@ def _parse_scalar(s: str, to: T.Type):
         return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
     if to is T.BOOLEAN:
         return s.lower() in ("true", "t", "1")
+    if to is T.TIME:
+        return T.parse_time_micros(s)
+    if to is T.TIMESTAMP:
+        import datetime
+
+        txt = s.replace("T", " ")
+        d, tm = txt.split(" ", 1) if " " in txt else (txt, "00:00:00")
+        y, m, dd = map(int, d.split("-"))
+        days = (datetime.date(y, m, dd) - datetime.date(1970, 1, 1)).days
+        return days * _DAY_US + T.parse_time_micros(tm)
     raise ValueError(f"cannot parse {s!r} as {to.name}")
 
 

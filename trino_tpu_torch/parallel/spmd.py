@@ -105,15 +105,33 @@ def shard(x, w: int):
     return x
 
 
+def _recode_onto_union(pcs: Sequence[Column], ch: int) -> list:
+    """Workers' varchar columns recoded onto the union of their
+    dictionaries.  A per-row host render (concat_ws, format) builds each
+    worker's dictionary from that worker's rows; the JAX package's
+    shard_map traces one program with one dictionary per column and raises
+    for them on its mesh."""
+    from trino_tpu_torch.columnar.column import take_table
+    from trino_tpu_torch.columnar.dictionary import union_many
+
+    if any(c.dictionary is None or c.lengths is not None for c in pcs):
+        raise ValueError(f"per-worker outputs diverged dictionaries (channel {ch})")
+    merged, tables = union_many([c.dictionary for c in pcs])
+    return [
+        Column(c.data if t is None else take_table(t, c.data).to(c.data.dtype),
+               c.type, c.valid, merged)
+        for c, t in zip(pcs, tables)
+    ]
+
+
 def _stack_batches_of(parts: Sequence[Batch]) -> Batch:
     first = parts[0]
     cols = []
     for ch, c0 in enumerate(first.columns):
         pcs = [p.columns[ch] for p in parts]
         if any(c.dictionary is not c0.dictionary and c.dictionary != c0.dictionary for c in pcs):
-            # the JAX package's shard_map cannot express this either: one
-            # program, one dictionary per column
-            raise ValueError(f"per-worker outputs diverged dictionaries (channel {ch})")
+            pcs = _recode_onto_union(pcs, ch)
+            c0 = pcs[0]
         valid = None
         if any(c.valid is not None for c in pcs):
             valid = torch.stack([c.valid_mask() for c in pcs])

@@ -8,14 +8,16 @@ through a tie keeps an arbitrary subset of the tied rows.  So the check is:
   * the whole rows as a multiset, except those of the last key group when
     the LIMIT cut the result (their keys are already held by the line
     above).
-Integers, decimals, dates and strings must be equal and of the same type;
-doubles equal to a relative tolerance.  Arrays (lists) and maps (dicts)
+Integers, decimals, dates, timestamps and strings must be equal and of
+the same type, a timestamp with time zone in its offset too; doubles equal
+to a relative tolerance.  Arrays (lists) and maps (dicts)
 compare element by element under the same rules, so a double inside an
 array is held to the tolerance too, never compared by its repr.
 """
 
 from __future__ import annotations
 
+import datetime
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -79,6 +81,10 @@ def _same_value(va, ve, float_rtol: float) -> bool:
         if math.isnan(ve):
             return math.isnan(va)
         return math.isclose(va, ve, rel_tol=float_rtol, abs_tol=0.0)
+    if isinstance(ve, datetime.datetime) and ve.tzinfo is not None:
+        # a timestamptz is its instant and its zone offset: aware datetimes
+        # compare equal by instant alone
+        return type(va) is type(ve) and va == ve and va.utcoffset() == ve.utcoffset()
     return type(va) is type(ve) and va == ve
 
 

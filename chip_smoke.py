@@ -176,9 +176,37 @@ catches nothing and never falls back to the CPU):
      of the local T1 and the mesh T2; every result held to the port's CPU
      run of the same query (computed by the reference process after its
      phase 5i part), the local T1's f32 kernel sums to relative 5e-5;
+  5k. the statement layer over the memory and blackhole catalogs at TPC-H
+     sf1 (`statement_steps`, nothing reduced), one LocalQueryRunner
+     (`pallas_agg` on) and one 4-worker mesh (`pallas_probe` on) over one
+     CatalogManager: D1 a CTAS of lineitem's 6,001,215 rows into a memory
+     table with DOUBLE columns, Q1 over it cold and warm (the grouped-sums
+     kernel on every run), SHOW COLUMNS and SHOW STATS; D2 a CTAS of the
+     1,500,000 orders, an INSERT ... SELECT of the 1998 orders, a DELETE, an
+     UPDATE and a rolled-back DELETE, each followed by count and sum; D3 on
+     the mesh a CTAS of the orders, a MERGE against lineitem's heavy orders
+     and a Q3-shaped join with lineitem cold and warm (the sorted-probe
+     kernel on every run); D4 a view of D1's Q1 and a prepared statement
+     (PREPARE, EXECUTE, DESCRIBE OUTPUT, DEALLOCATE), local and mesh; D5 a
+     60-day WITH RECURSIVE date series joined with the memory table, local
+     and mesh; D6 EXPLAIN and EXPLAIN (TYPE DISTRIBUTED) of D1's Q1 local
+     and mesh, EXPLAIN ANALYZE locally (each operator's wall and device time
+     logged), the mesh's EXPLAIN ANALYZE raising NotImplementedError naming
+     MeshProfile, a blackhole CTAS (run right after D2's CTAS) and a read of
+     it, ALTER TABLE (add a column, rename) and DROP TABLE with SHOW TABLES.
+     Each step logs its wall (reads cold and warm), the peak device memory,
+     the kernels' launches and the host seconds of each table write's three
+     parts (rows to the host, the column build, the sink's append); one
+     untimed capture run each after D1's Q1 and D3's join keeps the
+     kernels' largest inputs (their launches counted apart).  Every result
+     and the digest of every memory table after every step are held to the
+     port's CPU run of the same steps (the reference process, after its
+     phase 5j part): local doubles (K1's f32 sums) to relative 5e-5, EXPLAIN
+     text exactly, EXPLAIN ANALYZE's operator names, rows and batches, the
+     tables' rows, codes and dictionaries exactly;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
-     the inputs of the local U1's largest launch (N = 2**21 unnested rows)
-     and of the local T1's largest launch, and time it there;
+     the inputs of the local U1's largest launch (N = 2**21 unnested rows),
+     of the local T1's and of D1's Q1's (phase 5k), and time it there;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -192,7 +220,8 @@ catches nothing and never falls back to the CPU):
      launch of phase 5b, and timed at the largest; bit-exact and timed at
      the inputs of the largest launch of phases 5c, 5d and 5g; bit-exact
      at the largest launch of phase 5e; bit-exact and timed at the largest
-     launch of the mesh H3 (phase 5i) and of the mesh T2 (phase 5j);
+     launch of the mesh H3 (phase 5i), of the mesh T2 (phase 5j) and of
+     D3's mesh join (phase 5k);
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -504,6 +533,140 @@ TEMPORAL_K1_QUERY, TEMPORAL_K2_QUERY = "T1", "T2"
 #: the one whose per-row host renders are
 TEMPORAL_TABLE_QUERIES = ("T4", "T5")
 TEMPORAL_RENDER_QUERY = "T6"
+
+#: phase 5k: the statement layer over the memory and blackhole catalogs at
+#: TPC-H sf1 (nothing reduced: D1's CTAS copies all 6,001,215 lineitem rows).
+#: A step is one or more statements run in order by one runner: "local" (a
+#: LocalQueryRunner with `pallas_agg` on, so K1 sums its doubles) or "mesh"
+#: (the 4-worker DistributedQueryRunner with `pallas_probe` on); both share
+#: one CatalogManager.  A `repeat` step is a read, run cold and warm; a
+#: `raises` step must raise NotImplementedError naming that text (the
+#: reference process skips it); an `analyze` step is an EXPLAIN ANALYZE,
+#: compared on its operator names, rows= and batches=.  The blackhole CTAS
+#: runs right after D2's CTAS, while memory.default.ord still holds all
+#: 1,500,000 orders.
+STATEMENT_RECURSIVE = (
+    "with recursive d(x) as (select date '1998-06-01' union all "
+    "select x + interval '1' day from d where x < date '1998-07-30') "
+    "select count(*), sum(l_extendedprice) from d join memory.default.li on l_shipdate = d.x"
+)
+STATEMENT_MERGE = (
+    "merge into memory.default.ord_m t using (select l_orderkey k, sum(l_quantity) q "
+    "from tpch.{s}.lineitem group by l_orderkey having sum(l_quantity) > 300) s "
+    "on t.o_orderkey = s.k when matched and s.q > 312 then delete "
+    "when matched then update set o_totalprice = o_totalprice + 1"
+)
+STATEMENT_JOIN = (
+    "select o_orderkey, sum(l_extendedprice * (1 - l_discount)) revenue, o_orderdate "
+    "from memory.default.ord_m join tpch.{s}.lineitem on l_orderkey = o_orderkey "
+    "where o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15' "
+    "group by o_orderkey, o_orderdate order by revenue desc, o_orderdate, o_orderkey limit 10"
+)
+STATEMENT_PREPARE = (
+    "prepare p from select l_returnflag, count(*), sum(l_extendedprice) "
+    "from memory.default.li where l_quantity < ? group by 1 order by 1"
+)
+ORDERS_COLUMNS = "o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_orderdate"
+
+
+class StatementStep:
+    def __init__(self, label: str, where: str, *statements, repeat: bool = False,
+                 raises: str = "", analyze: bool = False):
+        self.label = label
+        self.where = where
+        self.statements = statements
+        self.repeat = repeat
+        self.raises = raises
+        self.analyze = analyze
+
+    @property
+    def group(self) -> str:
+        return self.label.split("_")[0]
+
+
+def statement_steps(schema: str) -> list:
+    """Phase 5k's steps over tpch.`schema` (sf1 on the card, tiny in the
+    tests), in order."""
+    S = StatementStep
+    q1 = STATEMENT_Q1.format(table="memory.default.li")
+    count_ord = "select count(*), sum(o_totalprice) from memory.default.ord"
+    steps = [
+        S("D1_ctas", "local",
+          "create table memory.default.li as select l_returnflag, l_linestatus, "
+          "cast(l_quantity as double) l_quantity, "
+          "cast(l_extendedprice as double) l_extendedprice, "
+          "cast(l_discount as double) l_discount, cast(l_tax as double) l_tax, l_shipdate "
+          f"from tpch.{schema}.lineitem"),
+        S("D1_q1", "local", q1, repeat=True),
+        S("D1_columns", "local", "show columns from memory.default.li"),
+        S("D1_stats", "local", "show stats for memory.default.li"),
+        S("D2_ctas", "local",
+          f"create table memory.default.ord as select {ORDERS_COLUMNS} "
+          f"from tpch.{schema}.orders"),
+        S("D6_blackhole_ctas", "local",
+          "create table blackhole.default.sink as select * from memory.default.ord"),
+        S("D6_blackhole_select", "local", "select * from blackhole.default.sink"),
+        S("D2_insert", "local",
+          f"insert into memory.default.ord select {ORDERS_COLUMNS} "
+          f"from tpch.{schema}.orders where o_orderdate >= date '1998-01-01'"),
+        S("D2_after_insert", "local", count_ord),
+        S("D2_delete", "local", "delete from memory.default.ord where o_orderstatus = 'P'"),
+        S("D2_after_delete", "local", count_ord),
+        S("D2_update", "local",
+          "update memory.default.ord set o_totalprice = o_totalprice + 1.00 "
+          "where o_orderdate between date '1992-01-01' and date '1992-12-31'"),
+        S("D2_after_update", "local", count_ord),
+        S("D2_rollback", "local", "start transaction",
+          "delete from memory.default.ord where o_custkey % 3 = 0", "rollback"),
+        S("D2_after_rollback", "local", count_ord),
+        S("D3_ctas", "mesh",
+          f"create table memory.default.ord_m as select {ORDERS_COLUMNS} "
+          f"from tpch.{schema}.orders"),
+        S("D3_merge", "mesh", STATEMENT_MERGE.format(s=schema)),
+        S("D3_after_merge", "mesh",
+          "select count(*), sum(o_totalprice) from memory.default.ord_m"),
+        S("D3_join", "mesh", STATEMENT_JOIN.format(s=schema), repeat=True),
+    ]
+    for where in ("local", "mesh"):
+        steps += [
+            S(f"D4_create_view_{where}", where,
+              f"create view memory.default.q1v as {q1}"),
+            S(f"D4_select_view_{where}", where, "select * from memory.default.q1v",
+              repeat=True),
+            S(f"D4_prepare_{where}", where, STATEMENT_PREPARE),
+            S(f"D4_execute_{where}", where, "execute p using 24", repeat=True),
+            S(f"D4_describe_{where}", where, "describe output p"),
+            S(f"D4_deallocate_{where}", where, "deallocate prepare p"),
+            S(f"D5_recursive_{where}", where, STATEMENT_RECURSIVE, repeat=True),
+            S(f"D6_explain_{where}", where, f"explain {q1}"),
+            S(f"D6_explain_distributed_{where}", where, f"explain (type distributed) {q1}"),
+        ]
+    steps += [
+        S("D6_explain_analyze_local", "local", f"explain analyze {q1}", analyze=True),
+        S("D6_explain_analyze_mesh", "mesh", f"explain analyze {q1}", raises="MeshProfile"),
+        S("D6_alter_add_column", "local",
+          "alter table memory.default.ord add column o_note varchar"),
+        S("D6_alter_rename", "local",
+          "alter table memory.default.ord rename to memory.default.ord_renamed"),
+        S("D6_show_tables_before_drop", "local", "show tables from memory.default"),
+        S("D6_drop", "local", "drop table memory.default.li",
+          "drop table memory.default.ord_renamed", "drop table memory.default.ord_m",
+          "drop table blackhole.default.sink"),
+        S("D6_show_tables", "local", "show tables from memory.default"),
+    ]
+    return steps
+
+
+#: phase 5k: Q1 over the memory table's DOUBLE columns (`{table}`: the
+#: table the statement reads, memory.default.li or a view's)
+STATEMENT_Q1 = (
+    "select l_returnflag, l_linestatus, sum(l_quantity), sum(l_extendedprice), "
+    "sum(l_extendedprice * (1 - l_discount)), "
+    "sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)), avg(l_quantity), "
+    "avg(l_extendedprice), avg(l_discount), count(*) from {table} "
+    "where l_shipdate <= date '1998-09-02' "
+    "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"
+)
 
 Q1_DOUBLE = """select l_returnflag, l_linestatus,
        sum(cast(l_quantity as double)), sum(cast(l_extendedprice as double)),
@@ -1280,7 +1443,8 @@ def tpcds_cpu_reference(out_path: str) -> int:
     then phase 5g's, pickled to `out_path` + ".arrays", then phase 5h's,
     pickled to `out_path` + ".aggregates", then phase 5i's, pickled to
     `out_path` + ".holistic", then phase 5j's, pickled to `out_path` +
-    ".temporal".  It runs beside the card phases, on its own cores."""
+    ".temporal", then phase 5k's, pickled to `out_path` + ".statements".
+    It runs beside the card phases, on its own cores."""
     import pickle
 
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
@@ -1310,6 +1474,7 @@ def tpcds_cpu_reference(out_path: str) -> int:
     aggregates_cpu_reference(out_path)
     holistic_cpu_reference(out_path)
     temporal_cpu_reference(out_path)
+    statements_cpu_reference(out_path)
     return 0
 
 
@@ -1329,14 +1494,14 @@ def start_tpcds_reference(here: str):
 #: it writes them in this order, so the last phase's wait is its end
 REFERENCE_SUFFIX = {
     "5d": "", "5e": ".window", "5f": ".memory", "5g": ".arrays", "5h": ".aggregates",
-    "5i": ".holistic", "5j": ".temporal",
+    "5i": ".holistic", "5j": ".temporal", "5k": ".statements",
 }
-LAST_REFERENCE_PHASE = "5j"
+LAST_REFERENCE_PHASE = "5k"
 
 
 def wait_tpcds_reference(proc, path: str, phase: str) -> dict:
-    """The reference's results of phase 5d, 5e, 5f, 5g, 5h, 5i or 5j, as
-    soon as they are written (after 5j's, the process has ended)."""
+    """The reference's results of phase 5d, 5e, 5f, 5g, 5h, 5i, 5j or 5k,
+    as soon as they are written (after 5k's, the process has ended)."""
     import pickle
     import shutil
 
@@ -2738,6 +2903,285 @@ def run_temporal_path(reference, k1_capture: dict, probe_record: dict) -> dict:
     return {"k1_launches": k1_launches, "k2_launches": k2_launches}
 
 
+# -- phase 5k: the statement layer over the memory and blackhole catalogs --------
+
+
+def table_digest(stored) -> tuple:
+    """An order-free digest of one stored memory table: its row count, each
+    column's name, type, dtype and dictionary (a sha256 of its values), and
+    a sha256 of the sorted per-row hashes over every column's raw value
+    (a dictionary column's code, NULL as a sentinel): two stores hold the
+    same rows, codes and dictionaries exactly when the digests agree."""
+    import hashlib
+
+    n = stored.rows
+    h = np.full(n, 0x9E3779B97F4A7C15, dtype=np.uint64)
+    cols = []
+    with np.errstate(over="ignore"):
+        for meta, cd in zip(stored.meta.columns, stored.columns):
+            vals = np.ascontiguousarray(cd.values)
+            planes = vals.reshape(n, -1) if vals.ndim > 1 else vals.reshape(n, 1)
+            if planes.dtype.itemsize == 8:
+                raw = planes.view(np.uint64)
+            else:
+                raw = planes.astype(np.int64).view(np.uint64)
+            if cd.valid is not None:
+                raw = np.where(np.asarray(cd.valid, bool)[:, None], raw, np.uint64(0xDEADBEEF))
+            for j in range(raw.shape[1]):
+                x = h ^ raw[:, j]
+                x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+                x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+                h = x ^ (x >> np.uint64(31))
+            dict_sha = None
+            if cd.dictionary is not None:
+                dict_sha = hashlib.sha256("\x00".join(cd.dictionary.values).encode()).hexdigest()
+            cols.append((meta.name, meta.type.name, str(vals.dtype), dict_sha))
+    rows_sha = hashlib.sha256(np.sort(h).tobytes()).hexdigest() if stored.columns else None
+    return (n, tuple(cols), rows_sha)
+
+
+def memory_digests(catalogs, memo: dict) -> dict:
+    """{"catalog.schema.table": table_digest} of every memory table; a
+    table whose column list is the one already digested (a write replaces
+    the list) is not digested again."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+
+    out = {}
+    for name in catalogs.names():
+        conn = catalogs.get(name)
+        if not isinstance(conn, MemoryConnector):
+            continue
+        for (schema, table), st in sorted(conn.store.items()):
+            key = f"{name}.{schema}.{table}"
+            held = memo.get(key)
+            if held is None or held[0] is not st.columns or held[1] != st.meta:
+                held = (st.columns, st.meta, table_digest(st))
+                memo[key] = held
+            out[key] = held[2]
+    return out
+
+
+ANALYZE_LINE = re.compile(r"^(\s*)(\w+)\[[^\]]*\] rows=(\d+) batches=(\d+) wall=")
+
+
+def analyze_lines(rows) -> list:
+    """EXPLAIN ANALYZE's operator lines as (depth, name, rows, batches)."""
+    out = []
+    for (line,) in rows:
+        m = ANALYZE_LINE.match(line)
+        if m:
+            out.append((len(m.group(1)) // 2, m.group(2), int(m.group(3)), int(m.group(4))))
+    return out
+
+
+def statement_order(runner, sql: str):
+    """How a statement's rows compare: a query's ORDER BY and LIMIT, None
+    for a multiset (EXECUTE's query), "exact" for every other statement."""
+    from trino_tpu_torch.testing import result_order
+
+    head = sql.lstrip().lower()
+    if head.startswith(("select", "with")):
+        return result_order(runner.create_plan(sql))
+    if head.startswith("execute"):
+        return None
+    return "exact"
+
+
+def statement_runners(catalogs, device=None) -> dict:
+    """Phase 5k's two runners over one CatalogManager: "local" with
+    `pallas_agg` on, "mesh" (the 4-worker mesh; on the CPU reference a
+    second LocalQueryRunner) with `pallas_probe` on."""
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    local = LocalQueryRunner(catalogs, catalog="tpch", schema="sf1", device=device)
+    if device == "cpu":
+        mesh = LocalQueryRunner(catalogs, catalog="tpch", schema="sf1", device=device)
+    else:
+        mesh = DistributedQueryRunner(catalogs, catalog="tpch", schema="sf1",
+                                      n_workers=MESH_WORKERS, device=device)
+    local.execute("set session pallas_agg = true")
+    mesh.execute("set session pallas_probe = true")
+    return {"local": local, "mesh": mesh}
+
+
+def statements_cpu_reference(out_path: str) -> None:
+    """The reference process's phase 5k part: the port's CPU run of every
+    phase 5k step (the mesh's steps on a second CPU LocalQueryRunner over
+    the same catalogs), pickled to `out_path` + ".statements" as {label:
+    ([(column names, type names, rows or EXPLAIN ANALYZE's operator lines,
+    how rows compare) per statement], the memory tables' digests after the
+    step, seconds)}; a `raises` step is the card's alone."""
+    import pickle
+
+    from trino_tpu_torch.connectors.api import default_catalogs
+
+    t_part = time.perf_counter()
+    catalogs = default_catalogs()
+    runners = statement_runners(catalogs, device="cpu")
+    memo: dict = {}
+    out = {}
+    for step in statement_steps("sf1"):
+        if step.raises:
+            continue
+        r = runners[step.where]
+        t0 = time.perf_counter()
+        results = []
+        for sql in step.statements:
+            order = statement_order(r, sql)
+            res = r.execute(sql)
+            rows = analyze_lines(res.rows) if step.analyze else res.rows
+            results.append((res.column_names, [t.name for t in res.types], rows, order))
+        out[step.label] = (results, memory_digests(catalogs, memo), time.perf_counter() - t0)
+    log(f"statements cpu reference (5k): {time.perf_counter() - t_part:.1f} s of CPU work")
+    with open(out_path + ".statements.part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".statements.part", out_path + ".statements")
+
+
+def run_statement_path(reference, k1_capture: dict, probe_record: dict) -> dict:
+    """Phase 5k: the statement layer on the card at sf1 (see STATEMENT
+    steps): every step through its runner ("local": LocalQueryRunner with
+    `pallas_agg` on; "mesh": the 4-worker DistributedQueryRunner with
+    `pallas_probe` on; one CatalogManager), a read cold and warm, a write
+    once, with wall time, peak device memory, the kernels' launches and,
+    for every table write, the host seconds of its three parts
+    (the runner's `last_writes`: `_collect_rows`, of which batches turned
+    into rows; the column build; the sink's append).  D1's Q1 must launch
+    the grouped-sums kernel on every run and D3's join the sorted-probe
+    kernel; the mesh EXPLAIN ANALYZE must raise naming MeshProfile.  Right
+    after D1's Q1 and D3's join, one untimed capture run each keeps the
+    largest launch's inputs (K1 in `k1_capture`, held in phase 6a; K2 in
+    `probe_record`, held in phase 6); their launches are counted apart and
+    left out of the path's.  Then every statement's result and the memory
+    tables' digests after every step are held to the reference process's
+    CPU run: the local runner's doubles (K1's f32 sums) to relative 5e-5,
+    the mesh's to 1e-9, EXPLAIN text exactly, EXPLAIN ANALYZE on its
+    operator names, rows= and batches=, the tables exactly."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch.connectors.api import default_catalogs
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.testing import ResultOrder, assert_rows_match
+
+    catalogs = default_catalogs()
+    runners = statement_runners(catalogs)
+    memo: dict = {}
+    results = {}
+    capture_launches = {"k1": 0, "k2": 0}
+    all_writes = []
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    for step in statement_steps("sf1"):
+        r = runners[step.where]
+        if step.raises:
+            try:
+                r.execute(step.statements[0])
+            except NotImplementedError as e:
+                if step.raises not in str(e):
+                    raise
+                log(f"statements {step.label}: raises NotImplementedError: {e}")
+                continue
+            raise AssertionError(f"{step.label}: did not raise naming {step.raises}")
+        walls = []
+        for attempt in ("cold", "warm") if step.repeat else ("once",):
+            k1, k2 = gs.grouped_sums.launches, ls.locate_sorted.launches
+            torch.cuda.reset_peak_memory_stats()
+            outs, step_writes = [], []
+            t0 = time.perf_counter()
+            for sql in step.statements:
+                outs.append(r.execute(sql))  # rows on the host
+                step_writes += r.last_writes
+            wall = time.perf_counter() - t0
+            all_writes += step_writes
+            walls.append(wall)
+            k1 = gs.grouped_sums.launches - k1
+            k2 = ls.locate_sorted.launches - k2
+            if step.label == "D1_q1" and k1 == 0:
+                raise AssertionError(f"D1_q1 {attempt}: no grouped_sums launch")
+            if step.label == "D3_join" and k2 == 0:
+                raise AssertionError(f"D3_join {attempt}: no locate_sorted launch")
+            writes = [
+                f"{kind} {table} rows={n} collect_s={c!r} to_rows_s={p!r} "
+                f"build_s={b!r} append_s={a!r}"
+                for kind, table, n, c, p, b, a in step_writes
+            ]
+            log(
+                f"statements {step.label} {attempt}: wall_s={wall!r} "
+                f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                f"grouped_sums_launches={k1} locate_sorted_launches={k2} "
+                f"rows={[len(o.rows) for o in outs]}"
+                + (f" writes=[{'; '.join(writes)}]" if writes else "")
+                + (f" mesh_events={r.last_stage_executor.counters}"
+                   if step.where == "mesh" and r.last_stage_executor is not None else "")
+            )
+        if step.analyze:
+            for (line,) in outs[0].rows:
+                log(f"statements {step.label}: {line}")
+        results[step.label] = (outs, walls, memory_digests(catalogs, memo))
+        if step.label in ("D1_q1", "D3_join"):
+            # untimed, launches counted apart: the kernel's largest inputs
+            k1, k2 = gs.grouped_sums.launches, ls.locate_sorted.launches
+            if step.label == "D1_q1":
+                gs_orig, gs_rec = grouped_sums_recorder(k1_capture)
+                k1_capture["query"] = step.label
+                gs._launch = gs_rec
+                try:
+                    r.execute(step.statements[0])
+                finally:
+                    gs._launch = gs_orig
+                gids, _, values, g = k1_capture["largest"]
+                log(f"D1_q1 largest grouped-sums launch: N={gids.shape[0]} G={g} "
+                    f"K={values.shape[1]}")
+            else:
+                probe_kernel, probe_rec = shape_recording_probe(probe_record)
+                probe_record["query"] = step.label
+                mesh_runner.locate_sorted = probe_rec
+                try:
+                    r.execute(step.statements[0])
+                finally:
+                    mesh_runner.locate_sorted = probe_kernel
+                log(f"D3_join sorted-probe launches (P, cap_b, n_match, S): "
+                    f"{probe_record.get('shapes', {}).get(step.label, [])}")
+            capture_launches["k1"] += gs.grouped_sums.launches - k1
+            capture_launches["k2"] += ls.locate_sorted.launches - k2
+    k1_launches = gs.grouped_sums.launches - capture_launches["k1"]  # read just after
+    k2_launches = ls.locate_sorted.launches - capture_launches["k2"]
+    log(f"statement path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches} (capture runs apart: {capture_launches})")
+    for kind, table, n, c, p, b, a in all_writes:
+        log(f"statements write {kind} {table}: rows={n} collect_s={c!r} to_rows_s={p!r} "
+            f"build_s={b!r} append_s={a!r}")
+
+    cpu = reference("5k")
+    for step in statement_steps("sf1"):
+        if step.raises:
+            continue
+        outs, walls, digests = results[step.label]
+        expected, cpu_digests, cpu_s = cpu[step.label]
+        rtol = KERNEL_RTOL if step.where == "local" else DOUBLE_RTOL
+        for res, (names, types, rows, order) in zip(outs, expected):
+            if res.column_names != names or [t.name for t in res.types] != types:
+                raise AssertionError(f"{step.label}: columns differ from the CPU run")
+            if step.analyze:
+                if analyze_lines(res.rows) != rows:
+                    raise AssertionError(f"{step.label}: operators differ from the CPU run:\n"
+                                         f"{analyze_lines(res.rows)}\n{rows}")
+                continue
+            if order == "exact":
+                order = ResultOrder(tuple(range(len(rows[0]) if rows else 0)), None)
+            elif order is None:
+                order = ResultOrder((), None)
+            assert_rows_match(res.rows, rows, order, float_rtol=rtol)
+        if digests != cpu_digests:
+            raise AssertionError(f"{step.label}: the memory tables differ from the CPU run:\n"
+                                 f"{digests}\n{cpu_digests}")
+        log(f"statements {step.label}: walls_s={walls!r} matches the CPU run "
+            f"(tables {sorted(digests)}; cpu wall_s={cpu_s!r}); "
+            f"first rows {[o.rows[:1] for o in outs]}")
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -2812,7 +3256,8 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 
 
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
-                        tdw: dict, arrays: dict, holistic: dict, temporal: dict) -> dict:
+                        tdw: dict, arrays: dict, holistic: dict, temporal: dict,
+                        statements: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -2831,6 +3276,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured in phase 5i")
     if "largest" not in temporal:
         raise AssertionError("no sorted-probe launch was captured in phase 5j")
+    if "largest" not in statements:
+        raise AssertionError("no sorted-probe launch was captured in phase 5k")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -2840,6 +3287,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"arrays_largest_{arrays['largest_query']}",) + arrays["largest"]]
     cases += [(f"holistic_largest_{holistic['largest_query']}",) + holistic["largest"]]
     cases += [(f"temporal_largest_{temporal['largest_query']}",) + temporal["largest"]]
+    cases += [(f"statements_largest_{statements['largest_query']}",) + statements["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -2864,6 +3312,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     holistic_largest["query"] = holistic["largest_query"]
     temporal_largest = time_probe_inputs("temporal_largest", dev, temporal["largest"])
     temporal_largest["query"] = temporal["largest_query"]
+    statements_largest = time_probe_inputs("statements_largest", dev, statements["largest"])
+    statements_largest["query"] = statements["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -2878,6 +3328,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "arrays_inputs": arrays_largest,
         "holistic_inputs": holistic_largest,
         "temporal_inputs": temporal_largest,
+        "statements_inputs": statements_largest,
     }
 
 
@@ -3005,25 +3456,29 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     temporal_k1: dict = {}
     temporal: dict = {}
     tem_path = timed("5j", run_temporal_path, tpcds_reference, temporal_k1, temporal)
+    statements_k1: dict = {}
+    statements: dict = {}
+    stm_path = timed("5k", run_statement_path, tpcds_reference, statements_k1, statements)
     k1["launches"] += (
         arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
-        + tem_path["k1_launches"]
+        + tem_path["k1_launches"] + stm_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
         "aggregates": agg_path["k1_launches"], "holistic": hol_path["k1_launches"],
-        "temporal": tem_path["k1_launches"],
+        "temporal": tem_path["k1_launches"], "statements": stm_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
+    k1["statements_inputs"] = check_grouped_sums_captured(dev, statements_k1, "statements")
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
-               holistic, temporal)
+               holistic, temporal, statements)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
         + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
         + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
-        + tem_path["k2_launches"]
+        + tem_path["k2_launches"] + stm_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -3039,6 +3494,7 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
         "aggregates": agg_path["k2_launches"],
         "holistic": hol_path["k2_launches"],
         "temporal": tem_path["k2_launches"],
+        "statements": stm_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

@@ -16,9 +16,10 @@ against the exact sum, in two orders.
 As SQL at tpch.tiny, through the JAX package's LocalQueryRunner and the
 port's LocalQueryRunner and 4-worker mesh: every test of
 tests/test_agg_hll_waves.py (the two budgeted ones under the same budgets)
-and of tests/test_bivariate_aggs.py (its memory-connector table becomes a
-VALUES relation with the same 40 seeded rows: the memory connector is not
-ported), the JAX tests' own numpy checks kept at their abs=1e-9, and the
+and of tests/test_bivariate_aggs.py (as a VALUES relation with the same 40
+seeded rows, and in the JAX test's own form: its memory table `pts`
+created and filled by INSERT in both packages, stored tables held equal),
+the JAX tests' own numpy checks kept at their abs=1e-9, and the
 approx_distinct cases of tests/test_functions.py; bool_and,
 bool_or, every and checksum over bigint, decimal, date, varchar, double and
 boolean with NULLs, global and grouped, the mesh equal to the local runner;
@@ -333,6 +334,35 @@ def test_bivariate_grouped(parity, where):
     rel, _, _ = _pts()
     rows = parity.check(f"select g, corr(y, x) from {rel} group by g order by g", where)
     assert len(rows) == 2 and all(0.99 < c <= 1.0 for _, c in rows)
+
+
+@pytest.mark.parametrize("where", ["local", "mesh"])
+def test_bivariate_memory_table_form(where):
+    """tests/test_bivariate_aggs.py's own fixture: the memory table `pts`
+    filled by one INSERT of the 40 seeded rows, then its four queries, in
+    the JAX package and the port (test_torch_ddl.StatementPair)."""
+    from test_torch_ddl import StatementPair
+
+    rng = np.random.default_rng(7)
+    xs = rng.normal(size=40)
+    ys = 2.5 * xs + 1.0 + rng.normal(scale=0.1, size=40)
+    vals = ", ".join(
+        f"({1 + i % 2}, {round(float(y), 12)}, {round(float(x), 12)})"
+        for i, (x, y) in enumerate(zip(xs, ys))
+    )
+    p = StatementPair(where=where)
+    p.run_all([
+        "create table pts (g bigint, y double, x double)",
+        f"insert into pts values {vals}",
+        "select corr(y, x), covar_samp(y, x), covar_pop(y, x) from pts",
+        "select regr_slope(y, x), regr_intercept(y, x) from pts",
+        "select g, corr(y, x) from pts group by g order by g",
+    ])
+    y = np.array([round(float(v), 12) for v in ys])
+    x = np.array([round(float(v), 12) for v in xs])
+    got = p.port.execute("select corr(y, x), covar_pop(y, x) from pts").rows[0]
+    assert got[0] == pytest.approx(np.corrcoef(y, x)[0, 1], abs=1e-9)
+    assert got[1] == pytest.approx(np.cov(y, x, ddof=0)[0, 1], abs=1e-9)
 
 
 @pytest.mark.parametrize("where", ["local", "mesh"])

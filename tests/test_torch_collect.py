@@ -15,9 +15,9 @@ As SQL at tpch.tiny, through the JAX package's LocalQueryRunner and the
 port's LocalQueryRunner and 4-worker mesh (where the fragmenter places a
 collect aggregate in the coordinator fragment, over the gathered rows): the
 array_agg, map_agg, listagg and array_join cases of
-tests/test_collect_aggs.py (its memory-connector table becomes a VALUES
-relation with the same rows: the memory connector is not ported), the
-rejected forms, which raise the same error in both, and the statements of
+tests/test_collect_aggs.py (its memory-connector table as a VALUES
+relation with the same rows, and in the JAX test's own memory-table form),
+the rejected forms, which raise the same error in both, and the statements of
 chip_smoke.py's phase 5g (U1-U7), which it runs at sf1 on the card.  Cases marked
 order-free compare each array's elements as a sorted list: an array_agg
 without ORDER BY has no defined element order, and the mesh gathers rows in
@@ -192,6 +192,26 @@ REJECTED = {
         "not supported for map_agg",
     ),
 }
+
+
+@pytest.mark.parametrize("where", ["local", "mesh"])
+def test_array_agg_skips_nulls_memory_table_form(where):
+    """tests/test_collect_aggs.py's own form of the NULL-skipping case: the
+    memory table memory.default.aa created and filled by INSERT in the JAX
+    package and the port (test_torch_ddl.StatementPair, stored tables held
+    equal), then array_agg over it; an array_agg without ORDER BY has no
+    defined element order, so the arrays compare sorted."""
+    from test_torch_ddl import StatementPair
+
+    p = StatementPair(where=where)
+    p.run_all([
+        "create table memory.default.aa (g bigint, v bigint)",
+        "insert into memory.default.aa values (1, 10), (1, null), (1, 30)",
+    ])
+    sql = "select array_agg(v) from memory.default.aa group by g"
+    expected = p.jax.execute(sql).rows
+    actual = p.port.execute(sql).rows
+    assert [sorted(r[0]) for r in actual] == [sorted(r[0]) for r in expected] == [[10, 30]]
 
 
 @pytest.mark.parametrize("where", ["local", "mesh"])

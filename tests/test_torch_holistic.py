@@ -19,7 +19,7 @@ port's LocalQueryRunner (both with one split reader, so rows arrive in one
 order and min_by/max_by break ties alike) and through both 4-worker meshes:
 every case of tests/test_qdigest.py (the JAX tests' own numpy checks kept),
 the min_by/max_by cases of tests/test_collect_aggs.py (its memory-connector
-table becomes a VALUES relation: the memory connector is not ported), the
+table becomes a VALUES relation with the same rows), the
 rejected forms, which raise the same error in both, approx_percentile and
 min_by over long decimals, and chip_smoke.py's phase-5i statements H1-H3
 (min_by/max_by values among tied keys also through chip_smoke's witness

@@ -251,9 +251,7 @@ def test_local_join_queries_match_jax(runners, name):
 #: pieces the port still lacks (every TPC-H query runs): SQL -> the words
 #: the NotImplementedError must name
 UNPORTED = {
-    "timestamp_function": (
-        "explain select year(cast(o_orderdate as timestamp)) from orders", "ExplainStatement"
-    ),
+    "timestamp_function": ("grant select on orders to alice", "GRANT"),
     "mod_by_long_decimal": (
         "select o_custkey % cast(o_totalprice as decimal(30,2)) from orders",
         "mod by a long decimal",
@@ -261,15 +259,13 @@ UNPORTED = {
     "cast_column_to_varchar": (
         "select cast(o_custkey as varchar) from orders", "varchar on columns"
     ),
-    "holistic_aggregate": (
-        "with recursive t(n) as (select 1 union all select n + 1 from t where n < 3) "
-        "select * from t",
-        "WITH RECURSIVE",
+    "holistic_aggregate": ("revoke select on orders from alice", "REVOKE"),
+    "sample": ("create role analysts", "CREATE ROLE"),
+    "array_form": (
+        "create table memory.default.bk with (bucketed_by = array['o_custkey'], "
+        "bucket_count = 4) as select o_custkey from orders",
+        "bucketed table layouts",
     ),
-    "sample": (
-        "create view v as select split_part(o_comment, ' ', 1) w from orders", "CreateView"
-    ),
-    "array_form": ("create table t as select o_custkey from orders", "CreateTableAs"),
 }
 
 
@@ -278,13 +274,15 @@ def test_unported_pieces_raise(runners, piece):
     """Each piece still unported raises NotImplementedError naming it,
     never wrong rows (LIKE, year, substr, long-decimal division, DISTINCT
     aggregates, window functions, arrays and array_agg, the holistic
-    aggregates, TABLESAMPLE, MATCH_RECOGNIZE, timestamps and split_part now
-    run: see test_torch_functions.py, test_torch_distinct.py,
-    test_torch_window.py, test_torch_arrays.py, test_torch_collect.py,
-    test_torch_holistic.py, test_torch_pattern.py, test_torch_temporal.py
-    and test_torch_breadth.py).  The timestamp_function, holistic_aggregate,
-    sample and array_form cases keep their names and now hold EXPLAIN, WITH
-    RECURSIVE, CREATE VIEW and CREATE TABLE AS, which later slices port."""
+    aggregates, TABLESAMPLE, MATCH_RECOGNIZE, timestamps, split_part, and
+    EXPLAIN, WITH RECURSIVE, CREATE VIEW and CREATE TABLE AS now run: see
+    test_torch_functions.py, test_torch_distinct.py, test_torch_window.py,
+    test_torch_arrays.py, test_torch_collect.py, test_torch_holistic.py,
+    test_torch_pattern.py, test_torch_temporal.py, test_torch_breadth.py,
+    test_torch_ddl.py and test_torch_views_recursive.py).  The
+    timestamp_function, holistic_aggregate, sample and array_form cases keep
+    their names and now hold GRANT, REVOKE, CREATE ROLE and a bucketed
+    CREATE TABLE AS, which later slices port."""
     _, port_runner = runners
     sql, name = UNPORTED[piece]
     with pytest.raises(NotImplementedError, match=name):

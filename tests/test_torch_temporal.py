@@ -21,8 +21,8 @@ and fails on a long decimal's limb planes.
 
 SQL: the 13 cases of tests/test_timestamptz.py and the 8 of
 tests/test_date_functions.py through both LocalQueryRunners (the memory
-table of the last timestamptz case becomes a VALUES relation: the memory
-connector is not ported; current_timestamp is held by the JAX test's own
+table of the last timestamptz case becomes a VALUES relation with the same
+rows; current_timestamp is held by the JAX test's own
 check in each package), and chip_smoke.py's phase-5j statements T1-T3 at
 tpch.tiny through the port's LocalQueryRunner and its 4-worker mesh, each
 held to the JAX package's local rows (T1 with `pallas_agg` on as well,

@@ -116,10 +116,14 @@ class Batch:
 
     def to_pylist(self) -> list[list]:
         """Rows of python values (live rows only, in order)."""
+        return [list(r) for r in self.to_pytuples()]
+
+    def to_pytuples(self) -> list[tuple]:
+        """Rows of python values as tuples (live rows only, in order)."""
         host = self.to("cpu")
         rm = None if host.row_mask is None else host.row_mask.numpy()
         cols = [c.to_pylist(rm) for c in host.columns]
-        return [list(r) for r in zip(*cols)] if cols else []
+        return list(zip(*cols)) if cols else []
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"Batch(cap={self.capacity}, width={self.width}, device={self.device})"

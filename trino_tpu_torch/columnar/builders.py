@@ -84,6 +84,13 @@ def column_from_values(values: Sequence, t: Type, device: torch.device) -> Colum
                 scaled = int(round(float(v) * t.scale_factor))
             arr2[i, 0], arr2[i, 1] = split_py(scaled)
         return Column.from_numpy(arr2, t, valid, device=device)
+    if t is DATE and _all_plain_dates(values):
+        # days since the epoch by ordinal, without the per-value dispatch
+        epoch = _EPOCH_DATE.toordinal()
+        days = np.fromiter(
+            (epoch if v is None else v.toordinal() for v in values), np.int64, n
+        )
+        return Column.from_numpy((days - epoch).astype(t.np_dtype), t, valid, device=device)
     if not has_nulls and not isinstance(t, DecimalType):
         try:
             return Column.from_numpy(
@@ -96,6 +103,12 @@ def column_from_values(values: Sequence, t: Type, device: torch.device) -> Colum
         if v is not None:
             arr[i] = _to_device_scalar(v, t)
     return Column.from_numpy(arr, t, valid, device=device)
+
+
+def _all_plain_dates(values) -> bool:
+    """Every non-NULL value is a datetime.date (not a datetime, a string or
+    a day number, which the per-value conversion handles)."""
+    return all(type(v) is datetime.date for v in values if v is not None)
 
 
 def batch_from_rows(

@@ -154,18 +154,7 @@ class Column:
 def decode_values(data, valid, t: Type, dictionary, row_mask=None, lengths=None) -> list:
     """Host numpy column -> python values (the JAX package's
     Column.to_pylist): arrays decode to lists, maps to dicts."""
-    import datetime
-    from decimal import Context, Decimal
-
-    from trino_tpu_torch.types import (
-        DATE,
-        TIMESTAMP,
-        ArrayType,
-        DecimalType,
-        MapType,
-        unpack_tz_millis,
-        unpack_tz_offset,
-    )
+    from trino_tpu_torch.types import ArrayType, MapType
 
     n = data.shape[0]
     rows = range(n) if row_mask is None else np.nonzero(np.asarray(row_mask))[0]
@@ -193,62 +182,83 @@ def decode_values(data, valid, t: Type, dictionary, row_mask=None, lengths=None)
                     decode_values(data[i, : int(lengths[i])], None, elem, dictionary)
                 )
         return out
-    is_dec = isinstance(t, DecimalType)
-    is_long_dec = is_dec and t.is_long and data.ndim == 2
-    if is_long_dec:
-        from trino_tpu_torch.types.int128 import join_py
+    conv = _scalar_decoder(t, data, dictionary)
+    if row_mask is not None:
+        data = data[rows]
+        valid = None if valid is None else np.asarray(valid)[rows]
+    raw = data.tolist()
+    if valid is None:
+        return raw if conv is None else [conv(v) for v in raw]
+    if conv is None:
+        return [v if ok else None for v, ok in zip(raw, np.asarray(valid).tolist())]
+    return [conv(v) if ok else None for v, ok in zip(raw, np.asarray(valid).tolist())]
 
-        # the default 28-digit context rounds 29+ digit values
-        ldec_ctx = Context(prec=60)
-    out = []
-    for i in rows:
-        if valid is not None and not valid[i]:
-            out.append(None)
-        elif dictionary is not None:
-            out.append(dictionary.values[int(data[i])])
-        elif is_long_dec:
-            out.append(
-                Decimal(join_py(int(data[i, 0]), int(data[i, 1]))).scaleb(
-                    -t.scale, context=ldec_ctx
-                )
-            )
-        elif is_dec:
-            out.append(Decimal(int(data[i])).scaleb(-t.scale))
-        elif t is DATE:
-            out.append(
-                datetime.date(1970, 1, 1) + datetime.timedelta(days=int(data[i]))
-            )
-        elif t is TIMESTAMP:
-            out.append(
-                datetime.datetime(1970, 1, 1)
-                + datetime.timedelta(microseconds=int(data[i]))
-            )
-        elif t.name == "time":
-            us = int(data[i]) % 86_400_000_000
-            out.append(
-                (datetime.datetime(1970, 1, 1) + datetime.timedelta(microseconds=us)).time()
-            )
-        elif t.name == "interval year to month":
-            mo = int(data[i])
+
+def _scalar_decoder(t: Type, data: np.ndarray, dictionary):
+    """The per-value conversion of one scalar column's host values (as
+    `tolist()` gives them) to python values, or None where they already
+    are (integers, floats, booleans)."""
+    import datetime
+    from decimal import Context, Decimal
+
+    from trino_tpu_torch.types import (
+        DATE,
+        TIMESTAMP,
+        DecimalType,
+        unpack_tz_millis,
+        unpack_tz_offset,
+    )
+
+    if dictionary is not None:
+        values = dictionary.values
+        return lambda v: values[v]
+    if isinstance(t, DecimalType):
+        if t.is_long and data.ndim == 2:
+            from trino_tpu_torch.types.int128 import join_py
+
+            # the default 28-digit context rounds 29+ digit values
+            ctx = Context(prec=60)
+            return lambda v: Decimal(join_py(v[0], v[1])).scaleb(-t.scale, context=ctx)
+        return lambda v: Decimal(v).scaleb(-t.scale)
+    if t is DATE:
+        epoch, dates = datetime.date(1970, 1, 1), {}
+
+        def date(v):
+            d = dates.get(v)
+            if d is None:
+                d = dates[v] = epoch + datetime.timedelta(days=v)
+            return d
+
+        return date
+    if t is TIMESTAMP:
+        epoch_ts = datetime.datetime(1970, 1, 1)
+        return lambda v: epoch_ts + datetime.timedelta(microseconds=v)
+    if t.name == "time":
+        epoch_ts = datetime.datetime(1970, 1, 1)
+        return lambda v: (
+            epoch_ts + datetime.timedelta(microseconds=v % 86_400_000_000)
+        ).time()
+    if t.name == "interval year to month":
+        def year_month(mo):
             sign = "-" if mo < 0 else ""
-            out.append(f"{sign}{abs(mo) // 12}-{abs(mo) % 12}")
-        elif t.name == "interval day to second":
-            us = int(data[i])
+            return f"{sign}{abs(mo) // 12}-{abs(mo) % 12}"
+
+        return year_month
+    if t.name == "interval day to second":
+        def day_second(us):
             sign = "-" if us < 0 else ""
             d_, rem = divmod(abs(us), 86_400_000_000)
             h_, rem = divmod(rem, 3_600_000_000)
             m_, rem = divmod(rem, 60_000_000)
             s_, frac = divmod(rem, 1_000_000)
-            out.append(f"{sign}{d_} {h_:02d}:{m_:02d}:{s_:02d}.{frac // 1000:03d}")
-        elif t.name == "timestamp with time zone":
-            # the instant, shown in the value's own zone offset
-            p = int(data[i])
+            return f"{sign}{d_} {h_:02d}:{m_:02d}:{s_:02d}.{frac // 1000:03d}"
+
+        return day_second
+    if t.name == "timestamp with time zone":
+        # the instant, shown in the value's own zone offset
+        def tz_value(p):
             tz = datetime.timezone(datetime.timedelta(minutes=int(unpack_tz_offset(p))))
-            out.append(datetime.datetime.fromtimestamp(unpack_tz_millis(p) / 1000.0, tz))
-        elif np.issubdtype(data.dtype, np.floating):
-            out.append(float(data[i]))
-        elif data.dtype == np.dtype(bool):
-            out.append(bool(data[i]))
-        else:
-            out.append(int(data[i]))
-    return out
+            return datetime.datetime.fromtimestamp(unpack_tz_millis(p) / 1000.0, tz)
+
+        return tz_value
+    return None

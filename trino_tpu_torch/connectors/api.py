@@ -289,12 +289,15 @@ class CatalogManager:
 
 
 def default_catalogs() -> CatalogManager:
-    """The standard test/bench catalog set: tpch and tpcds (the memory
-    and blackhole connectors are not ported yet)."""
+    """The standard test/bench catalog set."""
     from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.blackhole import BlackholeConnector
     from trino_tpu_torch.connectors.tpcds import TpcdsConnector
 
     cm = CatalogManager()
     cm.register("tpch", TpchConnector())
+    cm.register("memory", MemoryConnector())
+    cm.register("blackhole", BlackholeConnector())
     cm.register("tpcds", TpcdsConnector())
     return cm

@@ -63,13 +63,19 @@ sketch among them).  The collect aggregates, a global holistic aggregate
 and MATCH_RECOGNIZE run in the coordinator fragment, where the fragmenter
 places them; a TABLESAMPLE raises, as the JAX mesh does.
 
+Every statement of the local runner runs here too: the queries inside
+CTAS, INSERT ... SELECT, DELETE, UPDATE, MERGE, ALTER TABLE and WITH
+RECURSIVE's steps run on the mesh (`_run_query`), and a memory table's
+splits (row ranges of one stored column set) stack per worker like any
+scan's.
+
 Not ported (each raises NotImplementedError when a session asks for it):
 fault tolerance and task retries, bucketed table layouts, `resize_mesh`,
 membership heartbeats, prewarm, the per-fragment profile
-(`last_mesh_profile`) and the compile observatory.  The
-collective-schedule license (verify/schedule.py) is not ported either: the
-executor dispatches strictly lazily, which the JAX package defines as the
-same results.
+(`last_mesh_profile`, so EXPLAIN ANALYZE on the mesh) and the compile
+observatory.  The collective-schedule license (verify/schedule.py) is not
+ported either: the executor dispatches strictly lazily, which the JAX
+package defines as the same results.
 """
 
 from __future__ import annotations
@@ -292,7 +298,12 @@ class DistributedQueryRunner(LocalQueryRunner):
 
     # -- execution ------------------------------------------------------------
 
-    def _run_query(self, query) -> MaterializedResult:
+    def _run_query(self, query, stats=None) -> MaterializedResult:
+        if stats is not None:
+            raise NotImplementedError(
+                "EXPLAIN ANALYZE on the mesh needs MeshProfile (the "
+                "per-fragment mesh profile): not ported yet"
+            )
         _check_ported_knobs(self.properties)
         plan = self.plan_query(query)
         sub = self.create_subplan(plan)

@@ -105,6 +105,7 @@ class LocalExecutionPlanner:
         catalogs: CatalogManager,
         device: torch.device,
         target_splits: int = 4,
+        stats=None,
         properties=None,
     ):
         from trino_tpu_torch.runtime.lifecycle import query_memory_context
@@ -114,12 +115,17 @@ class LocalExecutionPlanner:
         self.catalogs = catalogs
         self.device = device
         self.target_splits = target_splits
+        self.stats = stats  # Optional[StatsCollector] for EXPLAIN ANALYZE
         self.properties = properties or SessionProperties()
         #: per-query budget tree (reference: AggregatedMemoryContext +
         #: MemoryPool); blocking operators reserve through its children.
         #: While a statement runs it lives on the shared process pool, where
         #: the revoke tier and the low-memory killer see it
         self.memory = query_memory_context(session_budget(self.properties))
+        if stats is not None:
+            stats.memory = self.memory
+        #: plan-tree depth of the node being planned (EXPLAIN ANALYZE's indent)
+        self._depth = 0
         #: build-side key ranges registered by inner-join builds, keyed by
         #: the probe symbol they prune (DynamicFilterService role)
         self.dynamic_filters: dict = {}
@@ -137,6 +143,13 @@ class LocalExecutionPlanner:
 
         return effective_budget(self.properties, self.memory)
 
+    def _observer(self):
+        """Wave/spill event sink: the metrics registry plus EXPLAIN
+        ANALYZE's StatsCollector counters when one is attached."""
+        from trino_tpu_torch.runtime.spill import PressureObserver
+
+        return PressureObserver(sink=self.stats)
+
     def _make_spiller(self):
         """A filesystem spill store for one wave operation, or None when
         `spill_enabled` is off (partitions stay in host RAM).  Called
@@ -146,7 +159,7 @@ class LocalExecutionPlanner:
 
         if not spill_to_disk(self.properties):
             return None
-        return SpillManager()
+        return SpillManager(observer=self._observer())
 
     def plan(self, node: P.PlanNode) -> PhysicalPlan:
         method = getattr(self, "_visit_" + type(node).__name__, None)
@@ -154,7 +167,17 @@ class LocalExecutionPlanner:
             raise NotImplementedError(
                 f"plan node {type(node).__name__}: not ported yet"
             )
-        return method(node)
+        self._depth += 1
+        try:
+            out = method(node)
+        finally:
+            self._depth -= 1
+        if self.stats is not None:
+            st = self.stats.register(
+                type(node).__name__.replace("Node", ""), depth=self._depth
+            )
+            out = PhysicalPlan(self.stats.instrument(st, out.stream), out.symbols)
+        return out
 
     # -- leaves ---------------------------------------------------------------
 
@@ -370,7 +393,8 @@ class LocalExecutionPlanner:
         if budget and ngroups:
             stream = _agg_wave_stream(
                 make_op, feed, list(range(ngroups)), int(budget), self.device,
-                spill_factory=self._make_spiller, properties=self.properties,
+                observer=self._observer(), spill_factory=self._make_spiller,
+                properties=self.properties,
             )
         else:
             stream = make_op().process(feed)
@@ -478,7 +502,7 @@ class LocalExecutionPlanner:
 
         device = self.device
         ctx = self.memory.child("join_build")
-        observer = _spill.PressureObserver()
+        observer = self._observer()
         need = 2 * batches_bytes(build_batches)  # raw batches + dense copy
         try:
             ctx.add_bytes(need)
@@ -600,7 +624,8 @@ class LocalExecutionPlanner:
             stream = _window_wave_stream(
                 lambda: WindowOperator(part, order, specs),
                 src.stream, list(part), int(budget), self.device,
-                spill_factory=self._make_spiller, properties=self.properties,
+                observer=self._observer(), spill_factory=self._make_spiller,
+                properties=self.properties,
             )
         else:
             # a window with no PARTITION BY needs every row at once: no
@@ -618,13 +643,11 @@ class LocalExecutionPlanner:
 
     def _visit_SortNode(self, node: P.SortNode) -> PhysicalPlan:
         src = self.plan(node.source)
-        from trino_tpu_torch.runtime.spill import PressureObserver
-
         op = OrderByOperator(
             self._sort_keys(src, node.orderings),
             memory_ctx=self.memory.child("sort"),
             spill_factory=self._make_spiller,
-            observer=PressureObserver(),
+            observer=self._observer(),
         )
         return PhysicalPlan(op.process(src.stream), src.symbols)
 
@@ -726,7 +749,7 @@ def _revoked_join_remainder(make_op, holder, probe_keys, probe_iter, ctx,
 
 
 def _agg_wave_stream(make_op, feed, key_channels: list, budget: int, device,
-                     spill_factory=None, properties=None):
+                     observer=None, spill_factory=None, properties=None):
     """Memory-bounded grouped aggregation: group-hash STATE waves.
 
     Reference role: HashAggregationOperator.startMemoryRevoke:449.  Input
@@ -750,7 +773,8 @@ def _agg_wave_stream(make_op, feed, key_channels: list, budget: int, device,
         batch_bytes,
     )
 
-    observer = _spill.PressureObserver()
+    if observer is None:
+        observer = _spill.PressureObserver()
     op = make_op()
     if not op.streaming:
         yield from _agg_raw_wave_stream(
@@ -916,7 +940,7 @@ def _agg_raw_wave_stream(make_op, op, feed, key_channels: list, budget: int, dev
 
 
 def _window_wave_stream(make_op, feed, key_channels: list, budget: int, device,
-                        spill_factory=None, properties=None):
+                        observer=None, spill_factory=None, properties=None):
     """Memory-bounded window execution: a window function looks within ONE
     partition only, so hash-partitioning the input by the PARTITION BY keys
     into waves is exact; each wave materializes and sorts only its slice on
@@ -926,7 +950,8 @@ def _window_wave_stream(make_op, feed, key_channels: list, budget: int, device,
     from trino_tpu_torch.runtime import spill as _spill
     from trino_tpu_torch.runtime.memory import batch_bytes
 
-    observer = _spill.PressureObserver()
+    if observer is None:
+        observer = _spill.PressureObserver()
     acc_dev: list = []
     store = None
     spiller = None

@@ -21,7 +21,7 @@ catches nothing and never falls back to the CPU):
      rows/s, kernel launches and peak device memory, then one profiled warm
      run each (planning time, device busy share, the top ops by device
      time); every result is checked against the port's own CPU run
-     (device="cpu") of the same query;
+     (device="cpu") of the same query (see "the checks of phases 4-5c");
   5. the join and mesh path: TPC-H Q3 at sf1 on a DistributedQueryRunner of
      4 logical workers on the card with `pallas_probe` on and with default
      knobs (both run the sorted-probe kernel on the card, and each run must
@@ -47,7 +47,11 @@ catches nothing and never falls back to the CPU):
      mesh Q9 and Q16; then, untimed, each mesh query's largest launch
      (P, cap_b, n_match, S) and the host time of Q13's LIKE table with the
      size of its dictionary; every result is checked against the port's CPU
-     LocalQueryRunner at sf1;
+     LocalQueryRunner at sf1.
+     The checks of phases 4-5c: a reference process makes these CPU runs
+     (after its phase 5k and 5l parts), so the card process does not spend
+     its own cores on them; each phase keeps its results, and their checks
+     run right after phase 5l (a failing one fails the script as before);
   5d. TPC-DS without windows: the 84 TPC-DS queries that have no window
      function at tpcds.sf1 (q72 at sf0_1, see TPCDS_SCHEMA) through
      LocalQueryRunner on the card and on the 4-worker mesh with default
@@ -57,15 +61,22 @@ catches nothing and never falls back to the CPU):
      launch's (P, cap_b, n_match, S) and keeps the largest launch's
      inputs); one profiled warm run each of q78 (local and mesh) and q75
      (mesh); every result is held to the port's CPU run of the same
-     query, which a child process of this script computes on its own half
-     of the cores while the card phases run, with each query's host
-     planning time (ORDER BY keys in order, rows as a multiset where the
-     ORDER BY leaves ties, keys only for the tie group a LIMIT cuts
-     through: trino_tpu_torch/testing.py);
+     query, which a reference process computes on the upper half of the
+     cores while the card phases run, with each query's host planning time
+     (ORDER BY keys in order, rows as a multiset where the ORDER BY leaves
+     ties, keys only for the tie group a LIMIT cuts through:
+     trino_tpu_torch/testing.py).  Phases 5d and 5e run, one after the
+     other, in a second process on the card, started after the build and
+     running beside phases 3-5l of the main one (on the same cores); q72,
+     whose sf0_1 mesh run takes most of the card's memory, runs first,
+     local then mesh, while the main process is in its small phases, and
+     that process then gives the cached memory back.  The main process
+     takes the two phases' launches, seconds and largest sorted-probe
+     inputs once phase 5l is done;
   5e. TPC-DS with windows: the 14 windowed TPC-DS queries the JAX package
      answers (q12, q20, q36, q44, q47, q49, q53, q57, q63, q67, q70, q86,
-     q89, q98) at tpcds.sf1, run and checked as in phase 5d (the reference
-     process computes them after phase 5d's queries); the cold runs log
+     q89, q98) at tpcds.sf1, run and checked as in phase 5d (the same
+     reference process computes them after phase 5d's queries); the cold runs log
      every window step (its input rows, each mesh worker's rows, the
      long-decimal sum/avg path: licensed or limb); one profiled warm mesh
      run of the query with the largest window input; q51 must raise the
@@ -131,8 +142,8 @@ catches nothing and never falls back to the CPU):
      peak device memory, the kernels' launches and the group path each
      grouped reduction took; one profiled warm run each of the local A1
      and A4 by l_orderkey; every result held to the port's CPU run of the
-     same query, computed by the reference process (after its phase 5g
-     part), the mesh A1 equal to the local A1, and A1's estimates within
+     same query, computed by a reference process (REFERENCE_PARTS), the
+     mesh A1 equal to the local A1, and A1's estimates within
      4% of the exact distinct counts;
   5i. the holistic aggregates, TABLESAMPLE and MATCH_RECOGNIZE at TPC-H sf1
      (HOLISTIC_QUERIES, nothing reduced): H1 global over lineitem (three
@@ -153,7 +164,7 @@ catches nothing and never falls back to the CPU):
      device memory, the kernels' launches and the group path of each
      grouped reduction; one profiled warm run each of the local H2 and the
      mesh H3; every result held to the port's CPU run of the same query
-     (computed by the reference process after its phase 5h part), the
+     (computed by a reference process, REFERENCE_PARTS), the
      values min_by/max_by pick among tied keys to the tied rows (witness
      queries the reference process runs), the mesh H1 equal to the local
      H1, H1's estimates within 1/32 relative of the exact percentiles;
@@ -174,8 +185,8 @@ catches nothing and never falls back to the CPU):
      group paths, the host tables built over a dictionary (entries and
      seconds) and the per-row renders' seconds; one profiled warm run each
      of the local T1 and the mesh T2; every result held to the port's CPU
-     run of the same query (computed by the reference process after its
-     phase 5i part), the local T1's f32 kernel sums to relative 5e-5;
+     run of the same query (computed by a reference process,
+     REFERENCE_PARTS), the local T1's f32 kernel sums to relative 5e-5;
   5k. the statement layer over the memory and blackhole catalogs at TPC-H
      sf1 (`statement_steps`, nothing reduced), one LocalQueryRunner
      (`pallas_agg` on) and one 4-worker mesh (`pallas_probe` on) over one
@@ -191,22 +202,60 @@ catches nothing and never falls back to the CPU):
      60-day WITH RECURSIVE date series joined with the memory table, local
      and mesh; D6 EXPLAIN and EXPLAIN (TYPE DISTRIBUTED) of D1's Q1 local
      and mesh, EXPLAIN ANALYZE locally (each operator's wall and device time
-     logged), the mesh's EXPLAIN ANALYZE raising NotImplementedError naming
-     MeshProfile, a blackhole CTAS (run right after D2's CTAS) and a read of
-     it, ALTER TABLE (add a column, rename) and DROP TABLE with SHOW TABLES.
+     logged) and on the mesh (its profile's fragment ids and kinds held to
+     the CPU mesh's fragments of the query), a blackhole CTAS (run right
+     after D2's CTAS) and a read of it, ALTER TABLE (add a column, rename) and DROP TABLE with SHOW TABLES.
      Each step logs its wall (reads cold and warm), the peak device memory,
      the kernels' launches and the host seconds of each table write's three
      parts (rows to the host, the column build, the sink's append); one
      untimed capture run each after D1's Q1 and D3's join keeps the
      kernels' largest inputs (their launches counted apart).  Every result
      and the digest of every memory table after every step are held to the
-     port's CPU run of the same steps (the reference process, after its
-     phase 5j part): local doubles (K1's f32 sums) to relative 5e-5, EXPLAIN
+     port's CPU run of the same steps (a reference process,
+     REFERENCE_PARTS): local doubles (K1's f32 sums) to relative 5e-5, EXPLAIN
      text exactly, EXPLAIN ANALYZE's operator names, rows and batches, the
      tables' rows, codes and dictionaries exactly;
+  5l. the query lifecycle at TPC-H sf1 (`run_lifecycle_path`): L1 Q1-double
+     with `pallas_agg` and `query_trace` on through LocalQueryRunner, cold
+     and warm (the grouped-sums kernel on every run), its one root span and
+     the query/analyze/optimize/execute spans in system.runtime.spans, its
+     FINISHED row of 4 in system.runtime.queries, its completed event's
+     statistics (wall, rows, peak reservation, span count), and EXPLAIN
+     ANALYZE VERBOSE (operator lines, the span tree, a `Trace JSON:` line
+     that parses); L2 EXPLAIN ANALYZE of Q3 on the 4-worker mesh with
+     `pallas_probe` on (the blocking profile: every fragment's phases sum
+     to its wall, the fragment ids and kinds equal the CPU mesh's, the
+     registry's mesh-event deltas equal the profile's counters,
+     `last_mesh_profile.to_json()` logged) and the plain mesh Q3 cold and
+     warm (the sorted-probe kernel on every run); L3 a planning deadline on
+     Q1-double (which stays for a later Q6, and stops both before the card:
+     the grouped-sums count does not move), a run deadline of a fifth of
+     the warm wall of a CTAS of every order into memory (how far past the
+     deadline the abort came is logged), and a second thread cancelling the
+     same CTAS through `query_tracker.cancel` once it runs; after each
+     abort the pool holds nothing, the spill directory is empty,
+     system.runtime.queries shows the reason, and the next run gives the
+     CPU run's rows; L4 a QueryDispatcher over one LocalQueryRunner with 2
+     lanes and the groups etl (weight 1, one at a time) and adhoc (weight
+     3, two at a time): six threads submit twelve statements (Q1-double,
+     Q6, Q3 and Q18, local), every result held to the CPU run, the
+     resource-groups table counting 12 admitted and a flooded third group
+     (max_queued 1) shedding, with the gate-wait histogram, each
+     statement's gate wait and the wall of the twelve against three times
+     the sum of the serial warm walls logged; L5 a runner built by
+     runner_from_etc from an etc/ directory written under build/ (tpch and
+     memory catalogs, the file event listener): two queries and their
+     created and completed events in the file, system.runtime.nodes
+     listing the card, device bytes in caches, a SET SESSION value in
+     session_properties, and system.metrics.metrics' queries total, which
+     must have grown by exactly the statements the runner ran.  The
+     lifecycle outcomes (state, error type, error code) are held to the
+     CPU run's, and every result to the port's CPU run (a reference
+     process, REFERENCE_PARTS); times are logged, never compared;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows),
-     of the local T1's and of D1's Q1's (phase 5k), and time it there;
+     of the local T1's, of D1's Q1's (phase 5k) and of L1's Q1-double
+     (phase 5l), and time it there;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -220,14 +269,17 @@ catches nothing and never falls back to the CPU):
      launch of phase 5b, and timed at the largest; bit-exact and timed at
      the inputs of the largest launch of phases 5c, 5d and 5g; bit-exact
      at the largest launch of phase 5e; bit-exact and timed at the largest
-     launch of the mesh H3 (phase 5i), of the mesh T2 (phase 5j) and of
-     D3's mesh join (phase 5k);
+     launch of the mesh H3 (phase 5i), of the mesh T2 (phase 5j), of D3's
+     mesh join (phase 5k) and of L2's mesh Q3 (phase 5l);
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
-The TPC-H text pools (comments) are drawn from a generator seeded with
-Python's string hash, so the script runs itself, and so its reference
-process, under PYTHONHASHSEED=0: both then see the same c_comment words.
+The CPU references are made by two processes on the upper half of the
+cores: one for phases 5d and 5e, one for every other phase
+(REFERENCE_PARTS).  The TPC-H text pools (comments) are drawn from a
+generator seeded with Python's string hash, so the script runs itself, and
+so every process it starts, under PYTHONHASHSEED=0: all then see the same
+c_comment words.
 
 Tolerances: integers, decimals, dates, timestamps, tz values (instant and
 offset) and strings exact.  Kernel sums: counts
@@ -282,7 +334,7 @@ TPCDS_RAISING = {
 #: before any filter, ~940 M rows at sf1.  Under a 256 MiB budget with 64
 #: waves it runs locally on the card at sf1 and matches the CPU run
 #: (tools/q72_budget_probe.py), but that CPU run takes ~11 minutes of
-#: eight cores, more than this script's reference process can spare, and
+#: eight cores, more than this script's reference processes can spare, and
 #: the mesh would hold the whole expansion on the card
 TPCDS_SCHEMA = {72: "sf0_1"}
 #: phase 5d's profiled warm runs: a star join over the three sales
@@ -542,7 +594,9 @@ TEMPORAL_RENDER_QUERY = "T6"
 #: one CatalogManager.  A `repeat` step is a read, run cold and warm; a
 #: `raises` step must raise NotImplementedError naming that text (the
 #: reference process skips it); an `analyze` step is an EXPLAIN ANALYZE,
-#: compared on its operator names, rows= and batches=.  The blackhole CTAS
+#: compared on its operator names, rows= and batches=; a `fragments` step
+#: is the mesh's EXPLAIN ANALYZE, compared on its profile's fragment ids
+#: and kinds.  The blackhole CTAS
 #: runs right after D2's CTAS, while memory.default.ord still holds all
 #: 1,500,000 orders.
 STATEMENT_RECURSIVE = (
@@ -571,13 +625,16 @@ ORDERS_COLUMNS = "o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_orderdat
 
 class StatementStep:
     def __init__(self, label: str, where: str, *statements, repeat: bool = False,
-                 raises: str = "", analyze: bool = False):
+                 raises: str = "", analyze: bool = False, fragments: bool = False):
         self.label = label
         self.where = where
         self.statements = statements
         self.repeat = repeat
         self.raises = raises
         self.analyze = analyze
+        #: the mesh's EXPLAIN ANALYZE: compared on its profile's fragment
+        #: ids and kinds (the reference fragments the query on a CPU mesh)
+        self.fragments = fragments
 
     @property
     def group(self) -> str:
@@ -643,7 +700,7 @@ def statement_steps(schema: str) -> list:
         ]
     steps += [
         S("D6_explain_analyze_local", "local", f"explain analyze {q1}", analyze=True),
-        S("D6_explain_analyze_mesh", "mesh", f"explain analyze {q1}", raises="MeshProfile"),
+        S("D6_explain_analyze_mesh", "mesh", f"explain analyze {q1}", fragments=True),
         S("D6_alter_add_column", "local",
           "alter table memory.default.ord add column o_note varchar"),
         S("D6_alter_rename", "local",
@@ -987,18 +1044,17 @@ def run_main_path() -> dict:
         raise AssertionError("the main path never launched grouped_sums")
     for name, (sql, res, warm) in results.items():
         log(f"{name} warm: wall_s={warm!r} lineitem_rows_per_s={LINEITEM_SF1_ROWS / warm!r}")
-    # the port's own CPU run of every query (f64 paths) as the reference
-    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
-    for name, (sql, res, _) in results.items():
-        t0 = time.perf_counter()
-        expected = cpu.execute(sql)
-        rtol = KERNEL_RTOL if name == "q1_double" else 0.0
-        rows_match(res.rows, expected.rows, float_rtol=rtol)
-        log(
-            f"{name}: {len(res.rows)} rows match the CPU run "
-            f"(cpu wall_s={time.perf_counter() - t0!r}); first row {res.rows[0]}"
-        )
-    return {"launches": launches}
+
+    def check(cpu: dict) -> None:
+        # the port's own CPU run of every query (f64 paths) as the reference
+        for name, (sql, res, _) in results.items():
+            rows, cpu_s = cpu[sql]
+            rtol = KERNEL_RTOL if name == "q1_double" else 0.0
+            rows_match(res.rows, rows, float_rtol=rtol)
+            log(f"{name}: {len(res.rows)} rows match the CPU run "
+                f"(cpu wall_s={cpu_s!r}); first row {res.rows[0]}")
+
+    return {"launches": launches, "check": check}
 
 
 # -- phase 5: the join and mesh path ------------------------------------------
@@ -1110,14 +1166,15 @@ def run_mesh_path(capture: dict) -> dict:
         raise AssertionError("the mesh path never launched locate_sorted")
     for name, (res, warm) in results.items():
         log(f"{name} warm: wall_s={warm!r} lineitem_rows_per_s={LINEITEM_SF1_ROWS / warm!r}")
-    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
-    t0 = time.perf_counter()
-    expected = cpu.execute(sql)
-    log(f"q3 cpu reference: wall_s={time.perf_counter() - t0!r}")
-    for name, (res, _) in results.items():
-        rows_match(res.rows, expected.rows, float_rtol=0.0)
-        log(f"{name}: {len(res.rows)} rows match the CPU run; first row {res.rows[0]}")
-    return {"launches": launches}
+
+    def check(cpu: dict) -> None:
+        rows, cpu_s = cpu[sql]
+        log(f"q3 cpu reference: wall_s={cpu_s!r}")
+        for name, (res, _) in results.items():
+            rows_match(res.rows, rows, float_rtol=0.0)
+            log(f"{name}: {len(res.rows)} rows match the CPU run; first row {res.rows[0]}")
+
+    return {"launches": launches, "check": check}
 
 
 # -- phase 5b: semi joins, cross joins and the conditional forms ---------------
@@ -1245,19 +1302,19 @@ def run_semi_cross_path(record: dict) -> dict:
     for name, (q, res, cold, warm) in results.items():
         log(f"{name}: cold_s={cold!r} warm_s={warm!r} "
             f"lineitem_rows_per_s={LINEITEM_SF1_ROWS / warm!r}")
-    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
-    for q in SEMI_LOCAL_QIDS:
-        t0 = time.perf_counter()
-        expected = cpu.execute(QUERIES[q])
-        cpu_s = time.perf_counter() - t0
-        if not expected.rows:
-            raise AssertionError(f"q{q}: the CPU reference returned no rows")
-        for name in (f"q{q}_local", f"q{q}_mesh"):
-            if name in results:
-                rows_match(results[name][1].rows, expected.rows, float_rtol=DOUBLE_RTOL)
-        log(f"q{q}: local{' and mesh' if q in SEMI_MESH_QIDS else ''} match the CPU run "
-            f"({len(expected.rows)} rows, cpu wall_s={cpu_s!r}); first row {expected.rows[0]}")
-    return {"launches": launches}
+
+    def check(cpu: dict) -> None:
+        for q in SEMI_LOCAL_QIDS:
+            rows, cpu_s = cpu[QUERIES[q]]
+            if not rows:
+                raise AssertionError(f"q{q}: the CPU reference returned no rows")
+            for name in (f"q{q}_local", f"q{q}_mesh"):
+                if name in results:
+                    rows_match(results[name][1].rows, rows, float_rtol=DOUBLE_RTOL)
+            log(f"q{q}: local{' and mesh' if q in SEMI_MESH_QIDS else ''} match the CPU run "
+                f"({len(rows)} rows, cpu wall_s={cpu_s!r}); first row {rows[0]}")
+
+    return {"launches": launches, "check": check}
 
 
 # -- phase 5c: the scalar functions and DISTINCT aggregates ---------------------
@@ -1391,18 +1448,18 @@ def run_function_path(record: dict) -> dict:
     for name, (q, res, cold, warm) in results.items():
         log(f"{name}: cold_s={cold!r} warm_s={warm!r} "
             f"lineitem_rows_per_s={LINEITEM_SF1_ROWS / warm!r}")
-    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
-    for q in FUNC_QIDS:
-        t0 = time.perf_counter()
-        expected = cpu.execute(QUERIES[q])
-        cpu_s = time.perf_counter() - t0
-        if not expected.rows:
-            raise AssertionError(f"q{q}: the CPU reference returned no rows")
-        for name in (f"q{q}_local", f"q{q}_mesh"):
-            rows_match(results[name][1].rows, expected.rows, float_rtol=DOUBLE_RTOL)
-        log(f"q{q}: local and mesh match the CPU run ({len(expected.rows)} rows, "
-            f"cpu wall_s={cpu_s!r}); first row {expected.rows[0]}")
-    return {"launches": launches, "per_query": per_query}
+
+    def check(cpu: dict) -> None:
+        for q in FUNC_QIDS:
+            rows, cpu_s = cpu[QUERIES[q]]
+            if not rows:
+                raise AssertionError(f"q{q}: the CPU reference returned no rows")
+            for name in (f"q{q}_local", f"q{q}_mesh"):
+                rows_match(results[name][1].rows, rows, float_rtol=DOUBLE_RTOL)
+            log(f"q{q}: local and mesh match the CPU run ({len(rows)} rows, "
+                f"cpu wall_s={cpu_s!r}); first row {rows[0]}")
+
+    return {"launches": launches, "per_query": per_query, "check": check}
 
 
 # -- phase 5d: TPC-DS without windows -------------------------------------------
@@ -1419,105 +1476,256 @@ def tpcds_qids(windowed: bool = False) -> list:
     ]
 
 
-def _pin_to_cores(upper: bool) -> str:
-    """Pin this process to one half of its cores (the CPU reference process
-    takes the upper half, the process driving the card the lower), with torch's
-    threads to match; on fewer than four cores nothing is pinned."""
+def _pin_to_cores(upper: bool, share: int = 1) -> str:
+    """Pin this process to one half of its cores (the CPU reference
+    processes take the upper half, the main card process the lower), with
+    torch's threads to match, split among the `share` processes that take
+    the same half; on fewer than four cores nothing is pinned."""
     cores = sorted(os.sched_getaffinity(0))
     if len(cores) < 4:
         return f"not pinned ({len(cores)} cores)"
     half = len(cores) // 2
     mine = cores[half:] if upper else cores[:half]
     os.sched_setaffinity(0, mine)
-    torch.set_num_threads(len(mine))
-    return f"cores {mine[0]}-{mine[-1]}"
+    torch.set_num_threads(max(len(mine) // share, 1))
+    return f"cores {mine[0]}-{mine[-1]}, {torch.get_num_threads()} torch threads"
 
 
-def tpcds_cpu_reference(out_path: str) -> int:
-    """The child process: the port's CPU run (device="cpu") of every phase
-    5d query, pickled to `out_path` as {qid: (column names, type names,
-    rows, seconds, the query's ORDER BY and LIMIT, host planning
-    seconds)}, then of every phase 5e query, pickled to `out_path` +
-    ".window", then phase 5f's queries under the budgets the card process
-    writes to `out_path` + ".budgets", pickled to `out_path` + ".memory",
-    then phase 5g's, pickled to `out_path` + ".arrays", then phase 5h's,
-    pickled to `out_path` + ".aggregates", then phase 5i's, pickled to
-    `out_path` + ".holistic", then phase 5j's, pickled to `out_path` +
-    ".temporal", then phase 5k's, pickled to `out_path` + ".statements".
-    It runs beside the card phases, on its own cores."""
+#: the CPU reference processes, each with the phases whose CPU runs it
+#: makes, in this order: "tpcds" those of phases 5d and 5e (which the
+#: second card process runs), "rest" every other phase's, the phases the
+#: card reaches last first, so it has work while phase 5f's budgets are
+#: not yet written
+REFERENCE_PARTS = {
+    "tpcds": ("5d", "5e"),
+    "rest": ("5k", "5l", "tpch", "5f", "5g", "5h", "5i", "5j"),
+}
+#: each phase's result file, beside the reference path
+REFERENCE_SUFFIX = {
+    "5d": "", "5e": ".window", "5f": ".memory", "5g": ".arrays", "5h": ".aggregates",
+    "5i": ".holistic", "5j": ".temporal", "5k": ".statements", "5l": ".lifecycle",
+    "tpch": ".tpch",
+}
+
+
+def tpcds_cpu_reference(out_path: str, windowed: bool, runners: dict) -> None:
+    """The port's CPU run (device="cpu") of every phase 5d query (or,
+    `windowed`, every phase 5e query), pickled to `out_path` + the phase's
+    suffix as {qid: (column names, type names, rows, seconds, the query's
+    ORDER BY and LIMIT, host planning seconds)}."""
     import pickle
 
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
     from trino_tpu_torch.runtime.runner import LocalQueryRunner
     from trino_tpu_torch.testing import result_order
 
-    log(f"tpcds cpu reference: {_pin_to_cores(upper=True)}")
-    runners = {}
-    for windowed, path in ((False, out_path), (True, out_path + ".window")):
-        out = {}
-        for q in tpcds_qids(windowed):
-            schema = TPCDS_SCHEMA.get(q, "sf1")
-            if schema not in runners:
-                runners[schema] = LocalQueryRunner(catalog="tpcds", schema=schema, device="cpu")
-            t0 = time.perf_counter()
-            order = result_order(runners[schema].create_plan(QUERIES[q]))
-            plan_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            res = runners[schema].execute(QUERIES[q])
-            out[q] = (res.column_names, [t.name for t in res.types], res.rows,
-                      time.perf_counter() - t0, order, plan_s)
-        with open(path + ".part", "wb") as f:
-            pickle.dump(out, f)
-        os.replace(path + ".part", path)
-    memory_cpu_reference(out_path)
-    arrays_cpu_reference(out_path)
-    aggregates_cpu_reference(out_path)
-    holistic_cpu_reference(out_path)
-    temporal_cpu_reference(out_path)
-    statements_cpu_reference(out_path)
+    out = {}
+    for q in tpcds_qids(windowed):
+        schema = TPCDS_SCHEMA.get(q, "sf1")
+        if schema not in runners:
+            runners[schema] = LocalQueryRunner(catalog="tpcds", schema=schema, device="cpu")
+        t0 = time.perf_counter()
+        order = result_order(runners[schema].create_plan(QUERIES[q]))
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = runners[schema].execute(QUERIES[q])
+        out[q] = (res.column_names, [t.name for t in res.types], res.rows,
+                  time.perf_counter() - t0, order, plan_s)
+    path = out_path + REFERENCE_SUFFIX["5e" if windowed else "5d"]
+    with open(path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(path + ".part", path)
+
+
+def cpu_reference(part: str, out_path: str) -> int:
+    """A reference process: the port's CPU run of each phase of
+    REFERENCE_PARTS[part], in order, each pickled beside `out_path` as soon
+    as it is made.  It runs beside the card phases, on the upper half of
+    the cores; if it fails, it leaves `out_path` + ".failed" for the second
+    card process to see."""
+    start = time.perf_counter()
+    log(f"cpu reference ({part}): {_pin_to_cores(upper=True, share=len(REFERENCE_PARTS))}")
+    runners: dict = {}
+    makers = {
+        "5d": lambda path: tpcds_cpu_reference(path, False, runners),
+        "5e": lambda path: tpcds_cpu_reference(path, True, runners),
+        "5f": memory_cpu_reference, "5g": arrays_cpu_reference,
+        "5h": aggregates_cpu_reference, "5i": holistic_cpu_reference,
+        "5j": temporal_cpu_reference, "5k": statements_cpu_reference,
+        "5l": lifecycle_cpu_reference, "tpch": tpch_cpu_reference,
+    }
+    try:
+        for phase in REFERENCE_PARTS[part]:
+            makers[phase](out_path)
+            log(f"cpu reference ({part}): phase {phase} written "
+                f"{time.perf_counter() - start:.1f} s after the process started")
+    except BaseException:
+        with open(out_path + ".failed", "w") as f:
+            f.write(part)
+        raise
     return 0
 
 
-def start_tpcds_reference(here: str):
-    """Start the CPU reference process; returns (process, result path)."""
+def tpch_reference_sqls() -> list:
+    """The statements phases 4-5c hold to the port's CPU run, each once."""
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+
+    sqls = [QUERIES[1], QUERIES[6], Q1_DOUBLE, QUERIES[3]]
+    sqls += [QUERIES[q] for q in SEMI_LOCAL_QIDS + FUNC_QIDS]
+    return list(dict.fromkeys(sqls))
+
+
+def tpch_cpu_reference(out_path: str) -> None:
+    """The CPU run of every statement of phases 4-5c, pickled to `out_path`
+    + ".tpch" as {sql: (rows, seconds)}."""
+    import pickle
+
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    t_part = time.perf_counter()
+    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    out = {}
+    for sql in tpch_reference_sqls():
+        t0 = time.perf_counter()
+        rows = cpu.execute(sql).rows
+        out[sql] = (rows, time.perf_counter() - t0)
+    path = out_path + REFERENCE_SUFFIX["tpch"]
+    with open(path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(path + ".part", path)
+    log(f"tpch cpu reference (4-5c): {time.perf_counter() - t_part:.1f} s of CPU work")
+
+
+def start_references(here: str):
+    """Start the CPU reference processes; returns ({part: process}, the
+    result path, in a temporary directory of its own)."""
     import tempfile
 
-    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "tpcds_reference.pkl")
-    proc = subprocess.Popen(
-        [sys.executable, os.path.join(here, "chip_smoke.py"), "--tpcds-cpu-reference", path],
-        cwd=here,
-    )
-    return proc, path
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "reference.pkl")
+    procs = {
+        part: subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--cpu-reference", part, path],
+            cwd=here,
+        )
+        for part in REFERENCE_PARTS
+    }
+    return procs, path
 
 
-#: the reference process's result file of each phase, beside `out_path`;
-#: it writes them in this order, so the last phase's wait is its end
-REFERENCE_SUFFIX = {
-    "5d": "", "5e": ".window", "5f": ".memory", "5g": ".arrays", "5h": ".aggregates",
-    "5i": ".holistic", "5j": ".temporal", "5k": ".statements",
-}
-LAST_REFERENCE_PHASE = "5k"
-
-
-def wait_tpcds_reference(proc, path: str, phase: str) -> dict:
-    """The reference's results of phase 5d, 5e, 5f, 5g, 5h, 5i, 5j or 5k,
-    as soon as they are written (after 5k's, the process has ended)."""
+def wait_reference(procs: dict, path: str, phase: str) -> dict:
+    """The CPU results of `phase` (a key of REFERENCE_SUFFIX) as soon as its
+    reference process has written them; after that process's last phase,
+    the process has ended."""
     import pickle
-    import shutil
 
+    part = next(p for p, phases in REFERENCE_PARTS.items() if phase in phases)
+    proc = procs[part]
     t0 = time.perf_counter()
     path += REFERENCE_SUFFIX[phase]
     while not os.path.exists(path) and proc.poll() is None:
         time.sleep(0.5)
-    rc = proc.wait() if phase == LAST_REFERENCE_PHASE else (proc.poll() or 0)
-    log(f"tpcds cpu reference ({phase}): exit {rc}, "
-        f"waited {time.perf_counter() - t0:.1f} s")
+    rc = proc.wait() if phase == REFERENCE_PARTS[part][-1] else (proc.poll() or 0)
+    log(f"cpu reference ({phase}): exit {rc}, waited {time.perf_counter() - t0:.1f} s")
     if rc != 0 or not os.path.exists(path):
-        raise AssertionError(f"the CPU reference process failed with exit code {rc}")
+        raise AssertionError(f"the CPU reference process ({part}) failed with exit code {rc}")
     with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def read_reference(path: str, phase: str) -> dict:
+    """In the second card process: the CPU results of `phase` as soon as
+    they are written; it stops if a reference process failed or the main
+    process has ended."""
+    import pickle
+
+    parent = os.getppid()
+    t0 = time.perf_counter()
+    target = path + REFERENCE_SUFFIX[phase]
+    while not os.path.exists(target):
+        if os.path.exists(path + ".failed"):
+            raise AssertionError("a CPU reference process failed")
+        if os.getppid() != parent:
+            raise SystemExit("chip_smoke: the main process has ended")
+        time.sleep(0.5)
+    log(f"cpu reference ({phase}): read by the tpcds card process, "
+        f"waited {time.perf_counter() - t0:.1f} s")
+    with open(target, "rb") as f:
+        return pickle.load(f)
+
+
+def tpcds_card_process(out_path: str, reference_path: str) -> int:
+    """The second card process: phases 5d and 5e, beside the main process's
+    other phases and on its cores, each result checked here against the
+    reference's CPU run.  What the main process needs of them (each phase's
+    launches and per-query counts, the inputs of its largest sorted-probe
+    launch, its seconds) is pickled to `out_path`."""
+    import pickle
+
+    cores = sorted(os.sched_getaffinity(0))
+    torch.set_num_threads(max(len(cores) // 2, 1))
+    log(f"tpcds card process: cores {cores[0]}-{cores[-1]}, "
+        f"{torch.get_num_threads()} torch threads")
+
+    def reference(phase):
+        return read_reference(reference_path, phase)
+
+    out = {}
+    for phase, windowed in (("5d", False), ("5e", True)):
+        record: dict = {}
+        t0 = time.perf_counter()
+        path = (run_tpcds_window_path(record, reference) if windowed
+                else run_tpcds_path(record, reference))
+        seconds = time.perf_counter() - t0
+        kept = {k: record[k] for k in ("largest_query", "largest") if k in record}
+        if "largest" in kept:  # to the host: the main process takes them back
+            kept["largest"] = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                                    for x in kept["largest"])
+        out[phase] = {"path": path, "record": kept, "seconds": seconds}
+    with open(out_path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".part", out_path)
+    return 0
+
+
+def start_tpcds_card(here: str, reference_path: str):
+    """Start the second card process; returns (process, its result path)."""
+    out_path = reference_path + ".card"
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--tpcds-card", out_path,
+         reference_path],
+        cwd=here,
+    )
+    return proc, out_path
+
+
+def wait_tpcds_card(proc, out_path: str, procs: dict, dev) -> dict:
+    """Phases 5d and 5e's results from the second card process once it and
+    both reference processes have ended (their largest launches' inputs
+    back on the card); fails if any of them failed."""
+    import pickle
+
+    t0 = time.perf_counter()
+    while proc.poll() is None:
+        for part, p in procs.items():
+            if p.poll() not in (None, 0):
+                raise AssertionError(f"the CPU reference process ({part}) failed "
+                                     f"with exit code {p.returncode}")
+        time.sleep(0.5)
+    log(f"tpcds card process: exit {proc.returncode}, waited {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"the tpcds card process failed with exit code {proc.returncode}")
+    for part, p in procs.items():
+        if p.wait() != 0:
+            raise AssertionError(f"the CPU reference process ({part}) failed "
+                                 f"with exit code {p.returncode}")
+    with open(out_path, "rb") as f:
         out = pickle.load(f)
-    if phase == LAST_REFERENCE_PHASE:
-        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    for phase in out.values():
+        if "largest" in phase["record"]:
+            phase["record"]["largest"] = tuple(
+                x.to(dev) if isinstance(x, torch.Tensor) else x
+                for x in phase["record"]["largest"]
+            )
     return out
 
 
@@ -1621,54 +1829,61 @@ def run_tpcds_path(record: dict, reference, windowed: bool = False, windows=None
 
 
 def _tpcds_runs(qids, record, results, per_query, kernel, recording, windows) -> None:
-    """The timed runs of phase 5d or 5e: each query local, then mesh, cold
-    and warm; phase 5d's profiled warm runs follow."""
+    """The timed runs of phase 5d or 5e, each cold and warm: first the
+    queries that run below sf1 (TPCDS_SCHEMA), local then mesh, whose mesh
+    run takes most of the card's memory while the main card process is in
+    its first, small phases, and whose cache is then given back; then every
+    other query local, then mesh; phase 5d's profiled warm runs follow."""
     import trino_tpu_torch.parallel.runner as mesh_runner
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES
     from trino_tpu_torch.ops import locate_sorted as ls
 
+    below = [q for q in qids if q in TPCDS_SCHEMA]
+    runs = [(where, q) for q in below for where in ("local", "mesh")]
+    runs += [(where, q) for where in ("local", "mesh") for q in qids if q not in below]
     ls.locate_sorted.launches = 0  # every kernel count, just before the path
-    for where in ("local", "mesh"):
-        for q in qids:
-            schema = TPCDS_SCHEMA.get(q, "sf1")
-            r = tpcds_runner(where, schema)
-            walls = []
-            for attempt in ("cold", "warm"):
-                capture = where == "mesh" and attempt == "cold"
-                if capture:
-                    record["query"] = f"q{q}"
-                    mesh_runner.locate_sorted = recording
+    for i, (where, q) in enumerate(runs):
+        if i == 2 * len(below) > 0:
+            torch.cuda.empty_cache()  # the card's memory back for the other process
+        schema = TPCDS_SCHEMA.get(q, "sf1")
+        r = tpcds_runner(where, schema)
+        walls = []
+        for attempt in ("cold", "warm"):
+            capture = where == "mesh" and attempt == "cold"
+            if capture:
+                record["query"] = f"q{q}"
+                mesh_runner.locate_sorted = recording
+            if windows is not None:
+                windows["query"] = (q, where) if attempt == "cold" else None
+            before = ls.locate_sorted.launches
+            eligible_before = record.get("eligible", 0)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                t0 = time.perf_counter()
+                res = r.execute(QUERIES[q])  # rows come back to the host
+                wall = time.perf_counter() - t0
+            finally:
+                mesh_runner.locate_sorted = kernel
                 if windows is not None:
-                    windows["query"] = (q, where) if attempt == "cold" else None
-                before = ls.locate_sorted.launches
-                eligible_before = record.get("eligible", 0)
-                torch.cuda.reset_peak_memory_stats()
-                try:
-                    t0 = time.perf_counter()
-                    res = r.execute(QUERIES[q])  # rows come back to the host
-                    wall = time.perf_counter() - t0
-                finally:
-                    mesh_runner.locate_sorted = kernel
-                    if windows is not None:
-                        windows["query"] = None
-                walls.append(wall)
-                launched = ls.locate_sorted.launches - before
-                eligible = record.get("eligible", 0) - eligible_before
-                if where == "mesh":
-                    per_query[q] = launched
-                    if launched < eligible or (eligible and not launched):
-                        raise AssertionError(
-                            f"q{q} mesh {attempt}: {eligible} searches the sorted-probe "
-                            f"kernel takes, {launched} launches"
-                        )
-                log(
-                    f"tpcds q{q}_{where} {attempt} ({schema}): wall_s={wall!r} "
-                    f"locate_sorted_launches={launched} kernel_eligible_searches={eligible} "
-                    f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
-                    f"memory_allocated_after={torch.cuda.memory_allocated()} "
-                    f"rows={len(res.rows)}"
-                )
-            results[q, where] = (res, walls[0], walls[1])
+                    windows["query"] = None
+            walls.append(wall)
+            launched = ls.locate_sorted.launches - before
+            eligible = record.get("eligible", 0) - eligible_before
+            if where == "mesh":
+                per_query[q] = launched
+                if launched < eligible or (eligible and not launched):
+                    raise AssertionError(
+                        f"q{q} mesh {attempt}: {eligible} searches the sorted-probe "
+                        f"kernel takes, {launched} launches"
+                    )
+            log(
+                f"tpcds q{q}_{where} {attempt} ({schema}): wall_s={wall!r} "
+                f"locate_sorted_launches={launched} kernel_eligible_searches={eligible} "
+                f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+                f"memory_allocated_after={torch.cuda.memory_allocated()} "
+                f"rows={len(res.rows)}"
+            )
+        results[q, where] = (res, walls[0], walls[1])
     if windows is None:
         for q, where in TPCDS_PROFILES:
             profile_warm(
@@ -3028,6 +3243,16 @@ def statements_cpu_reference(out_path: str) -> None:
         t0 = time.perf_counter()
         results = []
         for sql in step.statements:
+            if step.fragments:
+                from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+
+                cpu_mesh = DistributedQueryRunner(catalogs, catalog="tpch", schema="sf1",
+                                                  n_workers=MESH_WORKERS, device="cpu")
+                cpu_mesh.execute("set session pallas_probe = true")
+                inner = sql[len("explain analyze "):]
+                results.append((["Query Plan"], ["varchar"], fragment_kinds(cpu_mesh, inner),
+                                "fragments"))
+                continue
             order = statement_order(r, sql)
             res = r.execute(sql)
             rows = analyze_lines(res.rows) if step.analyze else res.rows
@@ -3049,7 +3274,8 @@ def run_statement_path(reference, k1_capture: dict, probe_record: dict) -> dict:
     (the runner's `last_writes`: `_collect_rows`, of which batches turned
     into rows; the column build; the sink's append).  D1's Q1 must launch
     the grouped-sums kernel on every run and D3's join the sorted-probe
-    kernel; the mesh EXPLAIN ANALYZE must raise naming MeshProfile.  Right
+    kernel; the mesh EXPLAIN ANALYZE's profile must have the CPU mesh's
+    fragment ids and kinds.  Right
     after D1's Q1 and D3's join, one untimed capture run each keeps the
     largest launch's inputs (K1 in `k1_capture`, held in phase 6a; K2 in
     `probe_record`, held in phase 6); their launches are counted apart and
@@ -3115,7 +3341,7 @@ def run_statement_path(reference, k1_capture: dict, probe_record: dict) -> dict:
                 + (f" mesh_events={r.last_stage_executor.counters}"
                    if step.where == "mesh" and r.last_stage_executor is not None else "")
             )
-        if step.analyze:
+        if step.analyze or step.fragments:
             for (line,) in outs[0].rows:
                 log(f"statements {step.label}: {line}")
         results[step.label] = (outs, walls, memory_digests(catalogs, memo))
@@ -3168,6 +3394,11 @@ def run_statement_path(reference, k1_capture: dict, probe_record: dict) -> dict:
                     raise AssertionError(f"{step.label}: operators differ from the CPU run:\n"
                                          f"{analyze_lines(res.rows)}\n{rows}")
                 continue
+            if step.fragments:
+                if profile_fragment_lines(res.rows) != rows:
+                    raise AssertionError(f"{step.label}: fragments differ from the CPU's:\n"
+                                         f"{profile_fragment_lines(res.rows)}\n{rows}")
+                continue
             if order == "exact":
                 order = ResultOrder(tuple(range(len(rows[0]) if rows else 0)), None)
             elif order is None:
@@ -3179,6 +3410,520 @@ def run_statement_path(reference, k1_capture: dict, probe_record: dict) -> dict:
         log(f"statements {step.label}: walls_s={walls!r} matches the CPU run "
             f"(tables {sorted(digests)}; cpu wall_s={cpu_s!r}); "
             f"first rows {[o.rows[:1] for o in outs]}")
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches}
+
+
+# -- phase 5l: the query lifecycle, events, tracing, the mesh profile, the ------
+# -- system catalog and the concurrent dispatcher -------------------------------
+
+#: phase 5l's L3 statement: a CTAS of every order into memory (its warm wall
+#: on the card is seconds, and `_collect_rows` pulls one batch per split)
+LIFECYCLE_CTAS = (
+    "create table memory.default.l3_orders as select "
+    + ORDERS_COLUMNS + " from tpch.{s}.orders"
+)
+LIFECYCLE_CTAS_CHECK = "select count(*), sum(o_totalprice) from memory.default.l3_orders"
+#: phase 5l's L4 statements on the dispatcher's lanes (tpch.sf1), each three
+#: times, split between the resource groups
+LIFECYCLE_DISPATCH = ("q1_double", "q6", "q3", "q18")
+#: phase 5l's L5 statements through the etc/-built runner
+LIFECYCLE_ETC = ("select count(*) from nation", "select count(*), sum(o_totalprice) from orders")
+FRAGMENT_LINE = re.compile(r"^\s*Fragment (\d+) \[(.*)\] wall=")
+
+
+def lifecycle_sql(name: str, schema: str = "sf1") -> str:
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+
+    return {
+        "q1_double": Q1_DOUBLE, "q3": QUERIES[3], "q6": QUERIES[6], "q18": QUERIES[18],
+    }[name]
+
+
+def fragment_kinds(mesh, sql: str) -> dict:
+    """{fragment id: partitioning} of `sql` as `mesh` fragments it."""
+    sub = mesh.create_subplan(mesh.create_plan(sql))
+    return {f.id: str(f.partitioning) for f in sub.all_fragments()}
+
+
+def profile_fragment_lines(rows) -> dict:
+    """The mesh EXPLAIN ANALYZE's `Fragment <id> [<kind>] wall=...` lines as
+    {id: kind}."""
+    out = {}
+    for (line,) in rows:
+        m = FRAGMENT_LINE.match(line)
+        if m:
+            out[int(m.group(1))] = m.group(2)
+    return out
+
+
+def abort_outcome(runner, sql: str, cancel_at_start: bool = False, qids=None) -> tuple:
+    """(state, error type, error code, exception class name) of one statement
+    that must fail, from its completed event (its query id is appended to
+    `qids`); `cancel_at_start` cancels it as soon as its QueryContext
+    exists."""
+    from trino_tpu_torch.runtime.events import CollectingEventListener
+
+    listener = CollectingEventListener()
+    runner.events.add(listener)
+    if cancel_at_start:
+        runner._query_context_cb = lambda ctx: ctx.cancel()
+    try:
+        runner.execute(sql)
+    except Exception as e:  # noqa: BLE001 - the outcome is what is checked
+        name = type(e).__name__
+    else:
+        raise AssertionError(f"{sql[:60]}: did not fail")
+    finally:
+        runner.events.listeners.remove(listener)
+        runner._query_context_cb = None
+    done = listener.completed[-1]
+    if qids is not None:
+        qids.append(done.query_id)
+    return (done.state, done.error_type, done.error_code, name)
+
+
+def lifecycle_cpu_reference(out_path: str) -> None:
+    """The reference process's phase 5l part: the port's CPU run of phase
+    5l's queries (Q1-double and its EXPLAIN ANALYZE VERBOSE operator lines,
+    Q3, Q6, Q18, the L3 CTAS and its check, the L5 queries), the fragments
+    of Q3 on a 4-worker mesh, and the lifecycle outcomes that do not depend
+    on time (a planning deadline, a run deadline, a cancel), pickled to
+    `out_path` + ".lifecycle"."""
+    import pickle
+
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    t_part = time.perf_counter()
+    r = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    r.execute("set session pallas_agg = true")
+    out = {name: r.execute(lifecycle_sql(name)).rows for name in LIFECYCLE_DISPATCH}
+    out["q1_double_analyze"] = analyze_lines(
+        r.execute("explain analyze verbose " + Q1_DOUBLE).rows
+    )
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS,
+                                  device="cpu")
+    mesh.execute("set session pallas_probe = true")
+    out["q3_fragments"] = fragment_kinds(mesh, lifecycle_sql("q3"))
+    ctas = LIFECYCLE_CTAS.format(s="sf1")
+    r.execute("set session query_max_planning_time = 0.000001")
+    out["abort_planning"] = abort_outcome(r, Q1_DOUBLE)
+    r.execute("set session query_max_planning_time = 0")
+    r.execute("set session query_max_run_time = 0.000001")
+    out["abort_run"] = abort_outcome(r, ctas)
+    r.execute("set session query_max_run_time = 0")
+    out["abort_cancel"] = abort_outcome(r, ctas, cancel_at_start=True)
+    out["ctas"] = r.execute(ctas).rows
+    out["ctas_check"] = r.execute(LIFECYCLE_CTAS_CHECK).rows
+    out["etc"] = [r.execute(sql).rows for sql in LIFECYCLE_ETC]
+    log(f"lifecycle cpu reference (5l): {time.perf_counter() - t_part:.1f} s of CPU work")
+    with open(out_path + ".lifecycle.part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".lifecycle.part", out_path + ".lifecycle")
+
+
+def mesh_event_series() -> dict:
+    from trino_tpu_torch.telemetry.metrics import mesh_events_counter
+
+    return {lv[0]: v for _, lv, v in
+            ((s[0], s[2], s[3]) for s in mesh_events_counter().series())}
+
+
+def run_lifecycle_path(reference, k1_capture: dict, probe_record: dict) -> dict:
+    """Phase 5l: the query lifecycle on the card at tpch.sf1 (see the module
+    docstring, L1-L5).  The kernels' counts are set to 0 just before the
+    path and read just after; untimed capture runs (K1 after L1, K2 after
+    L2) are counted apart."""
+    import shutil
+    import threading
+
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch import config
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.config import runner_from_etc
+    from trino_tpu_torch.runtime.dispatcher import QueryDispatcher, QueryShedError
+    from trino_tpu_torch.runtime.events import CollectingEventListener
+    from trino_tpu_torch.runtime.lifecycle import memory_pool
+    from trino_tpu_torch.runtime.query_stats import MESH_PHASES
+    from trino_tpu_torch.runtime.resource_groups import (
+        ResourceGroupConfig,
+        ResourceGroupManager,
+    )
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.telemetry.metrics import REGISTRY, gate_wait_histogram
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "build", "chip_smoke_5l")
+    shutil.rmtree(work, ignore_errors=True)
+    spill_dir = os.path.join(work, "spill")
+    os.makedirs(spill_dir)
+    config.install_config(config.load_cluster_config({"memory.spill-dir": spill_dir}))
+    local = LocalQueryRunner(catalog="tpch", schema="sf1")
+    local.execute("set session pallas_agg = true")
+    listener = CollectingEventListener()
+    local.events.add(listener)
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    mesh.execute("set session pallas_probe = true")
+    capture = {"k1": 0, "k2": 0}
+    results: dict = {}
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+
+    # -- L1: the local runner, traced, with K1 ---------------------------------
+    if not local.properties.get("query_trace"):
+        raise AssertionError("query_trace must default on")
+    for attempt in ("cold", "warm"):
+        k1 = gs.grouped_sums.launches
+        t0 = time.perf_counter()
+        res = local.execute(Q1_DOUBLE)
+        wall = time.perf_counter() - t0
+        k1 = gs.grouped_sums.launches - k1
+        if k1 == 0:
+            raise AssertionError(f"L1 {attempt}: no grouped_sums launch")
+        done = listener.completed[-1]
+        qid, st = done.query_id, done.statistics
+        spans = local.execute(
+            "select span_id, parent_id, name from system.runtime.spans "
+            f"where query_id = '{qid}'"
+        ).rows
+        roots = [s for s in spans if s[1] == 0]
+        names = {s[2] for s in spans}
+        if len(roots) != 1 or not {"query", "analyze", "optimize", "execute"} <= names:
+            raise AssertionError(f"L1 {attempt}: spans {spans}")
+        row = local.execute(
+            f"select state, rows from system.runtime.queries where query_id = '{qid}'"
+        ).rows
+        if row != [("FINISHED", 4)]:
+            raise AssertionError(f"L1 {attempt}: system.runtime.queries has {row}")
+        if not (st.wall_s > 0 and st.rows == 4 and st.peak_memory_bytes > 0
+                and st.spans == len(spans)):
+            raise AssertionError(f"L1 {attempt}: statistics {st}")
+        results[f"L1_{attempt}"] = res
+        log(f"lifecycle L1 {attempt}: wall_s={wall!r} grouped_sums_launches={k1} "
+            f"query_id={qid} spans={len(spans)} statistics={st}")
+    res = local.execute("explain analyze verbose " + Q1_DOUBLE)
+    text = [line for (line,) in res.rows]
+    trace_lines = [line for line in text if line.startswith("Trace JSON: ")]
+    if len(trace_lines) != 1 or not any(line.startswith("Query trace (spans") for line in text):
+        raise AssertionError("L1: EXPLAIN ANALYZE VERBOSE lacks the span tree or the trace")
+    chrome = json.loads(trace_lines[0][len("Trace JSON: "):])
+    if chrome["traceEvents"][0]["name"] != "query":
+        raise AssertionError("L1: the trace's first event is not the query span")
+    results["L1_analyze"] = analyze_lines(res.rows)
+    for line in text:
+        if not line.startswith("Trace JSON: "):
+            log(f"lifecycle L1 explain analyze verbose: {line}")
+    log(f"lifecycle L1 trace: {len(chrome['traceEvents'])} events, "
+        f"{len(trace_lines[0])} bytes of JSON")
+    k1 = gs.grouped_sums.launches
+    gs_orig, gs_rec = grouped_sums_recorder(k1_capture)
+    k1_capture["query"] = "L1_q1_double"
+    gs._launch = gs_rec
+    try:
+        local.execute(Q1_DOUBLE)  # untimed: the kernel's largest inputs
+    finally:
+        gs._launch = gs_orig
+    capture["k1"] += gs.grouped_sums.launches - k1
+
+    # -- L2: EXPLAIN ANALYZE of Q3 on the 4-worker mesh, with K2 -----------------
+    q3 = lifecycle_sql("q3")
+    series0 = mesh_event_series()
+    k2 = ls.locate_sorted.launches
+    t0 = time.perf_counter()
+    res = mesh.execute("explain analyze " + q3)
+    wall = time.perf_counter() - t0
+    k2_analyze = ls.locate_sorted.launches - k2
+    prof = mesh.last_mesh_profile
+    if not prof.blocking:
+        raise AssertionError("L2: the EXPLAIN ANALYZE profile is not blocking")
+    series1 = mesh_event_series()
+    delta = {k: series1[k] - series0.get(k, 0) for k in series1
+             if series1[k] != series0.get(k, 0)}
+    if delta != prof.counters:
+        raise AssertionError(f"L2: registry deltas {delta} != profile counters {prof.counters}")
+    for fid, st in prof.fragments.items():
+        if abs(sum(st.phases.values()) - st.wall_s) > 1e-6:
+            raise AssertionError(f"L2: fragment {fid} phases do not sum to its wall")
+        if set(st.phases) != set(MESH_PHASES):
+            raise AssertionError(f"L2: fragment {fid} phases {sorted(st.phases)}")
+    results["L2_fragments"] = {fid: st.kind for fid, st in prof.fragments.items()}
+    results["L2_lines"] = profile_fragment_lines(res.rows)
+    if k2_analyze == 0:
+        raise AssertionError("L2: EXPLAIN ANALYZE launched no locate_sorted")
+    log(f"lifecycle L2 explain analyze: wall_s={wall!r} locate_sorted_launches={k2_analyze}")
+    for (line,) in res.rows:
+        log(f"lifecycle L2 explain analyze: {line}")
+    log(f"lifecycle L2 last_mesh_profile: {json.dumps(prof.to_json())}")
+    for attempt in ("cold", "warm"):
+        k2 = ls.locate_sorted.launches
+        t0 = time.perf_counter()
+        results[f"L2_{attempt}"] = mesh.execute(q3)
+        wall = time.perf_counter() - t0
+        n = ls.locate_sorted.launches - k2
+        if n == 0:
+            raise AssertionError(f"L2 {attempt}: no locate_sorted launch")
+        log(f"lifecycle L2 plain {attempt}: wall_s={wall!r} locate_sorted_launches={n} "
+            f"phase_totals_s={mesh.last_mesh_profile.phase_totals()}")
+    k2 = ls.locate_sorted.launches
+    probe_kernel, probe_rec = shape_recording_probe(probe_record)
+    probe_record["query"] = "L2_q3_mesh"
+    mesh_runner.locate_sorted = probe_rec
+    try:
+        mesh.execute(q3)  # untimed: the kernel's largest inputs
+    finally:
+        mesh_runner.locate_sorted = probe_kernel
+    capture["k2"] += ls.locate_sorted.launches - k2
+    log(f"lifecycle L2 sorted-probe launches (P, cap_b, n_match, S): "
+        f"{probe_record.get('shapes', {}).get('L2_q3_mesh', [])}")
+
+    # -- L3: deadlines and cancel on the card ---------------------------------------
+    aborts = {}
+
+    def after_abort(label: str, qid: str) -> None:
+        if memory_pool().root.reserved != 0:
+            raise AssertionError(f"L3 {label}: the pool holds {memory_pool().root.reserved} bytes")
+        left = os.listdir(spill_dir)
+        if left:
+            raise AssertionError(f"L3 {label}: spill files left {left}")
+        row = local.execute(
+            "select state, error_type, error_code from system.runtime.queries "
+            f"where query_id = '{qid}'"
+        ).rows
+        if row != [aborts[label][:3]]:
+            raise AssertionError(f"L3 {label}: system.runtime.queries has {row}")
+
+    k1 = gs.grouped_sums.launches
+    qids: list = []
+    local.execute("set session query_max_planning_time = 0.000001")
+    aborts["planning"] = abort_outcome(local, Q1_DOUBLE, qids=qids)
+    # the deadline stays for later statements
+    later = abort_outcome(local, lifecycle_sql("q6"))
+    if later != aborts["planning"]:
+        raise AssertionError(f"L3 planning: a later statement gave {later}")
+    local.execute("set session query_max_planning_time = 0")
+    if gs.grouped_sums.launches != k1:
+        raise AssertionError("L3 planning: the deadline did not stop the query before the card")
+    after_abort("planning", qids[-1])
+    results["L3_after_planning"] = local.execute(Q1_DOUBLE)
+    log(f"lifecycle L3 planning deadline: {aborts['planning']} (a later statement too); "
+        "grouped_sums launches unchanged; the next run matches below")
+
+    ctas = LIFECYCLE_CTAS.format(s="sf1")
+    t0 = time.perf_counter()
+    local.execute(ctas)
+    warm = time.perf_counter() - t0
+    local.execute("drop table memory.default.l3_orders")
+    if warm < 1.0:
+        raise AssertionError(f"L3: the CTAS's warm wall {warm!r} s is under 1 s")
+    deadline = warm / 5
+    local.execute(f"set session query_max_run_time = {deadline!r}")
+    t0 = time.perf_counter()
+    aborts["run"] = abort_outcome(local, ctas, qids=qids)
+    aborted_at = time.perf_counter() - t0
+    local.execute("set session query_max_run_time = 0")
+    after_abort("run", qids[-1])
+    local.execute("drop table if exists memory.default.l3_orders")
+    results["L3_after_run"] = (local.execute(ctas).rows, local.execute(LIFECYCLE_CTAS_CHECK).rows)
+    local.execute("drop table memory.default.l3_orders")
+    log(f"lifecycle L3 run deadline: {aborts['run']} warm_wall_s={warm!r} "
+        f"deadline_s={deadline!r} aborted_after_s={aborted_at!r} "
+        f"past_deadline_s={aborted_at - deadline!r}")
+
+    canceled = {}
+
+    def canceller() -> None:
+        while "qid" not in canceled:
+            for ctx in local.query_tracker.live():
+                if ctx.state == "RUNNING" and ctx.query_id.startswith("query_"):
+                    time.sleep(0.2)  # well inside the statement's run
+                    canceled["t"] = time.perf_counter()
+                    canceled["ok"] = local.query_tracker.cancel(ctx.query_id)
+                    canceled["qid"] = ctx.query_id
+                    return
+            time.sleep(0.001)
+
+    th = threading.Thread(target=canceller, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    aborts["cancel"] = abort_outcome(local, ctas, qids=qids)
+    t1 = time.perf_counter()
+    th.join(timeout=30)
+    if not canceled.get("ok") or canceled["qid"] != qids[-1]:
+        raise AssertionError(f"L3 cancel: the second thread did not cancel it ({canceled})")
+    after_abort("cancel", canceled["qid"])
+    local.execute("drop table if exists memory.default.l3_orders")
+    results["L3_after_cancel"] = (local.execute(ctas).rows, local.execute(LIFECYCLE_CTAS_CHECK).rows)
+    local.execute("drop table memory.default.l3_orders")
+    log(f"lifecycle L3 cancel: {aborts['cancel']} canceled_after_s={canceled['t'] - t0!r} "
+        f"aborted_after_s={t1 - canceled['t']!r}")
+
+    # -- L4: the dispatcher on the card, two lanes and two groups ------------------
+    primary = LocalQueryRunner(catalog="tpch", schema="sf1")
+    primary.execute("set session pallas_agg = true")
+    d_listener = CollectingEventListener()
+    primary.events.add(d_listener)
+    serial = {}
+    for name in LIFECYCLE_DISPATCH:
+        primary.execute(lifecycle_sql(name))  # warm every statement first
+        t0 = time.perf_counter()
+        primary.execute(lifecycle_sql(name))
+        serial[name] = time.perf_counter() - t0
+    groups = ResourceGroupManager()
+    groups.add(ResourceGroupConfig("etl", hard_concurrency=1, weight=1, max_queued=16))
+    groups.add(ResourceGroupConfig("adhoc", hard_concurrency=2, weight=3, max_queued=16))
+    groups.add(ResourceGroupConfig("flood", hard_concurrency=1, weight=1, max_queued=1))
+    dispatcher = QueryDispatcher(primary, groups, lanes=2)
+    primary.dispatcher = dispatcher
+    if dispatcher.lanes != 2:
+        raise AssertionError(f"L4: {dispatcher.lanes} lanes")
+    jobs = [(("etl", "adhoc")[i % 2], LIFECYCLE_DISPATCH[i % 4]) for i in range(12)]
+    done_jobs, errors = [], []
+    lock = threading.Lock()
+    n_events = len(d_listener.completed)
+    gate0 = gate_wait_histogram().value()
+    k1 = gs.grouped_sums.launches
+
+    def client(k: int) -> None:
+        for group, name in jobs[k::6]:
+            try:
+                t = dispatcher.enqueue(group_name=group)
+                t.wait()
+                res = dispatcher.run_admitted(t, lambda r, n=name: r.execute(lifecycle_sql(n)))
+                with lock:
+                    done_jobs.append((group, name, res))
+            except BaseException as e:  # noqa: BLE001 - raised after the join
+                with lock:
+                    errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(6)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    concurrent_wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    k1_dispatch = gs.grouped_sums.launches - k1  # read after every lane joined
+    if len(done_jobs) != 12 or k1_dispatch == 0:
+        raise AssertionError(f"L4: {len(done_jobs)} statements, {k1_dispatch} K1 launches")
+    results["L4"] = done_jobs
+    stats = {row[0]: row[1:] for row in primary.execute(
+        "select name, total_admitted, running, queued from system.runtime.resource_groups"
+    ).rows}
+    if stats["etl"][0] + stats["adhoc"][0] != 12:
+        raise AssertionError(f"L4: system.runtime.resource_groups {stats}")
+    hold = dispatcher.enqueue(group_name="flood")
+    hold.wait()
+    queued = dispatcher.enqueue(group_name="flood")
+    try:
+        dispatcher.enqueue(group_name="flood")
+    except QueryShedError as e:
+        shed = str(e)
+    else:
+        raise AssertionError("L4: the flooded group did not shed")
+    dispatcher.release(hold)
+    queued.wait()
+    dispatcher.release(queued)
+    if not dispatcher.drain(wait_s=5.0, grace_s=0.0):
+        raise AssertionError("L4: the dispatcher did not drain clean")
+    h = gate_wait_histogram()
+    counts, total, n = h._obs.get((), [[0] * len(h.buckets), 0.0, 0])
+    log(f"lifecycle L4: 12 statements on 2 lanes wall_s={concurrent_wall!r} "
+        f"serial_sum_s={3 * sum(serial.values())!r} serial_s={serial} "
+        f"grouped_sums_launches={k1_dispatch} groups={stats} shed='{shed}'")
+    log(f"lifecycle L4 gate wait: contended acquires={n - gate0} "
+        f"histogram (le, count)={list(zip(h.buckets, counts))} sum_s={total!r}")
+    for e in d_listener.completed[n_events:]:
+        if not e.statistics.group:
+            continue  # the resource-groups read
+        log(f"lifecycle L4 {e.query_id}: group={e.statistics.group} "
+            f"queued_s={e.statistics.queued_s!r} gate_wait_s={e.statistics.gate_wait_s!r} "
+            f"wall_s={e.statistics.wall_s!r} rows={e.rows}")
+
+    # -- L5: runner_from_etc and the system tables ---------------------------------
+    etc = os.path.join(work, "etc")
+    os.makedirs(os.path.join(etc, "catalog"))
+    events_path = os.path.join(work, "events.jsonl")
+    with open(os.path.join(etc, "config.properties"), "w") as f:
+        f.write("default.catalog=tpch\ndefault.schema=sf1\n")
+    with open(os.path.join(etc, "catalog", "tpch.properties"), "w") as f:
+        f.write("connector.name=tpch\n")
+    with open(os.path.join(etc, "catalog", "memory.properties"), "w") as f:
+        f.write("connector.name=memory\n")
+    with open(os.path.join(etc, "event-listener.properties"), "w") as f:
+        f.write(f"event-listener.name=file\nfile.path={events_path}\n")
+    r5 = runner_from_etc(etc)
+    if r5.device.type != "cuda":
+        raise AssertionError(f"L5: runner_from_etc resolved {r5.device}")
+    # the registry's statement count before r5's first statement (read
+    # directly: a statement would count itself)
+    before = sum(row[3] for row in REGISTRY.rows() if row[0] == "trino_tpu_queries_total")
+    ran = [0]
+
+    def run5(sql):
+        ran[0] += 1
+        return r5.execute(sql)
+
+    results["L5"] = [run5(sql).rows for sql in LIFECYCLE_ETC]
+    with open(events_path) as f:
+        events = [json.loads(line) for line in f]
+    if [e["event"] for e in events] != ["query_created", "query_completed"] * 2:
+        raise AssertionError(f"L5: events {events}")
+    nodes = run5("select node_id, state from system.runtime.nodes").rows
+    if nodes != [(f"cuda:{i}", "ACTIVE") for i in range(torch.cuda.device_count())]:
+        raise AssertionError(f"L5: nodes {nodes}")
+    caches = dict(run5("select tier, bytes from system.runtime.caches").rows)
+    if not caches["device"] > 0:
+        raise AssertionError(f"L5: caches {caches}")
+    run5("set session agg_fold_batches = 3")
+    value = run5(
+        "select value from system.runtime.session_properties where name = 'agg_fold_batches'"
+    ).rows
+    # the read counts only once it has finished, so not in its own rows
+    total = r5.execute(
+        "select sum(value) from system.metrics.metrics where name = 'trino_tpu_queries_total'"
+    ).rows[0][0]
+    if value != [("3",)] or total - before != ran[0]:
+        raise AssertionError(f"L5: session_properties {value}, queries_total {total} "
+                             f"(before r5's statements {before}, r5 ran {ran[0]})")
+    log(f"lifecycle L5: events={[(e['event'], e['query_id']) for e in events]} nodes={nodes} "
+        f"caches={caches} agg_fold_batches={value} queries_total={total!r} "
+        f"(before r5's statements {before!r}, r5 ran {ran[0]})")
+    config.reset_config()
+    shutil.rmtree(work, ignore_errors=True)
+    k1_launches = gs.grouped_sums.launches - capture["k1"]  # read just after the path
+    k2_launches = ls.locate_sorted.launches - capture["k2"]
+    log(f"lifecycle path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches} (capture runs apart: {capture})")
+
+    cpu = reference("5l")
+    rows_match(results["L1_cold"].rows, cpu["q1_double"], KERNEL_RTOL)
+    rows_match(results["L1_warm"].rows, cpu["q1_double"], KERNEL_RTOL)
+    rows_match(results["L3_after_planning"].rows, cpu["q1_double"], KERNEL_RTOL)
+    if results["L1_analyze"] != cpu["q1_double_analyze"]:
+        raise AssertionError(f"L1: operators {results['L1_analyze']} != "
+                             f"{cpu['q1_double_analyze']}")
+    for label in ("L2_fragments", "L2_lines"):
+        if results[label] != cpu["q3_fragments"]:
+            raise AssertionError(f"{label}: {results[label]} != {cpu['q3_fragments']}")
+    rows_match(results["L2_cold"].rows, cpu["q3"], 0.0)
+    rows_match(results["L2_warm"].rows, cpu["q3"], 0.0)
+    for label in ("planning", "run", "cancel"):
+        if aborts[label] != cpu[f"abort_{label}"]:
+            raise AssertionError(f"L3 {label}: {aborts[label]} != {cpu[f'abort_{label}']}")
+    for label in ("L3_after_run", "L3_after_cancel"):
+        ctas_rows, check_rows = results[label]
+        rows_match(ctas_rows, cpu["ctas"], 0.0)
+        rows_match(check_rows, cpu["ctas_check"], 0.0)
+    for group, name, res in results["L4"]:
+        rows_match(res.rows, cpu[name], KERNEL_RTOL if name == "q1_double" else 0.0)
+    for got, want in zip(results["L5"], cpu["etc"]):
+        rows_match(got, want, 0.0)
+    log("lifecycle path: L1-L5 match the CPU run (Q1-double's f32 kernel sums to "
+        f"relative {KERNEL_RTOL}); outcomes {aborts}; fragments {cpu['q3_fragments']}")
     return {"k1_launches": k1_launches, "k2_launches": k2_launches}
 
 
@@ -3257,7 +4002,7 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
                         tdw: dict, arrays: dict, holistic: dict, temporal: dict,
-                        statements: dict) -> dict:
+                        statements: dict, lifecycle: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -3278,6 +4023,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured in phase 5j")
     if "largest" not in statements:
         raise AssertionError("no sorted-probe launch was captured in phase 5k")
+    if "largest" not in lifecycle:
+        raise AssertionError("no sorted-probe launch was captured in phase 5l")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -3288,6 +4035,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"holistic_largest_{holistic['largest_query']}",) + holistic["largest"]]
     cases += [(f"temporal_largest_{temporal['largest_query']}",) + temporal["largest"]]
     cases += [(f"statements_largest_{statements['largest_query']}",) + statements["largest"]]
+    cases += [(f"lifecycle_largest_{lifecycle['largest_query']}",) + lifecycle["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -3314,6 +4062,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     temporal_largest["query"] = temporal["largest_query"]
     statements_largest = time_probe_inputs("statements_largest", dev, statements["largest"])
     statements_largest["query"] = statements["largest_query"]
+    lifecycle_largest = time_probe_inputs("lifecycle_largest", dev, lifecycle["largest"])
+    lifecycle_largest["query"] = lifecycle["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -3329,6 +4079,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "holistic_inputs": holistic_largest,
         "temporal_inputs": temporal_largest,
         "statements_inputs": statements_largest,
+        "lifecycle_inputs": lifecycle_largest,
     }
 
 
@@ -3380,31 +4131,33 @@ def time_probe_inputs(name: str, dev, inputs) -> dict:
 
 
 def main() -> int:
+    import shutil
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the TPC-H comment pools follow Python's string hash: run again
-        # under a fixed seed, so the reference process sees the same words
+        # under a fixed seed, so the other processes see the same words
         os.execve(sys.executable, [sys.executable, os.path.abspath(__file__)] + sys.argv[1:],
                   {**os.environ, "PYTHONHASHSEED": "0"})
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     if not os.path.isdir(os.path.join(here, "trino_tpu_torch")):
         raise SystemExit("chip_smoke: the trino_tpu_torch package is not beside the script")
-    # phase 5d's CPU reference runs beside every card phase, on its own cores
-    reference, reference_path = start_tpcds_reference(here)
+    # the CPU reference processes run beside every card phase, on their own cores
+    procs, reference_path = start_references(here)
+    children = list(procs.values())
     try:
-        return drive(
-            here, lambda phase: wait_tpcds_reference(reference, reference_path, phase),
-            reference_path + ".budgets",
-        )
+        return drive(here, procs, reference_path, children)
     finally:
-        if reference.poll() is None:
-            reference.kill()
-            reference.wait()
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(os.path.dirname(reference_path), ignore_errors=True)
 
 
-def drive(here: str, tpcds_reference, budgets_path: str) -> int:
+def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     from trino_tpu_torch.device import resolve_device
     from trino_tpu_torch.kernels import build
 
@@ -3426,6 +4179,14 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     check_ptxas(kernels)
 
     seconds = {"build": time.perf_counter() - t0}
+    # phases 5d and 5e run in a second card process, beside phases 3-5l
+    card, card_path = start_tpcds_card(here, reference_path)
+    children.append(card)
+
+    def tpcds_reference(phase: str) -> dict:
+        return wait_reference(procs, reference_path, phase)
+
+    budgets_path = reference_path + ".budgets"
 
     def timed(phase: str, fn, *args):
         t = time.perf_counter()
@@ -3442,10 +4203,6 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     semi_path = timed("5b", run_semi_cross_path, semi)
     func: dict = {}
     func_path = timed("5c", run_function_path, func)
-    tds: dict = {}
-    tds_path = timed("5d", run_tpcds_path, tds, tpcds_reference)
-    tdw: dict = {}
-    tdw_path = timed("5e", run_tpcds_window_path, tdw, tpcds_reference)
     mem_path = timed("5f", run_memory_path, tpcds_reference, budgets_path)
     arrays: dict = {}
     arrays_k1: dict = {}
@@ -3459,26 +4216,43 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
     statements_k1: dict = {}
     statements: dict = {}
     stm_path = timed("5k", run_statement_path, tpcds_reference, statements_k1, statements)
+    lifecycle_k1: dict = {}
+    lifecycle: dict = {}
+    lc_path = timed("5l", run_lifecycle_path, tpcds_reference, lifecycle_k1, lifecycle)
+    tpcds = timed("5d-5e wait", wait_tpcds_card, card, card_path, procs, dev)
+    for phase in ("5d", "5e"):  # the second card process's seconds
+        seconds[phase] = tpcds[phase]["seconds"]
+    tds_path, tds = tpcds["5d"]["path"], tpcds["5d"]["record"]
+    tdw_path, tdw = tpcds["5e"]["path"], tpcds["5e"]["record"]
+
+    def check_tpch_paths():
+        cpu = tpcds_reference("tpch")
+        for path in (main_path, mesh_path, semi_path, func_path):
+            path.pop("check")(cpu)
+
+    timed("4-5c checks", check_tpch_paths)
     k1["launches"] += (
         arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
-        + tem_path["k1_launches"] + stm_path["k1_launches"]
+        + tem_path["k1_launches"] + stm_path["k1_launches"] + lc_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
         "aggregates": agg_path["k1_launches"], "holistic": hol_path["k1_launches"],
         "temporal": tem_path["k1_launches"], "statements": stm_path["k1_launches"],
+        "lifecycle": lc_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
     k1["statements_inputs"] = check_grouped_sums_captured(dev, statements_k1, "statements")
+    k1["lifecycle_inputs"] = check_grouped_sums_captured(dev, lifecycle_k1, "lifecycle")
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
-               holistic, temporal, statements)
+               holistic, temporal, statements, lifecycle)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
         + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
         + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
-        + tem_path["k2_launches"] + stm_path["k2_launches"]
+        + tem_path["k2_launches"] + stm_path["k2_launches"] + lc_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -3495,6 +4269,7 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
         "holistic": hol_path["k2_launches"],
         "temporal": tem_path["k2_launches"],
         "statements": stm_path["k2_launches"],
+        "lifecycle": lc_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)
@@ -3514,7 +4289,10 @@ def drive(here: str, tpcds_reference, budgets_path: str) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--tpcds-cpu-reference"]:
+    if sys.argv[1:2] == ["--cpu-reference"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        sys.exit(tpcds_cpu_reference(sys.argv[2]))
+        sys.exit(cpu_reference(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--tpcds-card"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(tpcds_card_process(sys.argv[2], sys.argv[3]))
     sys.exit(main())

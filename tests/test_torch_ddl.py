@@ -29,8 +29,9 @@ naming themselves.
 
 EXPLAIN and EXPLAIN (TYPE DISTRIBUTED) text and SHOW output are compared
 exactly; EXPLAIN ANALYZE on each operator's name, depth, rows= and
-batches= (its times are the host's clock).  SHOW CATALOGS is the JAX list
-less `system`: the system connector is the next slice's.
+batches= (its times are the host's clock); the mesh's EXPLAIN ANALYZE on
+its profile's fragment ids and kinds.  SHOW CATALOGS is the JAX list,
+`system` included.
 
 Tolerances: integers, decimals, dates, timestamps and strings exact;
 doubles relative 1e-9.
@@ -465,11 +466,12 @@ def test_show_matches_jax(pair, name):
 
 
 def test_show_catalogs(pair):
-    """The JAX list less `system`: the system connector (with the query
-    history and runtime tables) is the next slice's."""
-    expected = [r for r in pair.jax.execute("show catalogs").rows if r != ("system",)]
+    """The JAX list, `system` included (the system connector's query
+    history and runtime tables)."""
+    expected = pair.jax.execute("show catalogs").rows
     assert pair.port.execute("show catalogs").rows == expected
     assert ("memory",) in expected and ("blackhole",) in expected
+    assert ("system",) in expected
 
 
 # -- EXPLAIN -------------------------------------------------------------------------
@@ -556,7 +558,7 @@ UNPORTED = {
         "bucketed table layouts",
     ),
     "explain_analyze_verbose": (
-        "explain analyze verbose select count(*) from tpch.tiny.nation", "span tracer"
+        "select * from system.runtime.compilations", "compile_events"
     ),
 }
 
@@ -576,14 +578,27 @@ def test_unported_statements_raise(pair, piece):
 
 def test_mesh_explain_matches_and_analyze_raises():
     """On the 4-worker mesh: EXPLAIN and EXPLAIN (TYPE DISTRIBUTED) give
-    the JAX local runner's text; EXPLAIN ANALYZE raises naming MeshProfile."""
+    the JAX local runner's text; EXPLAIN ANALYZE now runs, and its
+    profile's fragment ids and kinds are the JAX mesh's fragments of the
+    same statement."""
+    from trino_tpu.parallel import DistributedQueryRunner as JaxMeshRunner
+
     p = StatementPair(where="mesh", target_splits=4)
     p.run_all(EXPLAIN_SETUP[:1])
     sql = EXPLAIN_QUERIES["q1_memory"]
     p.run("explain " + sql)
     p.run("explain (type distributed) " + sql)
-    with pytest.raises(NotImplementedError, match="MeshProfile"):
-        p.port.execute("explain analyze " + sql)
+    text = [r[0] for r in p.port.execute("explain analyze " + sql).rows]
+    assert text[1].startswith("Mesh execution profile")
+    jm = JaxMeshRunner(p.jax.catalogs, catalog="memory", schema="default", n_workers=4)
+    jsub = jm.create_subplan(jm.create_plan(sql))
+    expected = {f.id: str(f.partitioning) for f in jsub.all_fragments()}
+    prof = p.port.last_mesh_profile
+    assert {fid: st.kind for fid, st in prof.fragments.items()} == expected
+    for fid, kind in expected.items():
+        assert any(
+            line.strip().startswith(f"Fragment {fid} [{kind}] wall=") for line in text
+        ), (fid, kind)
 
 
 def test_memory_runners_without_device_need_cuda():

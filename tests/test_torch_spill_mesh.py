@@ -136,16 +136,54 @@ def test_budgeted_mesh_query_matches_jax(name, jax_local, spill_dir, wave_probe_
     assert not REVOCABLES.live()
 
 
+#: the registry's memory-pressure series: waves, spill bytes, kills and
+#: revocations (every query also bumps the query counters and histograms)
+PRESSURE_SERIES = (
+    "trino_tpu_memory_waves_total",
+    "trino_tpu_spill_bytes_total",
+    "trino_tpu_memory_kills_total",
+    "trino_tpu_memory_revocations_total",
+)
+
+
+def _pressure_snapshot() -> dict:
+    return {
+        k: v for k, v in pmetrics.REGISTRY.snapshot().items()
+        if k.startswith(PRESSURE_SERIES)
+    }
+
+
 @pytest.mark.parametrize("sql", [JOIN_SQL, AGG_SQL, QUERIES[3]], ids=["join", "agg", "q3"])
 def test_unbudgeted_mesh_query_records_no_pressure(sql, jax_local, spill_dir):
-    before = pmetrics.REGISTRY.snapshot()
+    before = _pressure_snapshot()
+    assert len(before) >= 4  # the four wave operators are pre-registered
     d = _mesh({})
     actual = d.execute(sql)
     assert sorted(actual.rows) == sorted(jax_local.execute(sql).rows)
-    assert pmetrics.REGISTRY.snapshot() == before
+    assert _pressure_snapshot() == before
     assert "memory_wave" not in d.last_stage_executor.counters
 
 
 def test_mesh_profile_is_not_ported():
-    with pytest.raises(NotImplementedError, match="MeshProfile"):
-        _mesh({}).last_mesh_profile
+    """The mesh's per-fragment profile is now ported: `last_mesh_profile`
+    is a MeshProfile whose JSON has the JAX package's schema, and the
+    executor's counters are a view of the profile's."""
+    from trino_tpu.runtime.query_stats import FragmentStats as JaxFragmentStats
+    from trino_tpu.runtime.query_stats import MeshProfile as JaxMeshProfile
+    from trino_tpu_torch.runtime.query_stats import MeshProfile
+
+    d = _mesh({})
+    d.execute(AGG_SQL)
+    prof = d.last_mesh_profile
+    assert isinstance(prof, MeshProfile)
+    assert d.last_stage_executor.counters is prof.counters
+    doc = prof.to_json()
+    ref = JaxMeshProfile()
+    ref.fragment(0).close()
+    jdoc = ref.to_json()
+    assert set(doc) == set(jdoc)
+    assert set(doc["trace_cache"]) == set(jdoc["trace_cache"])
+    assert doc["fragments"]
+    for frag in doc["fragments"]:
+        assert set(frag) == set(JaxFragmentStats(0).to_json())
+        assert set(frag["phases_ms"]) == set(jdoc["fragments"][0]["phases_ms"])

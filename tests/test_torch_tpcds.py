@@ -196,7 +196,7 @@ def test_default_catalogs_register_tpcds():
     from trino_tpu_torch.connectors.api import default_catalogs
 
     cm = default_catalogs()
-    # the JAX package's set (its runner adds `system`, the next slice's)
+    # the JAX package's set (each runner adds `system` when it is built)
     assert cm.names() == ["blackhole", "memory", "tpcds", "tpch"]
     assert isinstance(cm.get("tpcds"), TpcdsConnector)
 

@@ -1,18 +1,25 @@
-"""Typed engine configuration: the memory section.
+"""Typed engine configuration: the dispatcher and memory sections.
 
 Port of part of trino_tpu/config.py (the airlift ``@Config`` analog).
 Each field carries its properties key; a knob resolves, first hit wins,
 from the environment (``TRINO_TPU_<KEY>`` with ``.``/``-`` -> ``_``,
-uppercased), the properties dict, then the dataclass default.  (The JAX
-package's per-catalog and per-worker overrides serve sections that are
-not ported.)
+uppercased), the properties dict, then the dataclass default.
 
-Ported: the ``memory`` section (``memory.pool-limit-bytes``,
-``memory.spill-dir``), `get_config` / `install_config` /
-`reset_config`; installing a config with a pool limit arms the shared
-memory pool's limit.  The other sections (breaker, heartbeat, lifecycle,
-remote, worker, coordinator, dispatcher, compile cache, prewarm,
-dictionary, profile, audit) are not ported yet.
+Ported: the ``dispatcher`` section (runtime/dispatcher.py's lanes,
+Retry-After and drain waits) and ``memory`` (``memory.pool-limit-bytes``,
+``memory.spill-dir``), with `get_config` / `install_config` /
+`reset_config` / `load_config`; installing a config with a pool limit
+arms the shared memory pool's limit.  Not ported: the ``breaker``
+section (the circuit breakers of the multi-host HTTP tier), the
+``lifecycle`` section (its HTTP request timeouts), the JAX package's
+per-worker and per-catalog overrides (``<key>@<token>``) with
+`breaker_for` / `section_for`, and the sections of the other unported
+pieces (heartbeat, remote, worker, coordinator, compile cache, prewarm,
+dictionary, profile, audit).  `load_cluster_config` raises
+NotImplementedError naming the piece for a ``breaker.`` or
+``lifecycle.`` key or an override, and `breaker_for` / `section_for`
+raise; runtime/config.py raises for the knobs of the other pieces when
+an etc/ directory sets them.
 """
 
 from __future__ import annotations
@@ -73,13 +80,44 @@ class ConfigSection:
         return cls(**values)
 
     def describe(self) -> list:
-        """[(properties key, value, help)]."""
+        """[(properties key, value, help)] — the config's SQL/debug view."""
         out = []
         for f in fields(self):
             key = f.metadata.get("key")
             if key is not None:
                 out.append((key, getattr(self, f.name), f.metadata.get("help", "")))
         return out
+
+
+# -- sections ------------------------------------------------------------------
+
+
+@dataclass
+class DispatcherConfig(ConfigSection):
+    """Concurrent query dispatcher (runtime/dispatcher.QueryDispatcher):
+    admission control, weighted-fair resource groups, load shedding."""
+
+    lanes: int = knob(
+        4, "dispatcher.lanes",
+        "engine lanes (concurrent query executions) the dispatcher "
+        "interleaves onto the device; runners that cannot be cloned "
+        "(multi-host) are clamped to 1",
+    )
+    retry_after_s: float = knob(
+        1.0, "dispatcher.retry-after",
+        "Retry-After seconds a shed statement (HTTP 429: resource-group "
+        "queue full) advertises to clients",
+    )
+    drain_wait_s: float = knob(
+        30.0, "dispatcher.drain-wait",
+        "seconds a dispatcher drain waits for running queries before "
+        "force-killing them through their lifecycle tokens",
+    )
+    drain_grace_s: float = knob(
+        5.0, "dispatcher.drain-grace",
+        "seconds a drain waits AFTER force-kill for the canceled queries "
+        "to reach their next cooperative check and release their lanes",
+    )
 
 
 @dataclass
@@ -102,17 +140,61 @@ class MemoryConfig(ConfigSection):
 class ClusterConfig:
     """The ported sections plus the raw properties."""
 
+    dispatcher: DispatcherConfig = field(default_factory=DispatcherConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
     properties: dict = field(default_factory=dict)
 
+    def breaker_for(self, worker: str):
+        raise NotImplementedError(
+            "breaker_for: circuit breakers (the multi-host HTTP tier): not ported yet"
+        )
+
+    def section_for(self, section: str, worker: Optional[str] = None,
+                    catalog: Optional[str] = None):
+        raise NotImplementedError(
+            "section_for: per-worker and per-catalog overrides: not ported yet"
+        )
+
+
+#: config.properties key prefixes of sections that are not ported, and the
+#: piece each configures
+UNPORTED_SECTIONS = (
+    ("breaker.", "circuit breakers (the multi-host HTTP tier)"),
+    ("lifecycle.", "HTTP request timeouts (the multi-host HTTP tier)"),
+)
+
 
 def load_cluster_config(props: Optional[dict] = None, env=None) -> ClusterConfig:
-    """Build a ClusterConfig from a properties dict + environment overrides."""
+    """Build a ClusterConfig from a properties dict (e.g. the parsed
+    ``etc/config.properties``) + environment overrides."""
     props = dict(props or {})
     env = os.environ if env is None else env
+    for key in props:
+        for prefix, piece in UNPORTED_SECTIONS:
+            if key.startswith(prefix):
+                raise NotImplementedError(f"{key} ({piece}): not ported yet")
+        if "@" in key:
+            raise NotImplementedError(
+                f"{key} (per-worker and per-catalog overrides): not ported yet"
+            )
     return ClusterConfig(
-        memory=MemoryConfig.from_properties(props, env), properties=props
+        dispatcher=DispatcherConfig.from_properties(props, env),
+        memory=MemoryConfig.from_properties(props, env),
+        properties=props,
     )
+
+
+def load_config(path: Optional[str] = None, props: Optional[dict] = None,
+                env=None) -> ClusterConfig:
+    """Load + install the process config from a .properties file path or a
+    dict; returns the installed ClusterConfig."""
+    if path is not None:
+        from trino_tpu_torch.runtime.config import load_properties
+
+        props = load_properties(path)
+    cfg = load_cluster_config(props, env)
+    install_config(cfg)
+    return cfg
 
 
 _LOCK = threading.Lock()

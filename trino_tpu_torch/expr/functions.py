@@ -20,6 +20,7 @@ when this module loads.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import OrderedDict, deque
 from typing import Callable
@@ -1078,21 +1079,25 @@ HOST_TABLE_LOG: deque = deque(maxlen=4096)
 #: an equal dictionary, so the table is built once
 _HOST_TABLES: "OrderedDict" = OrderedDict()
 _HOST_TABLES_LIMIT = 32
+_HOST_TABLES_LOCK = threading.Lock()
 
 
 def _host_table(what: str, args: tuple, d: StringDictionary, build):
-    """`build(d)`, kept under (what, args, d)."""
+    """`build(d)`, kept under (what, args, d).  The cache is shared by the
+    dispatcher's lanes, so it is read and written under a lock."""
     key = (what, args, d)
-    hit = _HOST_TABLES.get(key)
-    if hit is not None:
-        _HOST_TABLES.move_to_end(key)
-        return hit
+    with _HOST_TABLES_LOCK:
+        hit = _HOST_TABLES.get(key)
+        if hit is not None:
+            _HOST_TABLES.move_to_end(key)
+            return hit
     t0 = time.perf_counter()
     out = build(d)
     HOST_TABLE_LOG.append((what, len(d), time.perf_counter() - t0))
-    _HOST_TABLES[key] = out
-    while len(_HOST_TABLES) > _HOST_TABLES_LIMIT:
-        _HOST_TABLES.popitem(last=False)
+    with _HOST_TABLES_LOCK:
+        _HOST_TABLES[key] = out
+        while len(_HOST_TABLES) > _HOST_TABLES_LIMIT:
+            _HOST_TABLES.popitem(last=False)
     return out
 
 

@@ -8,6 +8,7 @@ extraction).  Deliberately small: InputRef / Literal / Call / SpecialForm.
 from __future__ import annotations
 
 import enum
+import threading
 from typing import Any, Sequence
 
 from trino_tpu_torch.types import Type, BOOLEAN
@@ -29,9 +30,11 @@ def _render(e: "Expr", budget: list) -> str:
 #: reference children by interned id, so a key stays FLAT (O(node arity))
 #: even when the expression is a deeply shared DAG — a naive recursive key
 #: would expand the DAG into an exponential-size tree (concat_ws's threaded
-#: accumulator, CASE chains).  Process-level, like the jitted-step caches
-#: that consume these keys.
+#: accumulator, CASE chains).  Process-level, like the step caches that
+#: consume these keys; dispatcher lanes plan on several threads, so an id
+#: is assigned under a lock (two keys must never share one).
 _KEY_IDS: dict = {}
+_KEY_IDS_LOCK = threading.Lock()
 
 
 class Expr:
@@ -63,8 +66,8 @@ class Expr:
             k = self.key()
             i = _KEY_IDS.get(k)
             if i is None:
-                i = len(_KEY_IDS)
-                _KEY_IDS[k] = i
+                with _KEY_IDS_LOCK:
+                    i = _KEY_IDS.setdefault(k, len(_KEY_IDS))
             self._key_id = i
         return i
 

@@ -42,6 +42,7 @@ fallback.  `grouped_sums.launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -186,11 +187,13 @@ def _launch(gids, mask, values, n_groups: int, plan: dict) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"grouped_sums kernel launch failed: cudaError {err}")
-    grouped_sums.launches += 1
+    with _LAUNCHES_LOCK:  # dispatcher lanes launch from several threads
+        grouped_sums.launches += 1
     return out
 
 
 grouped_sums.launches = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def _library():

@@ -41,6 +41,7 @@ there is no fallback.  `locate_sorted.launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -202,11 +203,13 @@ def _launch(build, nm, probe, nomatch, plan: dict):
         )
     if err != 0:
         raise RuntimeError(f"locate_sorted kernel launch failed: cudaError {err}")
-    locate_sorted.launches += 1
+    with _LAUNCHES_LOCK:  # dispatcher lanes launch from several threads
+        locate_sorted.launches += 1
     return start, count
 
 
 locate_sorted.launches = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def _library():

@@ -137,8 +137,14 @@ def _exchange(stacked: Batch, key_channels, n_workers: int, slot_cap: int) -> Ba
 def exchange_slot_cap(stacked: Batch, key_channels: Sequence[int], wm: WorkerMesh) -> int:
     """Phase 1 of the two-step exchange: the counts pass, one tiny [W, W]
     host read, and the pow2 slot-capacity bucket."""
+    from trino_tpu_torch.runtime.lifecycle import check_current
+
     counts = _counts(stacked, tuple(key_channels), wm.n)
-    return next_pow2(max(1, int(counts.max())), floor=64)
+    slot_cap = next_pow2(max(1, int(counts.max())), floor=64)
+    # cancellation point: the counts read waited for the producer's device
+    # work, so a deadline that passed meanwhile stops the exchange here
+    check_current()
+    return slot_cap
 
 
 def fused_repartition(

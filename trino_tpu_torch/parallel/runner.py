@@ -69,17 +69,31 @@ RECURSIVE's steps run on the mesh (`_run_query`), and a memory table's
 splits (row ranges of one stored column set) stack per worker like any
 scan's.
 
+The per-fragment profile (runtime/query_stats.MeshProfile, the
+statement's `last_mesh_profile`): every stage's self wall split into
+phases (`trace` = the step cache's builds, `compute` and `collective` =
+the launches of its steps, `transfer` = host pulls, gathers and stacks,
+`other` = the remainder), the bytes it moved and its event counts
+(`bump`, mirrored into the registry; `counters` is a view of the
+profile's).  The step cache routes each launch through the executor's
+`_call` (parallel/spmd.set_launch_hook), which checks the statement's
+cancel token and deadline first; each fragment checks them too.  A
+deferred step chain is billed to the fragment that materializes it (the
+JAX package bills its producer); the phases still sum to each wall.
+Under EXPLAIN ANALYZE the profile waits on the card inside each phase
+window.  The `fragment` span covers fragmenting, `schedule` the run.
+
 Not ported (each raises NotImplementedError when a session asks for it):
 fault tolerance and task retries, bucketed table layouts, `resize_mesh`,
-membership heartbeats, prewarm, the per-fragment profile
-(`last_mesh_profile`, so EXPLAIN ANALYZE on the mesh) and the compile
-observatory.  The collective-schedule license (verify/schedule.py) is not
-ported either: the executor dispatches strictly lazily, which the JAX
-package defines as the same results.
+membership heartbeats, prewarm and the compile observatory.  The
+collective-schedule license (verify/schedule.py) is not ported either:
+the executor dispatches strictly lazily, which the JAX package defines as
+the same results.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
@@ -105,6 +119,7 @@ from trino_tpu_torch.ops.locate_sorted import locate_sorted, probe_kernel_eligib
 from trino_tpu_torch.ops.sort import TopNOperator, _sorted
 from trino_tpu_torch.parallel import exchange as ex
 from trino_tpu_torch.parallel.spmd import (
+    TRACE_CACHE,
     WorkerMesh,
     bucket_cap,
     cached_spmd_step,
@@ -142,7 +157,11 @@ from trino_tpu_torch.runtime.local_planner import (
     null_column,
     window_args,
 )
+from trino_tpu_torch.runtime.lifecycle import check_current
+from trino_tpu_torch.runtime.memory import batch_bytes
+from trino_tpu_torch.runtime.query_stats import MeshProfile
 from trino_tpu_torch.runtime.runner import LocalQueryRunner, MaterializedResult
+from trino_tpu_torch.telemetry.spans import now
 
 _DIST_KINDS = (SOURCE, FIXED_HASH, FIXED_ARBITRARY)
 
@@ -266,13 +285,6 @@ class DistributedQueryRunner(LocalQueryRunner):
     def resize_mesh(self, n_workers: int) -> None:
         raise NotImplementedError("resize_mesh (elastic membership): not ported yet")
 
-    @property
-    def last_mesh_profile(self):
-        raise NotImplementedError(
-            "MeshProfile (the per-fragment mesh profile): not ported yet; "
-            "last_stage_executor.counters holds the event counts"
-        )
-
     # -- planning -------------------------------------------------------------
 
     def create_subplan(self, plan: P.OutputNode) -> SubPlan:
@@ -299,17 +311,25 @@ class DistributedQueryRunner(LocalQueryRunner):
     # -- execution ------------------------------------------------------------
 
     def _run_query(self, query, stats=None) -> MaterializedResult:
-        if stats is not None:
-            raise NotImplementedError(
-                "EXPLAIN ANALYZE on the mesh needs MeshProfile (the "
-                "per-fragment mesh profile): not ported yet"
-            )
         _check_ported_knobs(self.properties)
+        tr = self._tracer
         plan = self.plan_query(query)
-        sub = self.create_subplan(plan)
-        executor = StageExecutor(self.catalogs, self.wm, self.properties)
+        with tr.span("fragment"):
+            sub = self.create_subplan(plan)
+        # EXPLAIN ANALYZE runs the same distributed path with the profile
+        # in blocking mode, so the phase times measure device work
+        profile = MeshProfile(
+            blocking=stats is not None, tracer=tr, device=self.wm.device
+        )
+        executor = StageExecutor(
+            self.catalogs, self.wm, self.properties, profile=profile
+        )
         self.last_stage_executor = executor
-        rows = self._collect_rows(executor.run(sub).stream)
+        self.last_mesh_profile = profile
+        with tr.span("schedule"):
+            rows = self._collect_rows(executor.run(sub).stream)
+        if stats is not None:
+            stats.mesh_profile = profile
         return MaterializedResult(
             list(plan.column_names), rows, [s.type for s in plan.symbols]
         )
@@ -320,18 +340,34 @@ class StageExecutor:
     SqlStage inside PipelinedQueryScheduler, with on-device collectives as
     the data plane)."""
 
-    def __init__(self, catalogs, wm: WorkerMesh, properties):
+    def __init__(self, catalogs, wm: WorkerMesh, properties,
+                 profile: Optional[MeshProfile] = None):
         self.catalogs = catalogs
         self.wm = wm
         self.properties = properties
+        #: the statement's per-fragment profile (runtime/query_stats.py)
+        self.profile = (
+            profile if profile is not None else MeshProfile(device=wm.device)
+        )
         self._subplans: dict = {}
         self._results: dict = {}
+        #: the fragment executing now (-1 outside every fragment)
+        self._current_fid = -1
+        #: per-stage elapsed bookkeeping, so fragment walls are SELF time
+        self._frame_stack: list = []
+        #: open phase windows (a nested launch books into the outer one)
+        self._window_depth = 0
+        #: seconds of child stages run so far: a phase window that encloses
+        #: a child stage subtracts the child's time
+        self._excl_s = 0.0
+        self._trace_base = (TRACE_CACHE.hits, TRACE_CACHE.misses, TRACE_CACHE.retraces)
         #: cross-fragment dynamic filters: probe symbol name -> (lo, hi)
         #: build-side key range, registered when a build side completes and
         #: consumed by later probe-side scans
         self.dynamic_filters: dict = {}
-        #: named event counts (exchange elisions, capacity paths, ...)
-        self.counters: dict = {}
+        #: named event counts (exchange elisions, capacity paths, waves,
+        #: ...): a view of the profile's counters
+        self.counters: dict = self.profile.counters
         self.layouts = LayoutResolver(catalogs, properties)
         self.colocate = bool(properties.get("colocated_join"))
         self.license_caps = bool(properties.get("join_capacity_license"))
@@ -351,12 +387,90 @@ class StageExecutor:
         return effective_budget(self.properties, self.memory)
 
     def bump(self, name: str, n: int = 1) -> None:
-        self.counters[name] = self.counters.get(name, 0) + n
+        """Count an event in the profile (mirrored into the registry's
+        trino_tpu_mesh_events_total)."""
+        self.profile.bump(name, n)
+
+    # -- instrumented launches and transfers ------------------------------------
+
+    @contextmanager
+    def _phase(self, name: str, launch: bool = False):
+        """Time a window of the executing fragment as phase `name`; a
+        blocking profile waits on the device inside the window.  A window
+        nested in another books nothing (the outer one holds its time),
+        and a child stage run inside a window is subtracted from it, so a
+        fragment's phases never exceed its self wall."""
+        fid = self._current_fid
+        if self._window_depth or fid < 0:
+            yield
+            return
+        prof = self.profile
+        self._window_depth += 1
+        excl0 = self._excl_s
+        t0 = now()
+        try:
+            yield
+            prof.wait()
+        finally:
+            t1 = now()
+            self._window_depth -= 1
+            prof.add_phase(fid, name, (t1 - t0) - (self._excl_s - excl0))
+            tr = prof.tracer
+            if tr.enabled:
+                if launch:
+                    tr.record("launch", t0, t1, {"phase": name, "fragment": fid})
+                else:
+                    tr.record(name, t0, t1, {"fragment": fid})
+
+    def _call(self, fn, args, phase: str = "compute"):
+        """Launch one step (the step cache's launch hook): the statement's
+        cancel token and deadline are checked first, and the launch is
+        timed as `phase` of the executing fragment."""
+        check_current()  # cooperative cancel/deadline point per launch
+        with self._phase(phase, launch=True):
+            return fn(*args)
+
+    def _note_build(self, seconds: float) -> None:
+        """The step cache built a step (a miss): book it as the fragment's
+        `trace` phase, unless a window already holds the time."""
+        if not self._window_depth and self._current_fid >= 0:
+            self.profile.add_phase(self._current_fid, "trace", seconds)
 
     def _host_pull(self, *vals):
         """The runner's small device -> host reads, in one transfer."""
-        out = [v.cpu().numpy() for v in vals]
+        with self._phase("transfer"):
+            out = [v.cpu().numpy() for v in vals]
         return out if len(out) > 1 else out[0]
+
+    def _gather(self, stacked: Batch, purpose: str) -> Batch:
+        """Gather a stacked batch's live rows to one batch (a transfer)."""
+        stacked = self._gather_compact(stacked)
+        with self._phase("transfer"):
+            host = unstack_batch(stacked)
+        nbytes = batch_bytes(host)
+        if self._current_fid >= 0:
+            self.profile.fragment(self._current_fid).bytes_to_host += nbytes
+            self.profile.add_collective(self._current_fid, nbytes, "gather", purpose)
+        return host
+
+    def _broadcast(self, stacked: Batch) -> Batch:
+        """The all-gather (parallel/exchange.broadcast), as a collective
+        phase of the executing fragment."""
+        with self._phase("collective"):
+            out = ex.broadcast(stacked, self.wm)
+        if self._current_fid >= 0:
+            self.profile.add_collective(
+                self._current_fid, batch_bytes(out), "all_gather", "broadcast"
+            )
+        return out
+
+    def _stack(self, batches, cap: Optional[int] = None) -> Batch:
+        """Stack per-worker batches onto the mesh (a transfer)."""
+        with self._phase("transfer"):
+            stacked = stack_batches(batches, self.wm, cap=cap)
+        if self._current_fid >= 0:
+            self.profile.fragment(self._current_fid).bytes_to_device += batch_bytes(stacked)
+        return stacked
 
     def _dist(self, stacked: Batch, symbols: list, placements: tuple = (),
               realigned: bool = False, unaligned: frozenset = frozenset()) -> _Dist:
@@ -383,18 +497,52 @@ class StageExecutor:
     # -- public ---------------------------------------------------------------
 
     def run(self, sub: SubPlan) -> PhysicalPlan:
+        """Run every stage of `sub`.  While it runs, this thread's step
+        launches go through `_call` and the step cache's builds through
+        `_note_build`."""
+        from trino_tpu_torch.parallel.spmd import set_launch_hook
+
         self._register(sub)
+        prev_hook = set_launch_hook(
+            lambda fn, args, phase: self._call(fn, args, phase)
+        )
+        prev_build = TRACE_CACHE.on_build
+        TRACE_CACHE.on_build = self._note_build
         try:
             out = self._fragment_result(sub.fragment.id)
             if isinstance(out, _Dist):  # defensive: the root should be SINGLE
-                host = unstack_batch(self._gather_compact(out.stacked))
+                self._current_fid = sub.fragment.id
+                host = self._gather(out.stacked, "result_gather")
+                self.bump("result_gather")
+                self._current_fid = -1
                 return PhysicalPlan(iter([host]), out.symbols)
             return out
         finally:
+            set_launch_hook(prev_hook)
+            TRACE_CACHE.on_build = prev_build
+            self._finalize_profile()
             # every _Dist points back at this executor: drop the stage
             # outputs now, or the cycles keep their device tensors alive
             # until the garbage collector next runs
             self._results.clear()
+
+    def _finalize_profile(self) -> None:
+        """The step cache's hits and misses during the run, each fragment's
+        kind, and the `other` phase that closes each fragment's wall."""
+        from trino_tpu_torch.telemetry.metrics import query_retraces_counter
+
+        prof = self.profile
+        h0, m0, r0 = self._trace_base
+        prof.trace_hits = TRACE_CACHE.hits - h0
+        prof.trace_misses = TRACE_CACHE.misses - m0
+        prof.retraces = TRACE_CACHE.retraces - r0
+        if prof.retraces:
+            query_retraces_counter().inc(prof.retraces)
+        for fid, sub in self._subplans.items():
+            if fid in prof.fragments:
+                prof.fragments[fid].kind = str(sub.fragment.partitioning)
+        for st in prof.fragments.values():
+            st.close()
 
     # -- stage orchestration --------------------------------------------------
 
@@ -415,10 +563,27 @@ class StageExecutor:
 
     def _run_stage(self, fid: int):
         sub = self._subplans[fid]
-        if sub.fragment.partitioning.kind in _DIST_KINDS:
-            return self._exec(sub.fragment.root)
-        out = self._local_fragment(sub)
-        return ("host", list(out.stream), out.symbols)
+        prev_fid, prev_depth = self._current_fid, self._window_depth
+        self._current_fid, self._window_depth = fid, 0
+        self._frame_stack.append({"child_s": 0.0})
+        t0 = now()
+        try:
+            with self.profile.tracer.span(
+                f"fragment-{fid}", kind=str(sub.fragment.partitioning)
+            ):
+                check_current()  # fragment-boundary cancellation point
+                if sub.fragment.partitioning.kind in _DIST_KINDS:
+                    return self._exec(sub.fragment.root)
+                out = self._local_fragment(sub)
+                return ("host", list(out.stream), out.symbols)
+        finally:
+            elapsed = now() - t0
+            frame = self._frame_stack.pop()
+            self.profile.fragment(fid).wall_s += elapsed - frame["child_s"]
+            if self._frame_stack:
+                self._frame_stack[-1]["child_s"] += elapsed
+            self._excl_s += elapsed
+            self._current_fid, self._window_depth = prev_fid, prev_depth
 
     def _local_fragment(self, sub: SubPlan) -> PhysicalPlan:
         """SINGLE/COORDINATOR_ONLY fragment: the local engine over gathered
@@ -512,6 +677,9 @@ class StageExecutor:
         )
         summ = self._host_pull(fn(stacked))
         self.bump("dynamic_filter_sync")
+        self.profile.add_collective(
+            self._current_fid, int(summ.nbytes), "reduce", "dynamic_filter"
+        )
         # [W, k, 3] -> per-criterion global (lo, hi, n)
         for i, (name, _) in enumerate(pairs):
             lo = int(summ[:, i, 0].min())
@@ -563,7 +731,7 @@ class StageExecutor:
         if node.exchange_kind == "merge":
             batch = self._merge_gather(child, node)
         else:
-            batch = unstack_batch(self._gather_compact(child.stacked))
+            batch = self._gather(child.stacked, "host_gather")
         self.bump("host_gather")
         return PhysicalPlan(iter([batch]), child.symbols)
 
@@ -580,9 +748,14 @@ class StageExecutor:
         ]
         n_live = self._host_pull(stacked.mask().sum(dim=-1))
         shards = []
-        for w in range(self.wm.n):
-            # partial sorts put dead rows last: the live prefix is the shard
-            shards.append(_slice_host(stacked, w, int(n_live[w])))
+        with self._phase("transfer"):
+            for w in range(self.wm.n):
+                # partial sorts put dead rows last: the live prefix is the
+                # shard
+                shards.append(_slice_host(stacked, w, int(n_live[w])))
+        nbytes = sum(batch_bytes(b) for b in shards)
+        self.profile.fragment(self._current_fid).bytes_to_host += nbytes
+        self.profile.add_collective(self._current_fid, nbytes, "gather", "host_gather")
         return merge_sorted_shards(shards, keys).to(self.wm.device)
 
     def _remote_as_dist(self, node: RemoteSourceNode) -> _Dist:
@@ -597,7 +770,7 @@ class StageExecutor:
             bs = stacked.stacked
             if trailing_cap(bs) > 64:
                 bs = self._compact_live(bs, "broadcast_compact")
-            return self._dist(ex.broadcast(bs, self.wm), stacked.symbols, realigned=True)
+            return self._dist(self._broadcast(bs), stacked.symbols, realigned=True)
         if node.exchange_kind == "repartition":
             names = tuple(s.name for s in node.partition_symbols)
             # runtime exchange elision: the producing fragment's output is
@@ -632,7 +805,7 @@ class StageExecutor:
         host = concat_batches(batches) if batches else None
         if host is None or not host.width:
             raise NotImplementedError("empty single-fragment feed")
-        stacked = stack_batches([host] + [None] * (self.wm.n - 1), self.wm)
+        stacked = self._stack([host] + [None] * (self.wm.n - 1))
         # a coordinator batch re-entered the mesh mid-query
         self.bump("host_restack")
         return self._dist(stacked, result.symbols, realigned=True)
@@ -704,7 +877,7 @@ class StageExecutor:
                 for t in types
             ]
             host_batches[0] = Batch(cols, torch.zeros(1, dtype=torch.bool))
-        stacked = stack_batches(host_batches, self.wm)
+        stacked = self._stack(host_batches)
         if cache_key is not None:
             POOL.put_device(cache_key, [stacked])
         return self._scan_filters(node, self._dist(stacked, symbols))
@@ -891,6 +1064,9 @@ class StageExecutor:
                 ("agg_final", _spec_sig(specs), fcap, _sig(node.outputs)),
                 slot_cap,
             )
+            self.profile.add_collective(
+                self._current_fid, batch_bytes(states), "all_to_all", "repartition"
+            )
             ctx.close()
         return self._dist(
             out, node.outputs,
@@ -944,6 +1120,9 @@ class StageExecutor:
                     ("agg_final", _spec_sig(specs), fcap_w, _sig(node.outputs)),
                     slot_w,
                 )
+            )
+            self.profile.add_collective(
+                self._current_fid, batch_bytes(filt), "all_to_all", "repartition"
             )
         ctx.close()
         return _concat_stacked(outs)
@@ -1026,6 +1205,9 @@ class StageExecutor:
         )
         self.bump("repartition_collective")
         self.bump("agg_single_stage")
+        self.profile.add_collective(
+            self._current_fid, batch_bytes(stacked), "all_to_all", "repartition"
+        )
         return self._dist(
             out, node.outputs,
             placements=((tuple(s.name for s in node.group_symbols),)),
@@ -1184,7 +1366,7 @@ class StageExecutor:
             bs = build.stacked
             if trailing_cap(bs) > 64:
                 bs = self._compact_live(bs, "broadcast_compact")
-            build_stacked = ex.broadcast(bs, self.wm)
+            build_stacked = self._broadcast(bs)
         else:
             build = self._place_join_side(
                 build_node, build, [r for _, r in node.criteria]
@@ -1405,8 +1587,8 @@ class StageExecutor:
             wkey = ("join_wave", n_waves, cap_b, cap_p) + jkey
 
             def run_wave(b_cells, p_cells):
-                build_w = stack_batches(b_cells, self.wm, cap=cap_b)
-                probe_w = stack_batches(p_cells, self.wm, cap=cap_p)
+                build_w = self._stack(b_cells, cap=cap_b)
+                probe_w = self._stack(p_cells, cap=cap_p)
                 _spill.reserve_wave_working_set(ctx, 2 * batch_bytes(build_w))
                 return self._sized_expansion(
                     wkey, probe_w, build_w, locate, emit_total, expand,
@@ -1676,7 +1858,7 @@ class StageExecutor:
             )
 
         op = SemiJoinOperator(sk, fk, filtering_types, null_aware=node.null_aware)
-        bcast = ex.broadcast(filt.stacked, self.wm)
+        bcast = self._broadcast(filt.stacked)
         self.bump("broadcast")
         cap_b = trailing_cap(bcast)
         has_null = global_has_null(bcast)
@@ -1706,6 +1888,9 @@ class StageExecutor:
         """Hash-place one operand on `chans`."""
         stacked = ex.repartition(side.stacked, chans, self.wm)
         self.bump("repartition_collective")
+        self.profile.add_collective(
+            self._current_fid, batch_bytes(stacked), "all_to_all", "repartition"
+        )
         return self._dist(
             stacked, side.symbols,
             placements=((tuple(side.symbols[c].name for c in chans),)),

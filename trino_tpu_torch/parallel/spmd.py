@@ -17,6 +17,7 @@ fingerprint.  A mesh across several cards is not ported yet.
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, Optional, Sequence
 
@@ -32,25 +33,62 @@ class TraceCache:
     """Process-wide cache of built per-worker step closures, keyed on the
     step's semantic fingerprint + shape bucket (the JAX package's cache of
     jitted SPMD programs; torch does not compile, so a hit saves only the
-    closure construction)."""
+    closure construction).
+
+    `hits` and `misses` count lookups (a miss builds a step); `retraces`
+    stays 0, since nothing is traced; `evictions` counts entries dropped
+    past `limit`.  While a mesh statement runs, `on_build(seconds)` (set
+    by the stage executor for its thread) receives each build's seconds,
+    which its profile books as the fragment's `trace` phase."""
 
     def __init__(self, limit: int = 512):
         self.limit = limit
         self._fns: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.retraces = 0
+        self.evictions = 0
+        self._local = threading.local()
+
+    @property
+    def on_build(self) -> Optional[Callable]:
+        return getattr(self._local, "on_build", None)
+
+    @on_build.setter
+    def on_build(self, fn: Optional[Callable]) -> None:
+        self._local.on_build = fn
 
     def get(self, key, build: Callable):
         with self._lock:
             fn = self._fns.get(key)
             if fn is not None:
                 self._fns.move_to_end(key)
+                self.hits += 1
                 return fn
+            self.misses += 1
+        t0 = time.perf_counter()
         fn = build()
+        dt = time.perf_counter() - t0
+        hook = self.on_build
         with self._lock:
             self._fns[key] = fn
             while len(self._fns) > self.limit:
                 self._fns.popitem(last=False)
+                self.evictions += 1
+        if hook is not None:
+            hook(dt)
         return fn
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "entries": len(self._fns),
+                "hits": self.hits,
+                "misses": self.misses,
+                "retraces": self.retraces,
+                "evictions": self.evictions,
+            }
 
     def clear(self) -> None:
         with self._lock:
@@ -288,12 +326,38 @@ def spmd_step(wm: WorkerMesh, step: Callable) -> Callable:
     return run
 
 
+#: per-thread launch hook: while a mesh statement runs, the stage executor
+#: routes every cached step's launch through it (its cancel check and phase
+#: timing); None runs the step directly
+_LAUNCH = threading.local()
+
+
+def set_launch_hook(hook: Optional[Callable]) -> Optional[Callable]:
+    """Install `hook(fn, args, phase)` for this thread; returns the one it
+    replaces."""
+    prev = getattr(_LAUNCH, "hook", None)
+    _LAUNCH.hook = hook
+    return prev
+
+
+def _launcher(fn: Callable, phase: str) -> Callable:
+    def launch(*args):
+        hook = getattr(_LAUNCH, "hook", None)
+        if hook is None:
+            return fn(*args)
+        return hook(fn, args, phase)
+
+    return launch
+
+
 def cached_spmd_step(wm: WorkerMesh, key: tuple, build_step: Callable,
                      collective: bool = False) -> Callable:
     """TRACE_CACHE-backed spmd_step: `build_step()` constructs the step only
     on a cache miss.  A `collective` step sees the whole stacked arguments
-    (it moves rows between workers itself)."""
-    return TRACE_CACHE.get(
+    (it moves rows between workers itself).  Launches go through this
+    thread's launch hook, as phase `collective` or `compute`."""
+    fn = TRACE_CACHE.get(
         ("spmd", collective, mesh_key(wm)) + tuple(key),
         lambda: build_step() if collective else spmd_step(wm, build_step()),
     )
+    return _launcher(fn, "collective" if collective else "compute")

@@ -201,6 +201,11 @@ class LocalExecutionPlanner:
 
         def split_feed(split):
             def make():
+                from trino_tpu_torch.runtime.retry import FAILURE_INJECTOR
+
+                FAILURE_INJECTOR.maybe_fail(
+                    f"scan:{node.handle.schema}.{node.handle.table}:{split.seq}"
+                )
                 op = ScanOperator(
                     connector, split, names, types, self.device,
                     page_rows=page_rows, use_cache=use_cache,

@@ -21,14 +21,25 @@ seconds of each of the last statement's writes in their three parts.
 Not ported: security (GRANT, REVOKE, roles, SHOW ROLES/GRANTS) and
 bucketed table layouts raise NotImplementedError naming themselves.  The
 JAX runner's access-control checks and ownership records are left out:
-its default control allows everything, so no result changes.  Events,
-retry policies, tracing and the system catalog belong to later slices.
+its default control allows everything, so no result changes.  Neither
+are the decision ledger and the profile archive (`profile_store` stays
+None; attaching one raises).
 
-Each statement runs under a QueryContext (runtime/lifecycle.py): the
-planners reserve its memory on the shared pool, and when the statement
-ends, success or failure, its spill stores are closed (their files
-deleted) and its reservations released, even when a wave generator was
-abandoned mid-stream.
+Each statement runs under a QueryContext (runtime/lifecycle.py) made by
+the runner's QueryTracker: its state machine, its deadlines
+(query_max_run_time, query_max_planning_time), its cancel token
+(`query_tracker.cancel(query_id)`), and its memory on the shared pool.
+The statement emits created and completed events (runtime/events.py;
+system.runtime.queries reads them), bumps the registry's counters, and,
+under `query_trace`, records a span tree (telemetry/spans.py: query ->
+analyze, optimize, execute) that EXPLAIN ANALYZE VERBOSE renders and
+system.runtime.spans lists.  `retry_policy = 'QUERY'` re-runs a statement
+that failed with a retryable error (runtime/retry.py).  When the
+statement ends, success or failure, its spill stores are closed (their
+files deleted) and its reservations released, even when a wave generator
+was abandoned mid-stream.  The runner registers the `system` catalog
+(connectors/system.py), and `clone_for_dispatch` makes the engine lanes
+of runtime/dispatcher.py.
 
 The device is the CUDA card unless the caller passes another one
 (`device="cpu"`); there is no fallback (see device.py).
@@ -68,6 +79,10 @@ class MaterializedResult:
     def row_count(self) -> int:
         return len(self.rows)
 
+    def only_value(self):
+        assert len(self.rows) == 1 and len(self.rows[0]) == 1, self.rows
+        return self.rows[0][0]
+
 
 class LocalQueryRunner:
     #: WITH RECURSIVE iteration cap (reference: the max_recursion_depth
@@ -82,20 +97,59 @@ class LocalQueryRunner:
         target_splits: int = 4,
         device=None,
     ):
+        from collections import deque
+
+        from trino_tpu_torch.connectors.system import QueryHistory, SystemConnector
+        from trino_tpu_torch.runtime.events import EventListenerManager
+        from trino_tpu_torch.runtime.lifecycle import QueryTracker
         from trino_tpu_torch.runtime.session import SessionProperties
         from trino_tpu_torch.runtime.transactions import TransactionManager
+        from trino_tpu_torch.telemetry import NULL_TRACER
 
         self.device = resolve_device(device)
         self.catalogs = catalogs or default_catalogs()
         self.session = Session(catalog, schema)
         self.properties = SessionProperties()
         self.properties.set("target_splits", target_splits)
+        self.events = EventListenerManager()
         self.transactions = TransactionManager(self.catalogs)
+        self._query_ids = _QUERY_IDS
+        #: live statements by query id: `query_tracker.cancel(query_id)`
+        #: cancels one, and the deadlines come from the session properties
+        #: query_max_run_time / query_max_planning_time
+        self.query_tracker = QueryTracker()
+        #: one-shot hook: called with the next statement's QueryContext as
+        #: soon as it exists (a caller attaches its cancel surface)
+        self._query_context_cb = None
+        #: system.runtime.queries reads this history, fed by the events
+        self.query_history = QueryHistory()
+        self.events.add(self.query_history)
         #: (catalog, schema, name) -> view definition Query AST (reference:
         #: MetadataManager view storage + sql/tree/CreateView.java)
         self.views: dict[tuple, object] = {}
         #: prepared-statement name -> statement TEXT with `?` placeholders
         self.prepared: dict[str, str] = {}
+        if "system" not in self.catalogs.names():
+            sysconn = SystemConnector(self)
+            self.catalogs.register("system", sysconn)
+        else:
+            sysconn = self.catalogs.get("system")
+        if getattr(sysconn, "runner", None) is None:
+            sysconn.runner = self
+        # per-query span tracer (NULL when the query_trace session property
+        # is off); the tracer / last_trace / last_mesh_profile surfaces are
+        # properties resolved through the lifecycle contextvar, so
+        # concurrent lanes each read their own statement's handles
+        self._tracer = NULL_TRACER
+        #: Chrome-trace JSON of the most recent traced query
+        self.last_trace = None
+        #: (query_id, flattened spans) ring buffer (system.runtime.spans)
+        self.traces = deque(maxlen=64)
+        #: the archive of per-query profiles (telemetry/profile_store) is
+        #: not ported: it stays None, and attaching one raises
+        self._profile_store = None
+        #: the last statement's QueryContext (its peak reservation)
+        self.last_query = None
         #: the running statement's class name and its `_collect_rows`
         #: seconds so far (whole pulls, and batches turned into rows)
         self._statement = ""
@@ -107,6 +161,104 @@ class LocalQueryRunner:
         #: rows, seconds building the host columns, seconds of the sink's
         #: append)
         self.last_writes: list = []
+
+    @property
+    def profile_store(self):
+        return self._profile_store
+
+    @profile_store.setter
+    def profile_store(self, store) -> None:
+        if store is not None:
+            raise NotImplementedError(
+                "profile_store (telemetry/profile_store, the per-query "
+                "profile archive): not ported yet"
+            )
+        self._profile_store = None
+
+    def clone_for_dispatch(self) -> "Optional[LocalQueryRunner]":
+        """An engine-lane clone for the concurrent dispatcher
+        (runtime/dispatcher.QueryDispatcher): it shares everything whose
+        identity matters across lanes (the device, catalogs and through
+        them the system connector bound to THIS runner, the query tracker
+        and id counter, the events and query history, the session
+        properties, transactions, views, prepared statements and the span
+        ring) while per-statement state (tracer, last trace, mesh profile,
+        last query) stays lane-private.  Subclasses (the mesh runner)
+        return None: the dispatcher then runs one lane."""
+        if type(self) is not LocalQueryRunner:
+            return None
+        lane = LocalQueryRunner(
+            self.catalogs, self.session.catalog, self.session.schema,
+            device=self.device,
+        )
+        lane.session = self.session
+        lane.properties = self.properties
+        # ONE transaction state across lanes: a BEGIN on one lane and its
+        # COMMIT on another see the same TransactionManager
+        lane.transactions = self.transactions
+        lane.events = self.events
+        lane.query_history = self.query_history
+        lane.query_tracker = self.query_tracker
+        lane._query_ids = self._query_ids
+        lane.views = self.views
+        lane.prepared = self.prepared
+        lane.traces = self.traces
+        return lane
+
+    # -- per-statement telemetry handles (lane safety) -------------------------
+    #
+    # INSIDE a statement the lifecycle contextvar names that statement's
+    # own handle; OUTSIDE one, the most recently finished statement's.
+
+    _last_mesh_profile = None
+
+    @property
+    def _tracer(self):
+        from trino_tpu_torch.runtime.lifecycle import current_query
+
+        ctx = current_query()
+        if ctx is not None and ctx.tracer is not None:
+            return ctx.tracer
+        return self._tracer_default
+
+    @_tracer.setter
+    def _tracer(self, tracer) -> None:
+        self._tracer_default = tracer
+
+    @property
+    def last_mesh_profile(self):
+        from trino_tpu_torch.runtime.lifecycle import current_query
+
+        ctx = current_query()
+        if ctx is not None and ctx.mesh_profile is not None:
+            return ctx.mesh_profile
+        return self._last_mesh_profile
+
+    @last_mesh_profile.setter
+    def last_mesh_profile(self, profile) -> None:
+        from trino_tpu_torch.runtime.lifecycle import current_query
+
+        ctx = current_query()
+        if ctx is not None:
+            ctx.mesh_profile = profile
+        self._last_mesh_profile = profile
+
+    @property
+    def last_trace(self):
+        from trino_tpu_torch.runtime.lifecycle import current_query
+
+        ctx = current_query()
+        if ctx is not None and ctx.trace_json is not None:
+            return ctx.trace_json
+        return self._last_trace
+
+    @last_trace.setter
+    def last_trace(self, trace) -> None:
+        self._last_trace = trace
+
+    @property
+    def in_transaction(self) -> bool:
+        return self.transactions.active
 
     @property
     def target_splits(self) -> int:
@@ -121,20 +273,47 @@ class LocalQueryRunner:
         return self.plan_query(stmt.query)
 
     def plan_query(self, query: ast.Query) -> OutputNode:
-        query = self._expand_recursive_ctes(query)
-        plan = LogicalPlanner(self.catalogs, self.session, views=self.views).plan(query)
         from trino_tpu_torch.planner.optimizer import optimize
+        from trino_tpu_torch.runtime.lifecycle import check_current_planning
 
-        return optimize(
-            plan,
-            catalogs=self.catalogs,
-            verify=self.properties.get("verify_plan"),
-        )
+        tr = self._tracer
+        check_current_planning()  # query_max_planning_time / cancel token
+        with tr.span("analyze"):
+            query = self._expand_recursive_ctes(query)
+            plan = LogicalPlanner(
+                self.catalogs, self.session, views=self.views
+            ).plan(query)
+        check_current_planning()
+        with tr.span("optimize"):
+            out = optimize(
+                plan,
+                catalogs=self.catalogs,
+                verify=self.properties.get("verify_plan"),
+            )
+        check_current_planning()
+        return out
 
     # -- execution ------------------------------------------------------------
 
     def execute(self, sql: str) -> MaterializedResult:
+        """Execute any supported statement under its QueryContext: the
+        created and completed events (the failure classified), the registry
+        counters, the span tracer (`query_trace`) and the retry policy
+        (`retry_policy = 'QUERY'` re-runs a statement that failed with a
+        retryable error).  When the statement ends, success or failure, its
+        spill stores are closed and its memory released."""
         from trino_tpu_torch.runtime import lifecycle
+        from trino_tpu_torch.runtime.events import (
+            QueryCompletedEvent,
+            QueryCreatedEvent,
+            classify_error,
+        )
+        from trino_tpu_torch.runtime.retry import execute_with_retry
+        from trino_tpu_torch.telemetry import NULL_TRACER, SpanTracer
+        from trino_tpu_torch.telemetry.metrics import (
+            queries_counter,
+            query_wall_histogram,
+        )
 
         stmt = parse_statement(sql)
         m = getattr(self, "_exec_" + type(stmt).__name__, None)
@@ -142,55 +321,188 @@ class LocalQueryRunner:
             raise NotImplementedError(
                 f"statement {type(stmt).__name__}: not ported yet"
             )
-        ctx = lifecycle.QueryContext(f"query_{next(_QUERY_IDS)}")
-        #: the last statement's QueryContext (its peak reservation)
+        qid = f"query_{next(self._query_ids)}"
+        ctx = self.query_tracker.create(qid, self.properties)
+        cb, self._query_context_cb = self._query_context_cb, None
+        if cb is not None:
+            cb(ctx)
         self.last_query = ctx
         self._statement = type(stmt).__name__
         self._collect_s = [0.0, 0.0]
         self.last_writes = []
         token = lifecycle.set_current(ctx)
+        tracer = (
+            SpanTracer(query_id=qid)
+            if self.properties.get("query_trace")
+            else NULL_TRACER
+        )
+        prev_tracer = self._tracer  # a nested execute (EXECUTE) restores it
+        self._tracer = tracer
+        ctx.tracer = tracer
+        t0 = time.time()
+        self.events.query_created(QueryCreatedEvent(qid, sql, t0))
         try:
-            return m(stmt)
+            ctx.begin()
+            with tracer.span("query", query_id=qid, sql=sql[:200]):
+                self._record_queue_span(tracer)
+                # fault_tolerant_execution promotes NONE to TASK; an
+                # explicit QUERY policy wins.  A local runner has no stage
+                # to retry, so TASK runs the statement once, as in the JAX
+                # package; the mesh raises for TASK (parallel/runner.py)
+                policy = self.properties.get("retry_policy")
+                if (
+                    policy == "NONE"
+                    and self.properties.get("fault_tolerant_execution")
+                ):
+                    policy = "TASK"
+                result = execute_with_retry(lambda: m(stmt), policy)
+            ctx.finish()
+        except BaseException as e:
+            end = time.time()
+            state = ctx.fail(e)  # CANCELED for user cancels, else FAILED
+            etype = classify_error(e)
+            queries_counter().labels(state, etype).inc()
+            query_wall_histogram().observe(end - t0)
+            self._finish_trace(qid, tracer, prev_tracer, ctx)
+            self.events.query_completed(
+                QueryCompletedEvent(
+                    qid, sql, state, t0, end, error=str(e),
+                    error_type=etype,
+                    error_code=getattr(e, "error_code", None),
+                    statistics=self._query_statistics(
+                        end - t0, 0, tracer, ctx
+                    ),
+                )
+            )
+            raise
         finally:
             lifecycle.reset_current(token)
-            ctx.release_spills()
-            ctx.release_memory()
+            ctx.release_spills()  # an aborted wave leaves no spill file
+            ctx.release_memory()  # the shared pool's reservations end here
+            self.query_tracker.remove(ctx)
+        end = time.time()
+        queries_counter().labels("FINISHED", "").inc()
+        query_wall_histogram().observe(end - t0)
+        self._finish_trace(qid, tracer, prev_tracer, ctx)
+        self.events.query_completed(
+            QueryCompletedEvent(
+                qid, sql, "FINISHED", t0, end, rows=result.row_count,
+                statistics=self._query_statistics(
+                    end - t0, result.row_count, tracer, ctx
+                ),
+            )
+        )
+        return result
+
+    def _record_queue_span(self, tracer) -> None:
+        """When this statement came through the dispatcher's admission
+        queue, record its wait as a `queued` span under the query root."""
+        if not tracer.enabled:
+            return
+        from trino_tpu_torch.runtime.lifecycle import current_admission
+        from trino_tpu_torch.telemetry.spans import now as _now
+
+        adm = current_admission()
+        if adm is None:
+            return
+        group, queued_s = adm
+        end = _now()
+        tracer.record(
+            "queued", end - max(0.0, queued_s), end,
+            {"group": group, "queued_s": round(queued_s, 6)},
+        )
+
+    def _finish_trace(self, qid: str, tracer, prev_tracer, ctx) -> None:
+        """Export the finished query's spans (Chrome JSON, and the
+        flattened rows of system.runtime.spans); the export is stored on
+        the statement's own context too (lane safety)."""
+        self._tracer = prev_tracer
+        if not tracer.enabled:
+            return
+        if ctx.gate_wait_s > 0 and tracer.root is not None:
+            # device-gate contention next to the spans it delayed
+            tracer.root.attrs["gate_wait_s"] = round(ctx.gate_wait_s, 6)
+        trace = tracer.to_chrome_trace()
+        ctx.trace_json = trace
+        self.last_trace = trace
+        self.traces.append((qid, tracer.flat_spans()))
+
+    def _query_statistics(self, wall_s: float, rows: int, tracer, ctx):
+        """The QueryStatistics payload from the statement's own handles
+        (the mesh profile when distributed, the span count, the peak
+        reservation, the device-gate wait and the admission)."""
+        from trino_tpu_torch.runtime.events import QueryStatistics
+        from trino_tpu_torch.runtime.lifecycle import current_admission
+
+        stats = QueryStatistics(wall_s=round(wall_s, 6), rows=rows)
+        prof = ctx.mesh_profile
+        if prof is not None:
+            stats.phase_totals_s = prof.phase_totals()
+            stats.counters = dict(prof.counters)
+            stats.trace_cache = {
+                "hits": prof.trace_hits,
+                "misses": prof.trace_misses,
+                "retraces": prof.retraces,
+            }
+        stats.peak_memory_bytes = ctx.peak_memory
+        stats.gate_wait_s = round(ctx.gate_wait_s, 6)
+        adm = current_admission()
+        if adm is not None:
+            stats.group, stats.queued_s = adm[0], round(adm[1], 6)
+        if tracer.enabled:
+            stats.spans = len(tracer.flat_spans())
+        return stats
 
     def _collect_rows(self, stream) -> list:
-        """Rows of a result stream; the statement's kill token is checked
-        between batches.  The stream is closed however it ends, so the
-        finally blocks of the operators' generators (spill stores,
-        revocable handles) run now."""
-        from trino_tpu_torch.runtime.lifecycle import current_query
+        """Rows of a result stream.  Each batch pull runs under the device
+        time-slice gate (runtime/dispatcher.device_slice), so concurrent
+        dispatcher lanes interleave their device work at batch boundaries;
+        turning the batch into rows runs outside it.  The statement's
+        cancel token and deadline are checked between batches.  The stream
+        is closed however it ends, so the finally blocks of the operators'
+        generators (spill stores, revocable handles) run now and no
+        generator keeps the statement's tensors alive."""
+        from trino_tpu_torch.runtime.dispatcher import device_slice
+        from trino_tpu_torch.runtime.lifecycle import check_current
 
-        ctx = current_query()
         rows = []
         t0 = time.perf_counter()
         to_rows = 0.0
+        it = iter(stream)
+        done = object()
         try:
-            for batch in stream:
-                if ctx is not None:
-                    ctx.check()
+            while True:
+                with device_slice():
+                    batch = next(it, done)
+                if batch is done:
+                    break
+                check_current()  # cancel/deadline between result batches
                 t1 = time.perf_counter()
                 rows.extend(batch.to_pytuples())
                 to_rows += time.perf_counter() - t1
         finally:
-            close = getattr(stream, "close", None)
-            if close is not None:
-                close()
+            for s in (it, stream):
+                close = getattr(s, "close", None)
+                if close is not None:
+                    close()
             self._collect_s[0] += time.perf_counter() - t0
             self._collect_s[1] += to_rows
         return rows
 
     def _execute_plan(self, plan: OutputNode, stats=None) -> MaterializedResult:
-        lp = LocalExecutionPlanner(
-            self.catalogs,
-            self.device,
-            target_splits=self.target_splits,
-            stats=stats,
-            properties=self.properties,
-        )
-        rows = self._collect_rows(lp.plan(plan).stream)
+        from trino_tpu_torch.runtime.dispatcher import device_slice
+
+        with self._tracer.span("execute"):
+            with device_slice():
+                lp = LocalExecutionPlanner(
+                    self.catalogs,
+                    self.device,
+                    target_splits=self.target_splits,
+                    stats=stats,
+                    properties=self.properties,
+                )
+                physical = lp.plan(plan)
+            rows = self._collect_rows(physical.stream)
         return MaterializedResult(
             list(plan.column_names), rows, [s.type for s in plan.symbols]
         )
@@ -308,15 +620,22 @@ class LocalQueryRunner:
         if not isinstance(inner, ast.SelectStatement):
             raise NotImplementedError("EXPLAIN supports queries only")
         if stmt.analyze:
-            if stmt.verbose:
-                raise NotImplementedError(
-                    "EXPLAIN ANALYZE VERBOSE (the span tracer): not ported yet"
-                )
             from trino_tpu_torch.runtime.query_stats import StatsCollector
 
             collector = StatsCollector()
             self._run_query(inner.query, stats=collector)
             text = collector.render()
+            if stmt.verbose:
+                # VERBOSE: the span tree and the Perfetto-loadable
+                # Chrome-trace JSON on one line
+                import json as _json
+
+                tr = self._tracer
+                text += "\n" + tr.render_text()
+                if tr.enabled:
+                    text += "\nTrace JSON: " + _json.dumps(
+                        tr.to_chrome_trace()
+                    )
         elif stmt.explain_type == "distributed":
             # fragments + partitioning handles, even from a local runner
             # (reference: EXPLAIN (TYPE DISTRIBUTED) -> PlanFragmenter)

@@ -252,6 +252,27 @@ catches nothing and never falls back to the CPU):
      lifecycle outcomes (state, error type, error code) are held to the
      CPU run's, and every result to the port's CPU run (a reference
      process, REFERENCE_PARTS); times are logged, never compared;
+  5m. the collective-schedule license, bucketed layouts and the lock
+     graph at tpch.sf1 on the 4-worker mesh: M1 Q3, Q5 and Q18, cold and
+     warm, each run's `collective_async` equal to its license's licensed
+     children and its sorted-probe launches logged, `device_residency`
+     over the warm Q3 (no step built, no host re-entry, the recorded and
+     licensed collective schedule), then the warm Q3 30 times with the
+     license and 30 times without it, in turns (the license dropped in
+     this script only), both medians logged; M2 a runner with
+     `table_layouts` (orders and lineitem bucketed on the order key, 8
+     buckets) and `colocated_join`: the lineitem-orders join with no
+     repartition and one sorted-probe launch per worker shard, equal to
+     the same join unbucketed, Q3 and Q18 equal to M1's, then a bucketed
+     CTAS of 1,500,000 orders into memory (its wall logged) joined with
+     the bucketed lineitem under the same checks; M3 the aggregation by
+     l_orderkey over the bucketed lineitem in one stage (no repartition,
+     no partial states), equal to the unbucketed run, with its group path
+     and grouped-sums launches logged; M4 phase 5l's L4 (twelve
+     statements on 2 lanes) under `verify.lockgraph.capture()`, every
+     result held to 5l's CPU run, the graph's edges logged and required
+     acyclic.  M1's rows are held to the port's CPU run with phases
+     4-5c's;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows),
      of the local T1's, of D1's Q1's (phase 5k) and of L1's Q1-double
@@ -270,7 +291,8 @@ catches nothing and never falls back to the CPU):
      the inputs of the largest launch of phases 5c, 5d and 5g; bit-exact
      at the largest launch of phase 5e; bit-exact and timed at the largest
      launch of the mesh H3 (phase 5i), of the mesh T2 (phase 5j), of D3's
-     mesh join (phase 5k) and of L2's mesh Q3 (phase 5l);
+     mesh join (phase 5k), of L2's mesh Q3 (phase 5l) and of M2's
+     co-located join (phase 5m);
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -1567,11 +1589,12 @@ def cpu_reference(part: str, out_path: str) -> int:
 
 
 def tpch_reference_sqls() -> list:
-    """The statements phases 4-5c hold to the port's CPU run, each once."""
+    """The statements phases 4-5c and 5m's M1 hold to the port's CPU run,
+    each once."""
     from trino_tpu_torch.connectors.tpch.queries import QUERIES
 
     sqls = [QUERIES[1], QUERIES[6], Q1_DOUBLE, QUERIES[3]]
-    sqls += [QUERIES[q] for q in SEMI_LOCAL_QIDS + FUNC_QIDS]
+    sqls += [QUERIES[q] for q in SEMI_LOCAL_QIDS + FUNC_QIDS + LICENSE_QIDS]
     return list(dict.fromkeys(sqls))
 
 
@@ -3927,6 +3950,250 @@ def run_lifecycle_path(reference, k1_capture: dict, probe_record: dict) -> dict:
     return {"k1_launches": k1_launches, "k2_launches": k2_launches}
 
 
+# -- phase 5m: the schedule license, bucketed layouts, the lock graph ------------
+
+#: phase 5m's layouts: orders and lineitem bucketed on their order key
+SCHEDULE_LAYOUTS = "tpch.sf1.orders:o_orderkey:8,tpch.sf1.lineitem:l_orderkey:8"
+#: phase 5m's lineitem-orders join (M2) and its twin over the bucketed CTAS
+COLOCATED_JOIN = (
+    "select count(*), sum(l_quantity), sum(o_totalprice) from lineitem join orders "
+    "on l_orderkey = o_orderkey"
+)
+COLOCATED_CTAS = (
+    "create table memory.default.m2_orders with (bucketed_by = array['o_orderkey'], "
+    "bucket_count = 8) as select " + ORDERS_COLUMNS + " from tpch.sf1.orders"
+)
+COLOCATED_MEMORY_JOIN = (
+    "select count(*), sum(l_quantity), sum(o_totalprice) from memory.default.m2_orders "
+    "join lineitem on l_orderkey = o_orderkey"
+)
+#: phase 5m's M3: the aggregation by l_orderkey, its top groups
+COLOCATED_AGG = (
+    "select l_orderkey, sum(l_quantity), count(*) from lineitem group by l_orderkey "
+    "order by 2 desc, 1 limit 20"
+)
+#: phase 5m's M1 queries on the 4-worker mesh, and its timed runs a side
+LICENSE_QIDS = (3, 5, 18)
+LICENSE_RUNS = 30
+
+
+def run_schedule_layout_path(reference, probe_record: dict) -> dict:
+    """Phase 5m (see the module docstring, M1-M4) on the card at tpch.sf1.
+    The kernels' counts are set to 0 just before the path and read just
+    after; the untimed capture run of the co-located join is counted
+    apart.  Returns the launches and the M1 rows' check against the CPU
+    run (made with phases 4-5c's)."""
+    import statistics
+    import threading
+
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch import verify as V
+    from trino_tpu_torch.connectors.api import TableHandle
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+    from trino_tpu_torch.ops import aggregation as agg
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.verify.lockgraph import capture
+
+    ls.locate_sorted.launches = 0  # every kernel count, just before the path
+    gs.grouped_sums.launches = 0
+    results = {}
+
+    def run(label, runner, sql):
+        k2 = ls.locate_sorted.launches
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        wall = time.perf_counter() - t0
+        c = dict(runner.last_mesh_profile.counters)
+        n = ls.locate_sorted.launches - k2
+        log(f"schedule {label}: wall_s={wall!r} locate_sorted_launches={n} "
+            f"collective_async={c.get('collective_async', 0)} mesh_events={c}")
+        return res, n, c, wall
+
+    # -- M1: the schedule license, mesh Q3, Q5 and Q18 ------------------------------
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    for qid in LICENSE_QIDS:
+        for attempt in ("cold", "warm"):
+            res, n, c, _ = run(f"M1 q{qid} {attempt}", mesh, QUERIES[qid])
+            lic = mesh.last_schedule_license
+            if lic is None or c.get("collective_async", 0) != lic.licensed_count() or not n:
+                raise AssertionError(
+                    f"M1 q{qid} {attempt}: collective_async {c.get('collective_async')} "
+                    f"against {None if lic is None else lic.async_children}, K2 {n}")
+            results[f"M1_q{qid}_{attempt}"] = res
+        log(f"schedule M1 q{qid}: license async_children={lic.async_children} "
+            f"mesh_w={lic.mesh_w}")
+    report = V.device_residency(mesh, QUERIES[3], warmups=1)
+    log(f"schedule M1 q3 device_residency: {json.dumps(report['counters'])} "
+        f"trace_hits={report['trace_hits']} trace_misses={report['trace_misses']} "
+        f"retraces={report['retraces']} cache_keys_checked={report['cache_keys_checked']}")
+    # the warm Q3 with and without the license, in turns: the license is
+    # dropped here only (create_subplan's stamp cleared), no session knob
+    licensed = mesh.create_subplan
+
+    def unlicensed(plan):
+        sub = licensed(plan)
+        mesh.last_schedule_license = None
+        return sub
+
+    walls = {"licensed": [], "unlicensed": []}
+    for i in range(2 * LICENSE_RUNS):
+        side = ("licensed", "unlicensed")[i % 2]
+        mesh.create_subplan = licensed if side == "licensed" else unlicensed
+        t0 = time.perf_counter()
+        res = mesh.execute(QUERIES[3])
+        walls[side].append(time.perf_counter() - t0)
+        async_n = mesh.last_mesh_profile.counters.get("collective_async", 0)
+        if (async_n > 0) != (side == "licensed"):
+            raise AssertionError(f"M1 timing {side}: collective_async {async_n}")
+        rows_match(res.rows, results["M1_q3_warm"].rows, 0.0)
+    del mesh.create_subplan
+    medians = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"schedule M1 q3 warm over {LICENSE_RUNS} runs a side: "
+        f"licensed_median_s={medians['licensed']!r} "
+        f"unlicensed_median_s={medians['unlicensed']!r} "
+        f"licensed_min_s={min(walls['licensed'])!r} unlicensed_min_s={min(walls['unlicensed'])!r}")
+
+    # -- M2: bucketed layouts and co-located joins ------------------------------------
+    run(f"M2 join unbucketed cold", mesh, COLOCATED_JOIN)
+    plain_join, _, _, _ = run(f"M2 join unbucketed warm", mesh, COLOCATED_JOIN)
+    lay = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    lay.execute(f"set session table_layouts = '{SCHEDULE_LAYOUTS}'")
+    lay.execute("set session colocated_join = true")
+
+    def colocated(label, sql, expected):
+        for attempt in ("cold", "warm"):
+            res, n, c, _ = run(f"M2 {label} {attempt}", lay, sql)
+            if c.get("repartition_collective", 0) or c.get("exchange_elided", 0) < 2:
+                raise AssertionError(f"M2 {label} {attempt}: not co-located: {c}")
+            if n != MESH_WORKERS:
+                raise AssertionError(f"M2 {label} {attempt}: {n} K2 launches, "
+                                     f"not one per worker shard")
+            rows_match(res.rows, expected, 0.0)
+
+    colocated("join", COLOCATED_JOIN, plain_join.rows)
+    for qid in (3, 18):
+        for attempt in ("cold", "warm"):
+            res, _, _, _ = run(f"M2 q{qid} {attempt}", lay, QUERIES[qid])
+            rows_match(res.rows, results[f"M1_q{qid}_warm"].rows, 0.0)
+    log(f"schedule M2 q3 fragments:\n{lay.explain_distributed(QUERIES[3])}")
+    t0 = time.perf_counter()
+    ctas = lay.execute(COLOCATED_CTAS).rows
+    ctas_wall = time.perf_counter() - t0
+    layout = lay.catalogs.get("memory").table_layout(
+        TableHandle("memory", "default", "m2_orders"))
+    log(f"schedule M2 bucketed CTAS: rows={ctas} wall_s={ctas_wall!r} layout={layout}")
+    if ctas != [(1_500_000,)] or layout is None:
+        raise AssertionError(f"M2 CTAS: {ctas} {layout}")
+    colocated("memory join", COLOCATED_MEMORY_JOIN, plain_join.rows)
+
+    # -- M3: the co-located aggregation by l_orderkey -----------------------------------
+    plain_agg, _, _, _ = run("M3 agg unbucketed", mesh, COLOCATED_AGG)
+    plan_text = lay.explain_distributed(COLOCATED_AGG)
+    if "Aggregation[single]" not in plan_text or "repartition" in plan_text:
+        raise AssertionError(f"M3: not one stage:\n{plan_text}")
+    for attempt in ("cold", "warm"):
+        k1 = gs.grouped_sums.launches
+        agg.GROUP_PATHS.clear()
+        res, _, c, _ = run(f"M3 agg {attempt}", lay, COLOCATED_AGG)
+        if c.get("repartition_collective", 0) or c.get("agg_partial_states", 0) \
+                or c.get("agg_single_stage", 0):
+            raise AssertionError(f"M3 {attempt}: not the co-located stage: {c}")
+        rows_match(res.rows, plain_agg.rows, 0.0)
+        log(f"schedule M3 {attempt}: group paths={dict(agg.GROUP_PATHS)} "
+            f"grouped_sums_launches={gs.grouped_sums.launches - k1}")
+
+    # -- M4: phase 5l's L4 under the lock graph -----------------------------------------
+    cpu = reference("5l")
+    done, errors = [], []
+    with capture() as graph:
+        from trino_tpu_torch.runtime.dispatcher import QueryDispatcher
+        from trino_tpu_torch.runtime.resource_groups import (
+            ResourceGroupConfig,
+            ResourceGroupManager,
+        )
+
+        primary = LocalQueryRunner(catalog="tpch", schema="sf1")
+        primary.execute("set session pallas_agg = true")
+        for name in LIFECYCLE_DISPATCH:
+            primary.execute(lifecycle_sql(name))  # warm every statement first
+        groups = ResourceGroupManager()
+        groups.add(ResourceGroupConfig("etl", hard_concurrency=1, weight=1, max_queued=16))
+        groups.add(ResourceGroupConfig("adhoc", hard_concurrency=2, weight=3, max_queued=16))
+        dispatcher = QueryDispatcher(primary, groups, lanes=2)
+        primary.dispatcher = dispatcher
+        jobs = [(("etl", "adhoc")[i % 2], LIFECYCLE_DISPATCH[i % 4]) for i in range(12)]
+        out = threading.Lock()
+
+        def client(k: int) -> None:
+            for group, name in jobs[k::6]:
+                try:
+                    t = dispatcher.enqueue(group_name=group)
+                    t.wait()
+                    res = dispatcher.run_admitted(t, lambda r, n=name: r.execute(lifecycle_sql(n)))
+                    with out:
+                        done.append((name, res))
+                except BaseException as e:  # noqa: BLE001 - raised after the join
+                    with out:
+                        errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,), name=f"m4-client-{k}",
+                                    daemon=True) for k in range(6)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        m4_wall = time.perf_counter() - t0
+        if not dispatcher.drain(wait_s=5.0, grace_s=0.0):
+            raise AssertionError("M4: the dispatcher did not drain clean")
+    if errors:
+        raise errors[0]
+    if len(done) != 12:
+        raise AssertionError(f"M4: {len(done)} statements")
+    for name, res in done:
+        rows_match(res.rows, cpu[name], KERNEL_RTOL if name == "q1_double" else 0.0)
+    edges = graph.edges()
+    log(f"schedule M4 lock graph: 12 statements on 2 lanes wall_s={m4_wall!r} "
+        f"edges={len(edges)} locks={len({n for e in edges for n in e})} "
+        f"cycles={graph.cycles()}")
+    for (a, b), witness in sorted(edges.items()):
+        log(f"schedule M4 edge: {a} -> {b} ({witness})")
+    graph.assert_acyclic()
+
+    k1_launches = gs.grouped_sums.launches  # read just after the path
+    k2_launches = ls.locate_sorted.launches
+    # untimed, after the count was read: the co-located join's largest launch
+    k2 = ls.locate_sorted.launches
+    probe_kernel, probe_rec = shape_recording_probe(probe_record)
+    probe_record["query"] = "M2_colocated_join"
+    mesh_runner.locate_sorted = probe_rec
+    try:
+        lay.execute(COLOCATED_JOIN)
+    finally:
+        mesh_runner.locate_sorted = probe_kernel
+    log(f"schedule M2 sorted-probe launches (P, cap_b, n_match, S): "
+        f"{probe_record.get('shapes', {}).get('M2_colocated_join', [])} "
+        f"(capture run apart: {ls.locate_sorted.launches - k2})")
+    lay.execute("drop table memory.default.m2_orders")
+    log(f"schedule path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+    if k2_launches <= 0:
+        raise AssertionError("the schedule path never launched locate_sorted")
+
+    def check(cpu_tpch: dict) -> None:
+        for qid in LICENSE_QIDS:
+            rows, _ = cpu_tpch[QUERIES[qid]]
+            for attempt in ("cold", "warm"):
+                rows_match(results[f"M1_q{qid}_{attempt}"].rows, rows, 0.0)
+        log("schedule path: M1's Q3, Q5 and Q18 match the CPU run; M2 and M3 match M1 "
+            "and the unbucketed runs")
+
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "check": check}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -4002,7 +4269,7 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
                         tdw: dict, arrays: dict, holistic: dict, temporal: dict,
-                        statements: dict, lifecycle: dict) -> dict:
+                        statements: dict, lifecycle: dict, schedule: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -4025,6 +4292,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured in phase 5k")
     if "largest" not in lifecycle:
         raise AssertionError("no sorted-probe launch was captured in phase 5l")
+    if "largest" not in schedule:
+        raise AssertionError("no sorted-probe launch was captured in phase 5m")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -4036,6 +4305,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"temporal_largest_{temporal['largest_query']}",) + temporal["largest"]]
     cases += [(f"statements_largest_{statements['largest_query']}",) + statements["largest"]]
     cases += [(f"lifecycle_largest_{lifecycle['largest_query']}",) + lifecycle["largest"]]
+    cases += [(f"schedule_largest_{schedule['largest_query']}",) + schedule["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -4064,6 +4334,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     statements_largest["query"] = statements["largest_query"]
     lifecycle_largest = time_probe_inputs("lifecycle_largest", dev, lifecycle["largest"])
     lifecycle_largest["query"] = lifecycle["largest_query"]
+    schedule_largest = time_probe_inputs("schedule_largest", dev, schedule["largest"])
+    schedule_largest["query"] = schedule["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -4080,6 +4352,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "temporal_inputs": temporal_largest,
         "statements_inputs": statements_largest,
         "lifecycle_inputs": lifecycle_largest,
+        "schedule_inputs": schedule_largest,
     }
 
 
@@ -4219,6 +4492,8 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     lifecycle_k1: dict = {}
     lifecycle: dict = {}
     lc_path = timed("5l", run_lifecycle_path, tpcds_reference, lifecycle_k1, lifecycle)
+    schedule: dict = {}
+    sch_path = timed("5m", run_schedule_layout_path, tpcds_reference, schedule)
     tpcds = timed("5d-5e wait", wait_tpcds_card, card, card_path, procs, dev)
     for phase in ("5d", "5e"):  # the second card process's seconds
         seconds[phase] = tpcds[phase]["seconds"]
@@ -4227,32 +4502,34 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
 
     def check_tpch_paths():
         cpu = tpcds_reference("tpch")
-        for path in (main_path, mesh_path, semi_path, func_path):
+        for path in (main_path, mesh_path, semi_path, func_path, sch_path):
             path.pop("check")(cpu)
 
     timed("4-5c checks", check_tpch_paths)
     k1["launches"] += (
         arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
         + tem_path["k1_launches"] + stm_path["k1_launches"] + lc_path["k1_launches"]
+        + sch_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
         "aggregates": agg_path["k1_launches"], "holistic": hol_path["k1_launches"],
         "temporal": tem_path["k1_launches"], "statements": stm_path["k1_launches"],
-        "lifecycle": lc_path["k1_launches"],
+        "lifecycle": lc_path["k1_launches"], "schedule_layouts": sch_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
     k1["statements_inputs"] = check_grouped_sums_captured(dev, statements_k1, "statements")
     k1["lifecycle_inputs"] = check_grouped_sums_captured(dev, lifecycle_k1, "lifecycle")
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
-               holistic, temporal, statements, lifecycle)
+               holistic, temporal, statements, lifecycle, schedule)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
         + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
         + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
         + tem_path["k2_launches"] + stm_path["k2_launches"] + lc_path["k2_launches"]
+        + sch_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -4270,6 +4547,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "temporal": tem_path["k2_launches"],
         "statements": stm_path["k2_launches"],
         "lifecycle": lc_path["k2_launches"],
+        "schedule_layouts": sch_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

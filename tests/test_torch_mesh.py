@@ -265,15 +265,21 @@ def test_mesh_runner_matches_local_runner(port_mesh):
 )
 def test_unported_mesh_settings_raise(setting):
     """The mesh settings whose paths are not ported raise by name.  The
-    memory budget's path is ported now (partition waves on the mesh): its
-    case runs Q3 under the budget and holds the rows to the local run."""
+    memory budget's path and bucketed layouts are ported now (partition
+    waves; co-located scans): their cases run Q3 and hold the rows to the
+    local run, and the layouts case then holds `resize_mesh`, still
+    unported, to its NotImplementedError."""
     r = DistributedQueryRunner(catalog="tpch", schema="tiny", n_workers=W, device="cpu")
     r.execute("set session " + setting)
-    if setting.startswith("query_max_memory"):
+    if setting.startswith(("query_max_memory", "table_layouts")):
         from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
         local = LocalQueryRunner(catalog="tpch", schema="tiny", device="cpu")
         assert r.execute(QUERIES[3]).rows == local.execute(QUERIES[3]).rows
+        if setting.startswith("table_layouts"):
+            assert r.last_mesh_profile.counters.get("scan_bucketize", 0) == 1
+            with pytest.raises(NotImplementedError, match="resize_mesh"):
+                r.resize_mesh(W // 2)
         return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         r.execute(QUERIES[3])

@@ -138,6 +138,10 @@ class Column:
 
     def to_pylist(self, row_mask: Optional[np.ndarray] = None) -> list:
         """Decode to python objects (strings/decimals/dates rendered)."""
+        if self.lengths is None and isinstance(self.type, (T.ArrayType, T.MapType)):
+            from trino_tpu_torch.connectors.memory import stored_nested_error
+
+            raise stored_nested_error(self.type)
         data, valid = self.to_numpy()
         lengths = None if self.lengths is None else self.lengths.cpu().numpy()
         return decode_values(

@@ -30,6 +30,17 @@ from trino_tpu_torch.connectors.api import (
 )
 
 
+def stored_nested_error(t) -> NotImplementedError:
+    """The error a read of an array or map column stored in a memory table
+    raises: the store keeps the [rows, K] element block but not the
+    per-row lengths (neither package stores them), so the values cannot be
+    read back; the column's type still answers (typeof)."""
+    return NotImplementedError(
+        f"reading the values of a {t.name} column stored in a memory table "
+        "(the store keeps no element lengths): not ported"
+    )
+
+
 @dataclass
 class _Stored:
     meta: TableMetadata

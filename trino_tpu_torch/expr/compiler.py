@@ -123,6 +123,10 @@ class ExprCompiler:
             return env[expr.name]
         if isinstance(expr, InputRef):
             c = self.batch.columns[expr.channel]
+            if c.lengths is None and isinstance(expr.type, (T.ArrayType, T.MapType)):
+                from trino_tpu_torch.connectors.memory import stored_nested_error
+
+                raise stored_nested_error(expr.type)
             if self._lambda_matrix and c.lengths is None and c.data.ndim == 1:
                 # a column captured inside an array-lambda body: a trailing
                 # element axis, so it broadcasts against [capacity, K]

@@ -32,7 +32,7 @@ from trino_tpu_torch import types as T
 from trino_tpu_torch.columnar import StringDictionary
 from trino_tpu_torch.columnar.column import take_table, torch_dtype
 from trino_tpu_torch.expr.compiler import ExprCompiler, Val, _and_valid
-from trino_tpu_torch.expr.ir import Call
+from trino_tpu_torch.expr.ir import Call, InputRef
 from trino_tpu_torch.expr.strings import like_prefix, like_to_regex
 
 FUNCTIONS: dict[str, Callable] = {}
@@ -54,6 +54,10 @@ def dispatch(ctx: ExprCompiler, call: Call) -> Val:
         raise NotImplementedError(f"scalar function not implemented: {call.name}")
     # lambda arguments pass through unevaluated: the handler binds their
     # parameters over array elements and evaluates the body itself
+    if call.name == "typeof" and isinstance(call.args[0], InputRef):
+        # the argument's type is static: its values are never read (an
+        # array column stored without its lengths still answers)
+        return fn(ctx, call, Val(None, None, call.args[0].type))
     vals = [a if isinstance(a, Lambda) else ctx.value(a) for a in call.args]
     return fn(ctx, call, *vals)
 

@@ -83,12 +83,26 @@ JAX package bills its producer); the phases still sum to each wall.
 Under EXPLAIN ANALYZE the profile waits on the card inside each phase
 window.  The `fragment` span covers fragmenting, `schedule` the run.
 
+Bucketed table layouts (`table_layouts`, or a table created WITH
+(bucketed_by, bucket_count)): under `colocated_join` a scan whose layout
+is usable (partitioning/layout.scan_partitioning) shards its rows by the
+exchange hash of the bucket columns instead of round-robin splits, so the
+stacked scan already is the placement a hash repartition on those keys
+would give; the fragmenter elides the repartition of a co-located join or
+aggregation (`exchange_elided`), and the device scan cache keys the
+layout.
+
+Collective-schedule license (verify/schedule.py): `create_subplan` stamps
+`last_collective_signature` and `last_schedule_license`; the stage
+executor, given the license, runs each fragment's licensed build-side
+children before the fragment's body (`collective_async`, mirrored into
+`telemetry.metrics.collective_async_counter`).  They are the feeds the
+lazy order would run first anyway, before any of the body's dynamic
+filters register, so the rows and the pruning stay the same.
+
 Not ported (each raises NotImplementedError when a session asks for it):
-fault tolerance and task retries, bucketed table layouts, `resize_mesh`,
-membership heartbeats, prewarm and the compile observatory.  The
-collective-schedule license (verify/schedule.py) is not ported either:
-the executor dispatches strictly lazily, which the JAX package defines as
-the same results.
+fault tolerance and task retries, `resize_mesh`, membership heartbeats,
+prewarm and the compile observatory.
 """
 
 from __future__ import annotations
@@ -132,6 +146,7 @@ from trino_tpu_torch.parallel.spmd import (
 from trino_tpu_torch.partitioning import (
     CAP_HISTORY,
     LayoutResolver,
+    bucket_rows,
     initial_cap,
     join_output_placements,
     next_cap,
@@ -260,8 +275,6 @@ def _check_ported_knobs(properties) -> None:
         raise NotImplementedError(
             "fault-tolerant execution and task retries on the mesh: not ported yet"
         )
-    if str(properties.get("table_layouts")).strip():
-        raise NotImplementedError("bucketed table layouts: not ported yet")
 
 
 class DistributedQueryRunner(LocalQueryRunner):
@@ -281,6 +294,10 @@ class DistributedQueryRunner(LocalQueryRunner):
         self.wm = WorkerMesh(n_workers, self.device)
         #: the last query's executor (its dynamic filters and event counts)
         self.last_stage_executor = None
+        #: the last subplan's collective signature and schedule license
+        #: (create_subplan), which verify.device_residency reads
+        self.last_collective_signature = None
+        self.last_schedule_license = None
 
     def resize_mesh(self, n_workers: int) -> None:
         raise NotImplementedError("resize_mesh (elastic membership): not ported yet")
@@ -289,6 +306,8 @@ class DistributedQueryRunner(LocalQueryRunner):
 
     def create_subplan(self, plan: P.OutputNode) -> SubPlan:
         from trino_tpu_torch.verify.capacity import seal_licenses
+        from trino_tpu_torch.verify.collectives import collective_signature
+        from trino_tpu_torch.verify.schedule import license_schedule
 
         dplan = add_exchanges(
             plan, self.catalogs, self.properties, n_workers=self.wm.n
@@ -303,6 +322,13 @@ class DistributedQueryRunner(LocalQueryRunner):
         # executor honors a license only when the seal matches the mesh
         for frag in sub.all_fragments():
             seal_licenses(frag.root, self.wm.n)
+        # the statically enumerated per-fragment collective sequence of the
+        # most recent subplan: verify.device_residency holds warm replays
+        # to it
+        self.last_collective_signature = collective_signature(sub)
+        # divergence-free fragments license eager pre-dispatch of their
+        # independent build-side children (verify/schedule.py)
+        self.last_schedule_license = license_schedule(sub, self.wm.n)
         return sub
 
     def explain_distributed(self, sql: str) -> str:
@@ -322,7 +348,8 @@ class DistributedQueryRunner(LocalQueryRunner):
             blocking=stats is not None, tracer=tr, device=self.wm.device
         )
         executor = StageExecutor(
-            self.catalogs, self.wm, self.properties, profile=profile
+            self.catalogs, self.wm, self.properties, profile=profile,
+            schedule=self.last_schedule_license,
         )
         self.last_stage_executor = executor
         self.last_mesh_profile = profile
@@ -341,10 +368,16 @@ class StageExecutor:
     the data plane)."""
 
     def __init__(self, catalogs, wm: WorkerMesh, properties,
-                 profile: Optional[MeshProfile] = None):
+                 profile: Optional[MeshProfile] = None, schedule=None):
         self.catalogs = catalogs
         self.wm = wm
         self.properties = properties
+        #: collective-schedule license (verify/schedule.py): authorizes the
+        #: eager pre-dispatch of independent build-side child fragments;
+        #: None (or a license for another mesh width) = strictly lazy
+        self.schedule = (
+            schedule if schedule is not None and schedule.mesh_w == wm.n else None
+        )
         #: the statement's per-fragment profile (runtime/query_stats.py)
         self.profile = (
             profile if profile is not None else MeshProfile(device=wm.device)
@@ -571,6 +604,7 @@ class StageExecutor:
             with self.profile.tracer.span(
                 f"fragment-{fid}", kind=str(sub.fragment.partitioning)
             ):
+                self._predispatch(fid)
                 check_current()  # fragment-boundary cancellation point
                 if sub.fragment.partitioning.kind in _DIST_KINDS:
                     return self._exec(sub.fragment.root)
@@ -584,6 +618,23 @@ class StageExecutor:
                 self._frame_stack[-1]["child_s"] += elapsed
             self._excl_s += elapsed
             self._current_fid, self._window_depth = prev_fid, prev_depth
+
+    def _predispatch(self, fid: int) -> None:
+        """Schedule-licensed eager dispatch: run this fragment's licensed
+        build-side children, back to back, before its body.  They are
+        sync-free and divergence-free by the license, and sit on the
+        body's first-evaluated spine, so the lazy order would run them
+        before any of this body's dynamic filters register."""
+        if self.schedule is None:
+            return
+        from trino_tpu_torch.telemetry.metrics import collective_async_counter
+
+        for cfid in self.schedule.async_children.get(fid, ()):
+            if cfid in self._results or cfid not in self._subplans:
+                continue
+            self._fragment_result(cfid)
+            self.bump("collective_async")
+            collective_async_counter().inc()
 
     def _local_fragment(self, sub: SubPlan) -> PhysicalPlan:
         """SINGLE/COORDINATOR_ONLY fragment: the local engine over gathered
@@ -828,8 +879,6 @@ class StageExecutor:
         from trino_tpu_torch.ops.scan import ScanOperator
         from trino_tpu_torch.runtime.buffer_pool import POOL, BufferPool
 
-        if self.colocate and scan_partitioning(node, self.layouts, self.wm.n):
-            raise NotImplementedError("bucketed table layouts: not ported yet")
         connector = self.catalogs.get(node.handle.catalog)
         names = [c for _, c in node.assignments]
         types = [s.type for s, _ in node.assignments]
@@ -843,6 +892,15 @@ class StageExecutor:
         )
         page_rows = self.properties.get("page_rows")
         use_cache = self.properties.get("scan_cache")
+        # bucketed layout: shard rows by the exchange hash of the bucket
+        # columns instead of round-robin splits, so the scan output IS a
+        # repartition-on-those-keys placement (the co-located join feed)
+        part = (
+            scan_partitioning(node, self.layouts, self.wm.n)
+            if self.colocate
+            else None
+        )
+        placements = (part[1],) if part is not None else ()
 
         # device-resident stacked-scan cache: a warm mesh query reuses the
         # [W, cap] batch already on the device — no host -> device bytes
@@ -852,6 +910,9 @@ class StageExecutor:
             cache_key = (
                 "mesh_scan",
                 mesh_key(self.wm),
+                # layout in the key: the same splits shard differently once
+                # a layout is declared (or colocated_join flips)
+                None if part is None else ("layout",) + part[1] + part[2],
                 tuple(
                     BufferPool.split_key(s, names, page_rows, version)
                     for s in splits
@@ -860,7 +921,11 @@ class StageExecutor:
             cached = POOL.get_device(cache_key)
             if cached is not None:
                 self.bump("scan_cache_hit")
-                return self._scan_filters(node, self._dist(cached[0], symbols))
+                return self._scan_filters(
+                    node,
+                    self._dist(cached[0], symbols, placements=placements,
+                               realigned=part is not None),
+                )
             self.bump("scan_cache_miss")
 
         per_worker: list = [[] for _ in range(self.wm.n)]
@@ -869,8 +934,13 @@ class StageExecutor:
                 connector, split, names, types, torch.device("cpu"),
                 page_rows=page_rows, use_cache=use_cache,
             )
-            per_worker[i % self.wm.n].extend(op.host_batches())
-        host_batches = [(concat_batches(bs) if bs else None) for bs in per_worker]
+            per_worker[0 if part is not None else i % self.wm.n].extend(
+                op.host_batches()
+            )
+        if part is not None and per_worker[0]:
+            host_batches = self._bucketize_host(concat_batches(per_worker[0]), part[2])
+        else:
+            host_batches = [(concat_batches(bs) if bs else None) for bs in per_worker]
         if all(b is None for b in host_batches):
             cols = [
                 Column.from_numpy(np.zeros(1, dtype=t.np_dtype), t, np.zeros(1, bool))
@@ -880,7 +950,24 @@ class StageExecutor:
         stacked = self._stack(host_batches)
         if cache_key is not None:
             POOL.put_device(cache_key, [stacked])
-        return self._scan_filters(node, self._dist(stacked, symbols))
+        return self._scan_filters(
+            node,
+            self._dist(stacked, symbols, placements=placements,
+                       realigned=part is not None),
+        )
+
+    def _bucketize_host(self, host: Batch, key_channels: tuple) -> list:
+        """Split one host batch into per-worker shards by the layout hash
+        (the numpy mirror of the exchange hash, partitioning/layout.py), so
+        the stacked scan output is exactly what a hash repartition on the
+        bucket columns would have produced."""
+        self.bump("scan_bucketize")
+        dest = bucket_rows(host, key_channels, self.wm.n)
+        out = []
+        for w in range(self.wm.n):
+            idx = np.nonzero(dest == w)[0]
+            out.append(_take_host(host, idx) if idx.size else None)
+        return out
 
     def _scan_filters(self, node: P.TableScanNode, out: _Dist) -> _Dist:
         """Defer the pushed predicate + dynamic-filter pruning onto the scan
@@ -1995,6 +2082,13 @@ def _concat_stacked(batches: list) -> Batch:
         cols.append(Column(data, c0.type, valid, c0.dictionary, lengths))
     mask = torch.cat([b.mask() for b in batches], dim=1)
     return Batch(cols, mask)
+
+
+def _take_host(batch: Batch, idx: np.ndarray) -> Batch:
+    """Row-gather of a host batch (the bucketized scan's sharding)."""
+    ix = torch.from_numpy(idx)
+    cols = [c.map_rows(lambda t: t[ix]) for c in batch.columns]
+    return Batch(cols, batch.mask()[ix])
 
 
 def _slice_host(stacked: Batch, w: int, n: int) -> Batch:

@@ -39,7 +39,10 @@ class TraceCache:
     stays 0, since nothing is traced; `evictions` counts entries dropped
     past `limit`.  While a mesh statement runs, `on_build(seconds)` (set
     by the stage executor for its thread) receives each build's seconds,
-    which its profile books as the fragment's `trace` phase."""
+    which its profile books as the fragment's `trace` phase.  `audit`
+    (verify.cache_key_audit) is called as audit(key, build) on every get,
+    hits included, so cache-key completeness is checked against live
+    traffic."""
 
     def __init__(self, limit: int = 512):
         self.limit = limit
@@ -50,6 +53,8 @@ class TraceCache:
         self.retraces = 0
         self.evictions = 0
         self._local = threading.local()
+        #: verify.cache_key_audit's hook (None = off)
+        self.audit: Optional[Callable] = None
 
     @property
     def on_build(self) -> Optional[Callable]:
@@ -60,6 +65,9 @@ class TraceCache:
         self._local.on_build = fn
 
     def get(self, key, build: Callable):
+        audit = self.audit  # snapshot: a concurrent audit exit may null it
+        if audit is not None:
+            audit(key, build)
         with self._lock:
             fn = self._fns.get(key)
             if fn is not None:

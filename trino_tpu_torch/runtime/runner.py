@@ -18,8 +18,14 @@ sink; DELETE, UPDATE and MERGE rewrite the whole table from a pre-image
 that is restored if the write fails.  `last_writes` records the host
 seconds of each of the last statement's writes in their three parts.
 
-Not ported: security (GRANT, REVOKE, roles, SHOW ROLES/GRANTS) and
-bucketed table layouts raise NotImplementedError naming themselves.  The
+CREATE TABLE and CTAS WITH (bucketed_by, bucket_count) declare a
+hash-bucketed layout (partitioning/layout.py): a connector that stores
+one (memory: it rolls back with the table) owns it, otherwise it goes to
+the process registry, which DROP TABLE clears; the mesh scans such a
+table co-located on its bucket columns.
+
+Not ported: security (GRANT, REVOKE, roles, SHOW ROLES/GRANTS) raises
+NotImplementedError naming itself.  The
 JAX runner's access-control checks and ownership records are left out:
 its default control allows everything, so no result changes.  Neither
 are the decision ledger and the profile archive (`profile_store` stays
@@ -839,10 +845,11 @@ class LocalQueryRunner:
     # InsertStatement via TableWriterOperator -> ConnectorPageSink) ----------
 
     @staticmethod
-    def _table_layout_from(properties: tuple, column_names) -> None:
-        """Validate CREATE TABLE WITH (...) properties (reference: connector
-        table properties -> bucketing handle).  A valid bucketed layout
-        raises: the port does not place tables by bucket yet."""
+    def _table_layout_from(properties: tuple, column_names) -> "object":
+        """Extract a TableLayout from CREATE TABLE WITH (...) properties
+        (reference: connector table properties -> bucketing handle)."""
+        from trino_tpu_torch.partitioning import TableLayout
+
         props = dict(properties or ())
         unknown = set(props) - {"bucketed_by", "bucket_count"}
         if unknown:
@@ -862,7 +869,35 @@ class LocalQueryRunner:
         missing = [c for c in cols if c not in list(column_names)]
         if missing:
             raise ValueError(f"bucketed_by names unknown columns: {missing}")
-        raise NotImplementedError("bucketed table layouts: not ported yet")
+        return TableLayout(cols, int(count))
+
+    @staticmethod
+    def _create_with_layout(conn, schema, table, cols, layout) -> bool:
+        """Create the table, passing the layout to a connector that stores
+        one (memory: transactional with the table via snapshots); returns
+        whether the connector took ownership of the layout."""
+        import inspect
+
+        kw = {}
+        if layout is not None:
+            try:
+                if "layout" in inspect.signature(conn.create_table).parameters:
+                    kw = {"layout": layout}
+            except (TypeError, ValueError):  # builtins / C callables
+                pass
+        conn.create_table(schema, table, cols, **kw)
+        return bool(kw)
+
+    @staticmethod
+    def _register_layout(cat, schema, table, layout, owned: bool) -> None:
+        """The engine registry for a connector that cannot store the layout
+        itself.  Not transactional (a rolled-back CREATE leaves the entry
+        until the matching DROP)."""
+        if layout is not None and not owned:
+            from trino_tpu_torch.partitioning import declare_layout
+
+            declare_layout((cat, schema, table), layout.bucket_columns,
+                           layout.bucket_count)
 
     def _exec_CreateTable(self, stmt: ast.CreateTable) -> MaterializedResult:
         from trino_tpu_torch import types as T
@@ -875,9 +910,12 @@ class LocalQueryRunner:
                 return _ok("CREATE TABLE")
             raise ValueError(f"table '{cat}.{schema}.{table}' already exists")
         cols = [ColumnMeta(n, T.parse_type(t)) for n, t in stmt.columns]
-        self._table_layout_from(stmt.properties, [n for n, _ in stmt.columns])
+        layout = self._table_layout_from(
+            stmt.properties, [n for n, _ in stmt.columns]
+        )
         self.transactions.notify_write(cat, schema, table)
-        conn.create_table(schema, table, cols)
+        owned = self._create_with_layout(conn, schema, table, cols, layout)
+        self._register_layout(cat, schema, table, layout, owned)
         return _ok("CREATE TABLE")
 
     def _exec_CreateTableAs(self, stmt: ast.CreateTableAs) -> MaterializedResult:
@@ -893,9 +931,10 @@ class LocalQueryRunner:
         cols = [
             ColumnMeta(n, t) for n, t in zip(result.column_names, result.types)
         ]
-        self._table_layout_from(stmt.properties, result.column_names)
+        layout = self._table_layout_from(stmt.properties, result.column_names)
         self.transactions.notify_write(cat, schema, table)
-        conn.create_table(schema, table, cols)
+        owned = self._create_with_layout(conn, schema, table, cols, layout)
+        self._register_layout(cat, schema, table, layout, owned)
         self._write_rows(conn, TableHandle(cat, schema, table), result)
         return MaterializedResult(["rows"], [(result.row_count,)], [])
 
@@ -1438,6 +1477,9 @@ class LocalQueryRunner:
             return _ok("DROP TABLE")
         self.transactions.notify_write(cat, schema, table)
         conn.drop_table(TableHandle(cat, schema, table))
+        from trino_tpu_torch.partitioning import drop_layout
+
+        drop_layout((cat, schema, table))
         return _ok("DROP TABLE")
 
     def _write_rows(self, conn, handle, result: MaterializedResult) -> None:
@@ -1456,6 +1498,15 @@ class LocalQueryRunner:
         )
         if not result.rows:
             return
+        from trino_tpu_torch import types as T
+
+        for cm in meta.columns:
+            if isinstance(cm.type, T.MapType):
+                # the JAX package fails here building the column (a
+                # TypeError over the map's dict values)
+                raise NotImplementedError(
+                    f"writing {cm.type.name} values into a table: not ported"
+                )
         writers = max(1, int(self.properties.get("writer_count") or 1))
         cpu = torch.device("cpu")
 

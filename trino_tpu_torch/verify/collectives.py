@@ -338,3 +338,70 @@ def signature_problems(expected: dict, actual: dict) -> list:
                 f"{[(k, p) + (('elidable',) if e else ()) for k, p, e in exp]}"
             )
     return problems
+
+
+# -- CLI: verify every distributed TPC-H + TPC-DS fragment ---------------------
+
+
+def verify_benchmarks(n_workers: int = 8, verbose: bool = False) -> int:
+    """Plan every TPC-H and TPC-DS query distributed and run the
+    uniformity pass in strict mode over every fragment.  Returns the
+    number of fragments verified; raises PlanViolation on the first
+    divergence.  (`python -m trino_tpu_torch.verify.collectives`.)  The planning
+    runs on the CPU; nothing is executed."""
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+
+    fragments = 0
+    for catalog, schema, queries in benchmark_suites():
+        r = DistributedQueryRunner(
+            catalog=catalog, schema=schema, n_workers=n_workers, device="cpu"
+        )
+        r.properties.set("verify_plan", "strict")
+        for q in sorted(queries):
+            sub = r.create_subplan(r.create_plan(queries[q]))
+            fragments += sweep_subplan(sub, f"{catalog} {q}", verbose)
+    return fragments
+
+
+def sweep_subplan(sub, where: str = "", verbose: bool = False) -> int:
+    """The uniformity pass over one distributed plan: returns its fragment
+    count; raises the first PlanViolation."""
+    # create_subplans already enforced the pass (strict mode); run it
+    # again explicitly so this gate stands alone
+    violations = check_collective_uniformity(sub)
+    if violations:
+        raise violations[0]
+    n = sum(1 for _ in sub.all_fragments())
+    if verbose:
+        print(f"{where}: {n} fragment(s), signature {collective_signature(sub)}")
+    return n
+
+
+def benchmark_suites() -> tuple:
+    """(catalog, schema, {query id: sql}) of the TPC-H and TPC-DS suites
+    the three benchmark sweeps plan, at `tiny`."""
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES as DS
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES as H
+
+    return (("tpch", "tiny", H), ("tpcds", "tiny", DS))
+
+
+def main() -> int:  # pragma: no cover - CLI entry
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="verify collective uniformity over all TPC-H + TPC-DS "
+        "distributed plans"
+    )
+    ap.add_argument("--workers", type=int, default=8)
+    ap.add_argument("--verbose", action="store_true")
+    args = ap.parse_args()
+    n = verify_benchmarks(args.workers, args.verbose)
+    print(f"collective-uniformity: {n} fragments verified divergence-free")
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    import sys
+
+    sys.exit(main())

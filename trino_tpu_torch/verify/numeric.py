@@ -1246,6 +1246,73 @@ def sweep_plan(plan, catalogs, baseline: dict, result: SweepResult,
 
 
 def verify_benchmarks(verbose: bool = False, root: str = ".") -> SweepResult:
-    """The TPC-H + TPC-DS numeric-safety sweep needs the TPC-DS connector,
-    which is not ported yet."""
-    raise NotImplementedError("numeric-safety benchmark sweep: not ported yet")
+    """Walk every expression of every TPC-H + TPC-DS plan through the
+    analyzer; classify each as PROVEN-SAFE / BASELINED / VIOLATION.  The
+    planning runs on the CPU; nothing is executed."""
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.verify.collectives import benchmark_suites
+
+    baseline = numeric_safety_baseline(root)
+    result = SweepResult()
+    for catalog, schema, queries in benchmark_suites():
+        r = LocalQueryRunner(catalog=catalog, schema=schema, device="cpu")
+        for q in sorted(queries):
+            plan = r.create_plan(queries[q])
+            sweep_plan(
+                plan, r.catalogs, baseline, result,
+                f"{catalog}:{q}", verbose,
+            )
+    result.violations.sort(key=lambda v: (v[0], v[1].key()))
+    return result
+
+
+def stale_keys(result: SweepResult, root: str = ".") -> set:
+    """rule:signature baseline entries no live finding used.  Path-prefixed
+    keys belong to the JAX package's AST lint (tools/lint_tpu.py), which
+    checks its own staleness; only rule:signature keys are the sweep's."""
+    return {
+        k for k in numeric_safety_baseline(root)
+        if not k.startswith("trino_tpu/")
+    } - result.used_baseline
+
+
+def main() -> int:  # pragma: no cover - CLI entry
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="numeric-safety sweep over all TPC-H + TPC-DS plan "
+        "expressions (abstract interpretation of dtype/scale/range/validity)"
+    )
+    ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--root", default=".")
+    ap.add_argument(
+        "--check-stale", action="store_true",
+        help="FAIL when a rule:signature entry of tools/lint_baseline.json "
+        "(numeric_safety; read, never written) no longer matches any live "
+        "sweep finding",
+    )
+    args = ap.parse_args()
+    res = verify_benchmarks(args.verbose, root=args.root)
+    stale = stale_keys(res, args.root)
+    for where, iss in res.violations:
+        print(f"VIOLATION {where}: {iss}")
+        print(f"  baseline key: {iss.key()!r}")
+    for k in sorted(stale):
+        print(
+            f"{'STALE' if args.check_stale else 'note'}: numeric_safety "
+            f"baseline entry {k!r} has no live finding"
+        )
+    print(
+        f"numeric-safety: {res.expressions} expressions — "
+        f"{res.proven} PROVEN-SAFE, {res.baselined} BASELINED, "
+        f"{len(res.violations)} VIOLATION(s)"
+    )
+    if res.violations:
+        return 1
+    return 1 if (args.check_stale and stale) else 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    import sys
+
+    sys.exit(main())

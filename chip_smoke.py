@@ -273,6 +273,32 @@ catches nothing and never falls back to the CPU):
      result held to 5l's CPU run, the graph's edges logged and required
      acyclic.  M1's rows are held to the port's CPU run with phases
      4-5c's;
+  5n. fault-tolerant execution and the query performance observatory at
+     tpch.sf1.  N1: the 4-worker mesh Q3 and Q18 under retry_policy =
+     'TASK', each run clean, with `stage:<fid>:finish` failing once on a
+     join's build-side fragment, and with `stage:<fid>:spooled` failing
+     once on the probe-side fragment (the fragments found from the plan);
+     every stage visited once but the failed one (twice), one duplicate
+     attempt discarded in the :spooled runs, the retry counter up by one,
+     every run launching the sorted-probe kernel after reading a spooled
+     stage output, and no spool directory left; nation grouped by region
+     with its scan stage failing four times raises StageFailedException;
+     each run's spool bytes written and read and the host seconds of
+     `_spool` and `_load_spooled` logged, and the warm Q3 five times with
+     TASK and five times without, in turns, both medians logged.  N2: a
+     runner from an etc/ directory under build/ with `profile.archive-dir`
+     and `audit.log-path` (the 4-worker mesh given the same store and log)
+     runs Q1-double (local, `pallas_agg`, the grouped-sums kernel) and the
+     mesh Q3, cold (the step cache emptied and the kernel libraries
+     forgotten) then warm: one artifact on disk per statement whose phases
+     sum to its wall, one audit line per statement with increasing
+     sequence numbers, `system.runtime.compilations` with a `kernel:` row
+     for each library loaded again and no event in the warm runs,
+     `system.runtime.plan_decisions` with the mesh Q3's join distributions
+     (bytes and a verdict), `system.runtime.query_profiles` listing every
+     statement, and the statement thread's artifact-assembly seconds
+     logged.  N1's and N2's rows are held to the port's CPU run with phases
+     4-5c's;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows),
      of the local T1's, of D1's Q1's (phase 5k) and of L1's Q1-double
@@ -291,8 +317,9 @@ catches nothing and never falls back to the CPU):
      the inputs of the largest launch of phases 5c, 5d and 5g; bit-exact
      at the largest launch of phase 5e; bit-exact and timed at the largest
      launch of the mesh H3 (phase 5i), of the mesh T2 (phase 5j), of D3's
-     mesh join (phase 5k), of L2's mesh Q3 (phase 5l) and of M2's
-     co-located join (phase 5m);
+     mesh join (phase 5k), of L2's mesh Q3 (phase 5l), of M2's
+     co-located join (phase 5m) and of N1's largest launch fed by a spooled
+     stage output (phase 5n);
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -4194,6 +4221,341 @@ def run_schedule_layout_path(reference, probe_record: dict) -> dict:
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "check": check}
 
 
+# -- phase 5n: fault-tolerant execution and the observatory ----------------------
+
+#: phase 5n's N1 queries on the 4-worker mesh under retry_policy = 'TASK'
+FTE_QIDS = (3, 18)
+#: N1's cheap query whose stage never succeeds (nation grouped by region)
+FTE_CHEAP = (
+    "select n_regionkey, count(*) c, sum(n_nationkey) s from nation group by n_regionkey"
+)
+#: N1's warm Q3 walls with and without TASK, in turns
+FTE_TIMED_RUNS = 5
+
+
+def join_fragments(mesh, sql: str) -> tuple:
+    """(build-side fragment, probe-side fragment) of the first join of
+    `sql`'s mesh plan whose build side is a child fragment: the fragment
+    that feeds the build, and the distributed fragment holding the probe
+    (the join's own, or the child that feeds it)."""
+    from trino_tpu_torch.planner import plan as P
+    from trino_tpu_torch.planner.fragmenter import FIXED_HASH, SOURCE, RemoteSourceNode
+
+    sub = mesh.create_subplan(mesh.create_plan(sql))
+
+    def walk(node):
+        yield node
+        for c in node.children:
+            yield from walk(c)
+
+    for frag in sub.all_fragments():
+        for node in walk(frag.root):
+            if isinstance(node, P.JoinNode):
+                probe, build = node.left, node.right
+            elif isinstance(node, P.SemiJoinNode):
+                probe, build = node.source, node.filtering
+            else:
+                continue
+            if not isinstance(build, RemoteSourceNode):
+                continue
+            if isinstance(probe, RemoteSourceNode):
+                return build.fragment_id, probe.fragment_id
+            if frag.partitioning.kind in (SOURCE, FIXED_HASH):
+                return build.fragment_id, frag.id
+    raise AssertionError(f"no join with a child-fragment build side:\n{sql}")
+
+
+def spooled_probe_recorder(record: dict, holder: dict):
+    """shape_recording_probe's stand-in, keeping only the launches made
+    after the running statement rehydrated a spooled stage output."""
+    kernel, recording = shape_recording_probe(record)
+
+    def gated(build, n_match, probe, nomatch, cap_b):
+        ex = holder["mesh"].last_stage_executor
+        if ex is not None and ex.counters.get("spool_read", 0) > 0:
+            return recording(build, n_match, probe, nomatch, cap_b)
+        return kernel(build, n_match, probe, nomatch, cap_b=cap_b)
+
+    return kernel, gated
+
+
+def artifact_sums(art: dict) -> float:
+    """|sum of the artifact's phases - its wall|: zero up to the last bit of
+    a double sum."""
+    return abs(sum(art["phases"].values()) - art["wall_s"])
+
+
+def run_fte_observatory_path(probe_record: dict) -> dict:
+    """Phase 5n (see the module docstring, N1 and N2) on the card at
+    tpch.sf1.  The kernels' counts are set to 0 just before the path and
+    read just after; the untimed capture run of N1's spooled joins is
+    counted apart.  Returns the launches and the check of N1's and N2's
+    rows against the CPU run (made with phases 4-5c's)."""
+    import glob
+    import shutil
+    import statistics
+    import tempfile
+
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch import config
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+    from trino_tpu_torch.kernels import build
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.parallel.spmd import TRACE_CACHE
+    from trino_tpu_torch.runtime.config import runner_from_etc
+    from trino_tpu_torch.runtime.retry import FAILURE_INJECTOR, StageFailedException
+    from trino_tpu_torch.telemetry.audit import QueryAuditLog, attach_audit_log
+    from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
+    from trino_tpu_torch.telemetry.metrics import task_retries_counter
+    from trino_tpu_torch.telemetry.profile_store import attach_profile_store
+
+    spool_glob = os.path.join(tempfile.gettempdir(), "trino_tpu_torch_spool_*")
+    spools_before = set(glob.glob(spool_glob))
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    results: dict = {}
+
+    def retries() -> dict:
+        c = task_retries_counter()
+        return {o: c.labels(o).value() for o in ("retry", "fail")}
+
+    def fte_run(label, sql, inject=None):
+        """One TASK run of `sql`, optionally with one armed injection."""
+        FAILURE_INJECTOR.clear()
+        if inject is not None:
+            FAILURE_INJECTOR.inject(inject[0], times=inject[1])
+        r0 = retries()
+        k2 = ls.locate_sorted.launches
+        t0 = time.perf_counter()
+        try:
+            res = mesh.execute(sql)
+        finally:
+            wall = time.perf_counter() - t0
+            visits = {k: v for k, v in FAILURE_INJECTOR.visits.items() if k.startswith("stage:")}
+            FAILURE_INJECTOR.clear()
+        ex = mesh.last_stage_executor
+        r1 = retries()
+        out = {
+            "wall": wall, "k2": ls.locate_sorted.launches - k2, "visits": visits,
+            "discards": ex.dedup_discards,
+            "retries": {o: r1[o] - r0[o] for o in r1},
+            "spool": dict(ex.spool_stats), "counters": dict(ex.counters),
+        }
+        if os.path.exists(ex.spool.dir):
+            raise AssertionError(f"N1 {label}: spool {ex.spool.dir} left behind")
+        log(f"fte {label}: wall_s={wall!r} locate_sorted_launches={out['k2']} "
+            f"visits={visits} discards={out['discards']} retries={out['retries']} "
+            f"spool={out['spool']} spool_writes={out['counters'].get('spool_write', 0)} "
+            f"spool_reads={out['counters'].get('spool_read', 0)}")
+        return res, out
+
+    # -- N1: task retries, spooled stage outputs, attempt dedup ---------------------
+    mesh.execute("set session retry_policy = 'TASK'")
+    for qid in FTE_QIDS:
+        sql = QUERIES[qid]
+        build_fid, probe_fid = join_fragments(mesh, sql)
+        log(f"fte N1 q{qid}: build-side fragment {build_fid}, probe-side fragment "
+            f"{probe_fid}\n{mesh.explain_distributed(sql)}")
+        runs = {
+            "clean": None,
+            "finish": (f"stage:{build_fid}:finish", 1),
+            "spooled": (f"stage:{probe_fid}:spooled", 1),
+        }
+        for kind, inject in runs.items():
+            res, out = fte_run(f"N1 q{qid} {kind}", sql, inject)
+            results[f"N1_q{qid}_{kind}"] = res
+            failed = {"clean": None, "finish": build_fid, "spooled": probe_fid}[kind]
+            for point, n in out["visits"].items():
+                if point.count(":") != 1:
+                    continue  # the :finish and :spooled points
+                want = 2 if point == f"stage:{failed}" else 1
+                if n != want:
+                    raise AssertionError(f"N1 q{qid} {kind}: {point} visited {n} times")
+            if out["discards"] != (1 if kind == "spooled" else 0):
+                raise AssertionError(f"N1 q{qid} {kind}: {out['discards']} discards")
+            if out["retries"] != {"retry": 0 if failed is None else 1, "fail": 0}:
+                raise AssertionError(f"N1 q{qid} {kind}: retries {out['retries']}")
+            if not out["k2"] or not out["counters"].get("spool_read"):
+                raise AssertionError(f"N1 q{qid} {kind}: K2 {out['k2']} after "
+                                     f"{out['counters'].get('spool_read')} spool reads")
+    try:
+        fte_run("N1 cheap times=4", FTE_CHEAP, ("stage:0", 4))
+    except StageFailedException as e:
+        log(f"fte N1 cheap: {type(e).__name__}: {e}")
+        if "after 4 attempts" not in str(e):
+            raise
+    else:
+        raise AssertionError("N1 cheap: four failed attempts did not raise")
+    # the warm Q3 with and without TASK, in turns
+    walls = {"task": [], "none": []}
+    for i in range(2 * FTE_TIMED_RUNS):
+        side = ("task", "none")[i % 2]
+        mesh.execute("set session retry_policy = " + ("'TASK'" if side == "task" else "'NONE'"))
+        t0 = time.perf_counter()
+        res = mesh.execute(QUERIES[3])
+        walls[side].append(time.perf_counter() - t0)
+        rows_match(res.rows, results["N1_q3_clean"].rows, 0.0)
+        if side == "task":
+            st = mesh.last_stage_executor.spool_stats
+            log(f"fte N1 q3 warm TASK run: wall_s={walls[side][-1]!r} spool={st}")
+    mesh.execute("set session retry_policy = 'NONE'")
+    medians = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"fte N1 q3 warm over {FTE_TIMED_RUNS} runs a side: task_median_s={medians['task']!r} "
+        f"none_median_s={medians['none']!r} task_min_s={min(walls['task'])!r} "
+        f"none_min_s={min(walls['none'])!r}")
+    leaked = set(glob.glob(spool_glob)) - spools_before
+    if leaked:
+        raise AssertionError(f"N1: spool directories left behind: {sorted(leaked)}")
+
+    # -- N2: the profile archive, the audit log, the observatory, the ledger --------
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "build", "chip_smoke_5n")
+    shutil.rmtree(work, ignore_errors=True)
+    etc = os.path.join(work, "etc")
+    os.makedirs(os.path.join(etc, "catalog"))
+    archive, audit_path = os.path.join(work, "archive"), os.path.join(work, "audit.jsonl")
+    with open(os.path.join(etc, "config.properties"), "w") as f:
+        f.write(f"default.catalog=tpch\ndefault.schema=sf1\n"
+                f"profile.archive-dir={archive}\naudit.log-path={audit_path}\n")
+    with open(os.path.join(etc, "catalog", "tpch.properties"), "w") as f:
+        f.write("connector.name=tpch\n")
+    local = runner_from_etc(etc)
+    store = local.profile_store
+    audit = next(l for l in local.events.listeners if isinstance(l, QueryAuditLog))
+    if store is None or local.device.type != "cuda":
+        raise AssertionError(f"N2: store {store}, device {local.device}")
+    # K1's path, set without a statement: every statement of N2 leaves an
+    # artifact and an audit line
+    local.properties.set("pallas_agg", True)
+    n_mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    attach_profile_store(n_mesh, store)
+    attach_audit_log(n_mesh, audit)
+    # a cold start in this process: the step cache emptied, every kernel
+    # library forgotten (its next launch loads it again)
+    TRACE_CACHE.clear()
+    unloaded = build.unload_all()
+    mark = OBSERVATORY.mark()
+    statements = []
+    for attempt in ("cold", "warm"):
+        before = OBSERVATORY.count
+        for label, runner, sql in (("q1_double", local, Q1_DOUBLE),
+                                   ("q3_mesh", n_mesh, QUERIES[3])):
+            k1, k2 = gs.grouped_sums.launches, ls.locate_sorted.launches
+            t0 = time.perf_counter()
+            res = runner.execute(sql)
+            wall = time.perf_counter() - t0
+            statements.append(runner.last_query.query_id)
+            results[f"N2_{label}_{attempt}"] = res
+            log(f"observatory N2 {label} {attempt}: wall_s={wall!r} "
+                f"artifact_assembly_s={runner.last_artifact_s!r} "
+                f"grouped_sums={gs.grouped_sums.launches - k1} "
+                f"locate_sorted={ls.locate_sorted.launches - k2} "
+                f"compile_events={OBSERVATORY.count - before}")
+        if attempt == "warm" and OBSERVATORY.count != before:
+            raise AssertionError(f"N2 warm runs recorded {OBSERVATORY.count - before} "
+                                 f"compile events: {OBSERVATORY.events_above(before)}")
+    if not store.flush(30.0):
+        raise AssertionError("N2: the archive writer did not drain")
+    arts = [store.get(q) for q in statements]
+    files = sorted(os.listdir(archive))
+    if len(files) != len(statements) or any(a is None for a in arts):
+        raise AssertionError(f"N2: {len(files)} artifacts for {len(statements)} statements")
+    for a in arts:
+        with open(os.path.join(archive, a["key"] + ".json")) as f:
+            on_disk = json.load(f)
+        err = artifact_sums(on_disk)
+        if err > 1e-12 * max(1.0, on_disk["wall_s"]) or not on_disk["peak_memory_bytes"]:
+            raise AssertionError(f"N2 {a['query_id']}: phases off the wall by {err!r}, "
+                                 f"peak {on_disk['peak_memory_bytes']}")
+        log(f"observatory N2 artifact {a['query_id']}: wall_s={on_disk['wall_s']!r} "
+            f"phases={on_disk['phases']} |sum-wall|={err!r} "
+            f"peak_memory_bytes={on_disk['peak_memory_bytes']} "
+            f"compile_s={on_disk['compile']['compile_s']!r} "
+            f"decisions={len((on_disk['decisions'] or {}).get('decisions', []))}")
+    with open(audit_path) as f:
+        lines = [json.loads(line) for line in f]
+    seqs = [line["seq"] for line in lines]
+    if [line["query_id"] for line in lines] != statements[: len(lines)] or len(lines) != len(
+        statements
+    ) or any(b <= a for a, b in zip(seqs, seqs[1:])):
+        raise AssertionError(f"N2 audit: {[(l['query_id'], l['seq']) for l in lines]}")
+    comp = local.execute(
+        f"select seq, step, bucket, mesh, query_id, fragment, wall_s "
+        f"from system.runtime.compilations where seq > {mark}"
+    ).rows
+    kernel_rows = sorted({r[1] for r in comp if r[1].startswith("kernel:")})
+    if kernel_rows != sorted(f"kernel:{n}" for n in unloaded) or len(comp) < 2:
+        raise AssertionError(f"N2 compilations: kernel rows {kernel_rows}, "
+                             f"libraries forgotten {unloaded}, {len(comp)} rows")
+    steps = sorted({r[1] for r in comp})
+    log(f"observatory N2 compilations: {len(comp)} rows since the cold start, "
+        f"steps={steps}, kernel rows="
+        f"{[(r[1], r[6]) for r in comp if r[1].startswith('kernel:')]}, "
+        f"step seconds={sum(r[6] for r in comp if not r[1].startswith('kernel:'))!r}")
+    q3_ids = statements[1::2]  # cold q1, cold q3, warm q1, warm q3
+    dec = local.execute(
+        "select query_id, decision_id, kind, site, choice, alternative, exchange_bytes, "
+        "bytes_by, hindsight, hindsight_detail from system.runtime.plan_decisions"
+    ).rows
+    joins = [r for r in dec if r[0] in q3_ids and r[2] == "join_distribution"]
+    if len(joins) != 2 * len(q3_ids) or any(r[6] <= 0 or not r[8] for r in joins):
+        raise AssertionError(f"N2 plan_decisions: {joins}")
+    for r in dec:
+        if r[0] in q3_ids[:1]:
+            log(f"observatory N2 decision {r}")
+    prof = local.execute(
+        "select query_id, state, wall_s, mesh, peak_memory_bytes, archived_path "
+        "from system.runtime.query_profiles"
+    ).rows
+    listed = {r[0] for r in prof}
+    if not set(statements) <= listed:
+        raise AssertionError(f"N2 query_profiles: {sorted(listed)} lacks "
+                             f"{sorted(set(statements) - listed)}")
+    log(f"observatory N2 query_profiles: {len(prof)} rows, statements {statements}")
+    config.reset_config()
+    shutil.rmtree(work, ignore_errors=True)
+
+    k1_launches = gs.grouped_sums.launches  # read just after the path
+    k2_launches = ls.locate_sorted.launches
+    # untimed, after the count was read: the largest launch fed by a spool
+    holder = {"mesh": mesh}
+    mesh.execute("set session retry_policy = 'TASK'")
+    k2 = ls.locate_sorted.launches
+    kernel, gated = spooled_probe_recorder(probe_record, holder)
+    mesh_runner.locate_sorted = gated
+    try:
+        for qid in FTE_QIDS:
+            probe_record["query"] = f"N1_q{qid}_spooled"
+            mesh.execute(QUERIES[qid])
+    finally:
+        mesh_runner.locate_sorted = kernel
+        mesh.execute("set session retry_policy = 'NONE'")
+    log(f"fte N1 sorted-probe launches after a spool read (P, cap_b, n_match, S): "
+        f"{probe_record.get('shapes', {})} (capture runs apart: "
+        f"{ls.locate_sorted.launches - k2})")
+    log(f"fte/observatory path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+    if k1_launches <= 0 or k2_launches <= 0:
+        raise AssertionError("the FTE/observatory path never launched a kernel")
+
+    def check(cpu_tpch: dict) -> None:
+        for qid in FTE_QIDS:
+            rows, _ = cpu_tpch[QUERIES[qid]]
+            for kind in ("clean", "finish", "spooled"):
+                rows_match(results[f"N1_q{qid}_{kind}"].rows, rows, 0.0)
+        for attempt in ("cold", "warm"):
+            rows_match(results[f"N2_q1_double_{attempt}"].rows, cpu_tpch[Q1_DOUBLE][0],
+                       KERNEL_RTOL)
+            rows_match(results[f"N2_q3_mesh_{attempt}"].rows, cpu_tpch[QUERIES[3]][0], 0.0)
+        log("fte/observatory path: N1's Q3 and Q18 (clean, :finish, :spooled) and N2's "
+            "Q1-double and mesh Q3 match the CPU run")
+
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "check": check}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -4269,7 +4631,8 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
                         tdw: dict, arrays: dict, holistic: dict, temporal: dict,
-                        statements: dict, lifecycle: dict, schedule: dict) -> dict:
+                        statements: dict, lifecycle: dict, schedule: dict,
+                        fte: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -4294,6 +4657,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured in phase 5l")
     if "largest" not in schedule:
         raise AssertionError("no sorted-probe launch was captured in phase 5m")
+    if "largest" not in fte:
+        raise AssertionError("no spooled sorted-probe launch was captured in phase 5n")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -4306,6 +4671,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"statements_largest_{statements['largest_query']}",) + statements["largest"]]
     cases += [(f"lifecycle_largest_{lifecycle['largest_query']}",) + lifecycle["largest"]]
     cases += [(f"schedule_largest_{schedule['largest_query']}",) + schedule["largest"]]
+    cases += [(f"fte_largest_{fte['largest_query']}",) + fte["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -4336,6 +4702,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     lifecycle_largest["query"] = lifecycle["largest_query"]
     schedule_largest = time_probe_inputs("schedule_largest", dev, schedule["largest"])
     schedule_largest["query"] = schedule["largest_query"]
+    fte_largest = time_probe_inputs("fte_largest", dev, fte["largest"])
+    fte_largest["query"] = fte["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -4353,6 +4721,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "statements_inputs": statements_largest,
         "lifecycle_inputs": lifecycle_largest,
         "schedule_inputs": schedule_largest,
+        "fte_inputs": fte_largest,
     }
 
 
@@ -4494,6 +4863,8 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     lc_path = timed("5l", run_lifecycle_path, tpcds_reference, lifecycle_k1, lifecycle)
     schedule: dict = {}
     sch_path = timed("5m", run_schedule_layout_path, tpcds_reference, schedule)
+    fte: dict = {}
+    fte_path = timed("5n", run_fte_observatory_path, fte)
     tpcds = timed("5d-5e wait", wait_tpcds_card, card, card_path, procs, dev)
     for phase in ("5d", "5e"):  # the second card process's seconds
         seconds[phase] = tpcds[phase]["seconds"]
@@ -4502,34 +4873,35 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
 
     def check_tpch_paths():
         cpu = tpcds_reference("tpch")
-        for path in (main_path, mesh_path, semi_path, func_path, sch_path):
+        for path in (main_path, mesh_path, semi_path, func_path, sch_path, fte_path):
             path.pop("check")(cpu)
 
     timed("4-5c checks", check_tpch_paths)
     k1["launches"] += (
         arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
         + tem_path["k1_launches"] + stm_path["k1_launches"] + lc_path["k1_launches"]
-        + sch_path["k1_launches"]
+        + sch_path["k1_launches"] + fte_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
         "aggregates": agg_path["k1_launches"], "holistic": hol_path["k1_launches"],
         "temporal": tem_path["k1_launches"], "statements": stm_path["k1_launches"],
         "lifecycle": lc_path["k1_launches"], "schedule_layouts": sch_path["k1_launches"],
+        "fte_observatory": fte_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
     k1["statements_inputs"] = check_grouped_sums_captured(dev, statements_k1, "statements")
     k1["lifecycle_inputs"] = check_grouped_sums_captured(dev, lifecycle_k1, "lifecycle")
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
-               holistic, temporal, statements, lifecycle, schedule)
+               holistic, temporal, statements, lifecycle, schedule, fte)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
         + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
         + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
         + tem_path["k2_launches"] + stm_path["k2_launches"] + lc_path["k2_launches"]
-        + sch_path["k2_launches"]
+        + sch_path["k2_launches"] + fte_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -4548,6 +4920,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "statements": stm_path["k2_launches"],
         "lifecycle": lc_path["k2_launches"],
         "schedule_layouts": sch_path["k2_launches"],
+        "fte_observatory": fte_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

@@ -924,9 +924,24 @@ def test_mesh_deadline_mid_run_stops_at_a_launch(mesh):
 
 
 def test_mesh_task_retry_policy_raises_by_name(mesh):
+    """retry_policy = 'TASK' on the mesh runs now (tests/test_torch_fte.py):
+    a stage that fails once is retried alone and the statement answers;
+    a stage whose four attempts all fail raises StageFailedException, the
+    error the JAX mesh raises, classified as the JAX package does."""
+    from trino_tpu_torch.runtime.lifecycle import error_code_of
+    from trino_tpu_torch.runtime.retry import FAILURE_INJECTOR, StageFailedException
+
     mesh.execute("set session retry_policy = 'TASK'")
     try:
-        with pytest.raises(NotImplementedError, match="task retries"):
+        FAILURE_INJECTOR.inject("stage:0", times=1)
+        assert mesh.execute("select count(*) from nation").rows == [(25,)]
+        FAILURE_INJECTOR.inject("stage:0", times=4)
+        with pytest.raises(StageFailedException, match="after 4 attempts") as info:
             mesh.execute("select count(*) from nation")
+        jax_error = mod("trino_tpu", "runtime.retry").StageFailedException("x")
+        assert error_code_of(info.value) == mod(
+            "trino_tpu", "runtime.lifecycle"
+        ).error_code_of(jax_error)
     finally:
+        FAILURE_INJECTOR.clear()
         mesh.execute("set session retry_policy = 'NONE'")

@@ -42,6 +42,7 @@ from trino_tpu_torch.parallel import exchange as tex
 from trino_tpu_torch.parallel.spmd import WorkerMesh, shard, stack_batches
 
 from test_torch_e2e import assert_same_rows
+from test_torch_observatory import assert_same_ledger, attach_stores
 
 W = 4
 
@@ -194,8 +195,12 @@ def _run_both(jax_mesh, port_mesh, sql, settings):
     for s in settings:
         jax_mesh.execute("set session " + s)
         port_mesh.execute("set session " + s)
+    attach_stores(jax_mesh, port_mesh)
     try:
-        return jax_mesh.execute(sql), port_mesh.execute(sql)
+        expected, actual = jax_mesh.execute(sql), port_mesh.execute(sql)
+        # and the decision ledgers (tests/test_torch_observatory.py)
+        assert_same_ledger(jax_mesh, port_mesh, sql)
+        return expected, actual
     finally:
         for s in ("pallas_probe = false", "join_distribution_type = 'AUTOMATIC'"):
             jax_mesh.execute("set session " + s)
@@ -264,25 +269,29 @@ def test_mesh_runner_matches_local_runner(port_mesh):
      "table_layouts = 'tpch.tiny.orders:o_orderkey:8'"],
 )
 def test_unported_mesh_settings_raise(setting):
-    """The mesh settings whose paths are not ported raise by name.  The
-    memory budget's path and bucketed layouts are ported now (partition
-    waves; co-located scans): their cases run Q3 and hold the rows to the
-    local run, and the layouts case then holds `resize_mesh`, still
-    unported, to its NotImplementedError."""
+    """The mesh settings that once raised by name run now: the memory
+    budget's path (partition waves), bucketed layouts (co-located scans)
+    and fault-tolerant execution (spooled stage outputs, task retries).
+    Each case runs Q3 and holds the rows to the local run; the TASK cases
+    spool every distributed stage and leave no spool behind, and the
+    layouts case then holds `resize_mesh`, still unported, to its
+    NotImplementedError."""
+    import os
+
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
     r = DistributedQueryRunner(catalog="tpch", schema="tiny", n_workers=W, device="cpu")
     r.execute("set session " + setting)
-    if setting.startswith(("query_max_memory", "table_layouts")):
-        from trino_tpu_torch.runtime.runner import LocalQueryRunner
-
-        local = LocalQueryRunner(catalog="tpch", schema="tiny", device="cpu")
-        assert r.execute(QUERIES[3]).rows == local.execute(QUERIES[3]).rows
-        if setting.startswith("table_layouts"):
-            assert r.last_mesh_profile.counters.get("scan_bucketize", 0) == 1
-            with pytest.raises(NotImplementedError, match="resize_mesh"):
-                r.resize_mesh(W // 2)
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        r.execute(QUERIES[3])
+    local = LocalQueryRunner(catalog="tpch", schema="tiny", device="cpu")
+    assert r.execute(QUERIES[3]).rows == local.execute(QUERIES[3]).rows
+    if setting.startswith("table_layouts"):
+        assert r.last_mesh_profile.counters.get("scan_bucketize", 0) == 1
+        with pytest.raises(NotImplementedError, match="resize_mesh"):
+            r.resize_mesh(W // 2)
+    if setting.startswith(("fault_tolerant", "retry_policy")):
+        ex = r.last_stage_executor
+        assert ex.retry_task and ex.counters.get("spool_write", 0) == 4
+        assert not os.path.exists(ex.spool.dir)
 
 
 @pytest.mark.parametrize("pallas_probe", [False, True], ids=["default", "pallas_probe"])

@@ -43,6 +43,7 @@ from trino_tpu_torch.parallel import DistributedQueryRunner
 from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
 from test_torch_e2e import assert_same_rows
+from test_torch_observatory import assert_same_ledger, attach_stores
 
 _TYPES = {"bigint": (JT.BIGINT, TT.BIGINT), "integer": (JT.INTEGER, TT.INTEGER)}
 
@@ -197,8 +198,12 @@ def _run_both(jax_mesh, port_mesh, sql, settings):
     for s in settings:
         jax_mesh.execute("set session " + s)
         port_mesh.execute("set session " + s)
+    attach_stores(jax_mesh, port_mesh)
     try:
-        return jax_mesh.execute(sql), port_mesh.execute(sql)
+        expected, actual = jax_mesh.execute(sql), port_mesh.execute(sql)
+        # and the decision ledgers (tests/test_torch_observatory.py)
+        assert_same_ledger(jax_mesh, port_mesh, sql)
+        return expected, actual
     finally:
         for s in ("pallas_probe = false", "join_distribution_type = 'AUTOMATIC'"):
             jax_mesh.execute("set session " + s)

@@ -168,16 +168,26 @@ def test_system_schemas_tables_and_columns_equal_jax(runners):
 
 
 def test_unported_system_tables(runners):
-    """compilations raises naming the compile observatory; the profile and
-    decision tables give no rows while no profile store is attached."""
+    """The observatory tables answer now: compilations lists the compile
+    observatory's ring; the profile and decision tables give no rows while
+    no profile store is attached, and the store's rows once one is."""
+    from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
+    from trino_tpu_torch.telemetry.profile_store import ProfileStore
+
     port = runners["trino_tpu_torch"]
-    with pytest.raises(NotImplementedError, match="compile_events"):
-        port.execute("select * from system.runtime.compilations")
+    assert len(port.execute("select * from system.runtime.compilations").rows) <= len(
+        OBSERVATORY.events()
+    )
     for t in ("query_profiles", "plan_decisions"):
         sql = f"select count(*) from system.runtime.{t}"
         assert port.execute(sql).rows == runners["trino_tpu"].execute(sql).rows == [(0,)]
-    with pytest.raises(NotImplementedError, match="profile_store"):
-        port.profile_store = object()
+    port.profile_store = ProfileStore()
+    try:
+        port.execute("select count(*) from region")
+        rows = port.execute("select query_id, state from system.runtime.query_profiles").rows
+        assert rows == [(port.profile_store.refs()[0]["query_id"], "FINISHED")]
+    finally:
+        port.profile_store = None
 
 
 # -- etc/ configuration (tests/test_config.py) ----------------------------------
@@ -280,12 +290,32 @@ def test_runner_from_etc_needs_cuda_by_default(etc_dir):
     "access-control.config-file",
 ])
 def test_unported_knobs_raise_by_name(etc_dir, tmp_path, key):
+    """The observatory's knobs attach their pieces (as in the JAX package:
+    the profile store archives each statement under the directory, the
+    audit log writes one line per statement); prewarm and access control
+    still raise naming themselves."""
+    from trino_tpu_torch.config import reset_config
     from trino_tpu_torch.runtime.config import runner_from_etc
+    from trino_tpu_torch.telemetry.audit import QueryAuditLog
 
+    target = tmp_path / "x"
     with open(os.path.join(etc_dir, "config.properties"), "a") as fh:
-        fh.write(f"{key}={tmp_path / 'x'}\n")
-    with pytest.raises(NotImplementedError, match=key):
-        runner_from_etc(etc_dir, device="cpu")
+        fh.write(f"{key}={target}\n")
+    try:
+        if key in ("prewarm.manifest-path", "access-control.config-file"):
+            with pytest.raises(NotImplementedError, match=key):
+                runner_from_etc(etc_dir, device="cpu")
+            return
+        r = runner_from_etc(etc_dir, device="cpu")
+        r.execute("select count(*) from nation")
+        if key == "profile.archive-dir":
+            assert r.profile_store is not None and r.profile_store.flush(10.0)
+            assert len(os.listdir(target)) == 1
+        else:
+            assert any(isinstance(l, QueryAuditLog) for l in r.events.listeners)
+            assert len(target.read_text().splitlines()) == 1
+    finally:
+        reset_config()
 
 
 def test_unknown_connector_rejected(tmp_path):

@@ -15,6 +15,7 @@ from trino_tpu.runtime.runner import LocalQueryRunner as JaxRunner
 from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
 from test_torch_e2e import assert_same_rows
+from test_torch_observatory import assert_same_ledger, attach_stores
 
 NEW_QIDS = [2, 7, 8, 9, 13, 14, 16, 17, 20, 22]
 
@@ -45,8 +46,12 @@ def run_both(jax_runner, port_runner, sql, settings):
     for s in settings:
         jax_runner.execute("set session " + s)
         port_runner.execute("set session " + s)
+    attach_stores(jax_runner, port_runner)
     try:
-        return jax_runner.execute(sql), port_runner.execute(sql)
+        expected, actual = jax_runner.execute(sql), port_runner.execute(sql)
+        # and the decision ledgers (tests/test_torch_observatory.py)
+        assert_same_ledger(jax_runner, port_runner, sql)
+        return expected, actual
     finally:
         for s in ("pallas_probe = false", "join_distribution_type = 'AUTOMATIC'"):
             jax_runner.execute("set session " + s)

@@ -28,6 +28,7 @@ from trino_tpu_torch import verify as V
 from trino_tpu_torch.parallel import DistributedQueryRunner
 from trino_tpu_torch.planner import plan as P
 
+from test_torch_observatory import assert_same_ledger, attach_stores
 from test_torch_tpcds import one_torch_thread  # noqa: F401 (autouse)
 
 LINEITEM_ORDERS = "tpch.tiny.lineitem:l_orderkey:8,tpch.tiny.orders:o_orderkey:8"
@@ -218,6 +219,7 @@ def test_collective_async_equals_jax_mesh(mesh_pair, jax_local, qid):
     from trino_tpu_torch.telemetry.metrics import collective_async_counter
 
     port, jax = mesh_pair
+    attach_stores(port, jax)
     before = collective_async_counter().value()
     res = port.execute(QUERIES[qid])
     n = port.last_mesh_profile.counters.get("collective_async", 0)
@@ -228,6 +230,8 @@ def test_collective_async_equals_jax_mesh(mesh_pair, jax_local, qid):
     assert n == jax_counter().value() - jbefore
     assert n == port.last_schedule_license.licensed_count() > 0
     assert _rows_ok(res, jax_local, QUERIES[qid])
+    # and the decision ledgers (tests/test_torch_observatory.py)
+    assert_same_ledger(jax, port, QUERIES[qid])
 
 
 @pytest.mark.parametrize("qid", [3, 5, 18])

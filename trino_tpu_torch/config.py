@@ -1,4 +1,5 @@
-"""Typed engine configuration: the dispatcher and memory sections.
+"""Typed engine configuration: the dispatcher, memory, profile and audit
+sections.
 
 Port of part of trino_tpu/config.py (the airlift ``@Config`` analog).
 Each field carries its properties key; a knob resolves, first hit wins,
@@ -6,8 +7,10 @@ from the environment (``TRINO_TPU_<KEY>`` with ``.``/``-`` -> ``_``,
 uppercased), the properties dict, then the dataclass default.
 
 Ported: the ``dispatcher`` section (runtime/dispatcher.py's lanes,
-Retry-After and drain waits) and ``memory`` (``memory.pool-limit-bytes``,
-``memory.spill-dir``), with `get_config` / `install_config` /
+Retry-After and drain waits), ``memory`` (``memory.pool-limit-bytes``,
+``memory.spill-dir``), ``profile`` (the profile archive,
+telemetry/profile_store.py) and ``audit`` (the audit log,
+telemetry/audit.py), with `get_config` / `install_config` /
 `reset_config` / `load_config`; installing a config with a pool limit
 arms the shared memory pool's limit.  Not ported: the ``breaker``
 section (the circuit breakers of the multi-host HTTP tier), the
@@ -15,7 +18,7 @@ section (the circuit breakers of the multi-host HTTP tier), the
 per-worker and per-catalog overrides (``<key>@<token>``) with
 `breaker_for` / `section_for`, and the sections of the other unported
 pieces (heartbeat, remote, worker, coordinator, compile cache, prewarm,
-dictionary, profile, audit).  `load_cluster_config` raises
+dictionary).  `load_cluster_config` raises
 NotImplementedError naming the piece for a ``breaker.`` or
 ``lifecycle.`` key or an override, and `breaker_for` / `section_for`
 raise; runtime/config.py raises for the knobs of the other pieces when
@@ -137,11 +140,67 @@ class MemoryConfig(ConfigSection):
 
 
 @dataclass
+class ProfileConfig(ConfigSection):
+    """Query performance observatory: the persistent per-query profile
+    archive (telemetry/profile_store.ProfileStore).  At completion every
+    statement's profile — phases, per-fragment stats, collective bytes,
+    compile events, admission info, gate wait, peak memory — is assembled
+    into ONE structured artifact and persisted through the filesystem SPI
+    off the hot path, so regressions can be *diffed* (tools/profile_diff)
+    instead of re-measured from memory of last week's numbers."""
+
+    archive_dir: str = knob(
+        "", "profile.archive-dir",
+        "profile-artifact archive location (filesystem SPI; empty = "
+        "in-memory ring only when a store is attached, nothing otherwise)",
+    )
+    retention_max_age_s: float = knob(
+        0.0, "profile.retention-max-age",
+        "seconds an archived artifact is retained before the sweep "
+        "deletes it (0 = keep forever)",
+    )
+    retention_max_count: int = knob(
+        0, "profile.retention-max-count",
+        "archived artifacts retained on disk, oldest pruned first "
+        "(0 = unbounded)",
+    )
+    ring_limit: int = knob(
+        256, "profile.ring-limit",
+        "recent artifacts held in memory (the system.runtime."
+        "query_profiles window; archived files are not bounded by this)",
+    )
+
+
+@dataclass
+class AuditConfig(ConfigSection):
+    """Structured JSONL query audit log (telemetry/audit.QueryAuditLog):
+    one line per QueryCompletedEvent through the filesystem SPI, with
+    size-based rotation — the machine-readable trail an external audit
+    pipeline tails (reference role: http/kafka event listeners)."""
+
+    log_path: str = knob(
+        "", "audit.log-path",
+        "audit log location (filesystem SPI; empty = audit log off)",
+    )
+    rotate_bytes: int = knob(
+        64 * 1024 * 1024, "audit.rotate-bytes",
+        "rotate the audit log when it would exceed this size "
+        "(0 = never rotate)",
+    )
+    rotate_keep: int = knob(
+        2, "audit.rotate-keep",
+        "rotated audit segments kept (<path>.1 .. <path>.N, newest first)",
+    )
+
+
+@dataclass
 class ClusterConfig:
     """The ported sections plus the raw properties."""
 
     dispatcher: DispatcherConfig = field(default_factory=DispatcherConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
+    profile: ProfileConfig = field(default_factory=ProfileConfig)
+    audit: AuditConfig = field(default_factory=AuditConfig)
     properties: dict = field(default_factory=dict)
 
     def breaker_for(self, worker: str):
@@ -180,6 +239,8 @@ def load_cluster_config(props: Optional[dict] = None, env=None) -> ClusterConfig
     return ClusterConfig(
         dispatcher=DispatcherConfig.from_properties(props, env),
         memory=MemoryConfig.from_properties(props, env),
+        profile=ProfileConfig.from_properties(props, env),
+        audit=AuditConfig.from_properties(props, env),
         properties=props,
     )
 

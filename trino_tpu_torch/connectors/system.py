@@ -9,8 +9,9 @@ Tables (schema `runtime`):
                      rows, error + error_type classification)
   spans            — flattened span trees of recently traced queries
                      (query_trace session property; telemetry/spans)
-  compilations     — recent SPMD compile events (step, bucket, mesh, wall
-                     seconds; telemetry/compile_events ring)
+  compilations     — recent compile events: step-cache builds and kernel
+                     builds/loads (step, bucket, mesh, wall seconds;
+                     telemetry/compile_events ring)
   metrics          — the process metrics registry (telemetry/metrics)
   query_profiles   — the persistent per-query profile archive's memory
                      ring (telemetry/profile_store; wall, gate wait,
@@ -29,9 +30,9 @@ Port of trino_tpu/connectors/system.py.  Differences: `nodes` lists the
 runner's device (one row per CUDA device when the runner is on the card,
 one `cpu` row otherwise; the JAX package lists its XLA devices by id),
 with no heartbeat age, breaker state or prewarm state, since membership
-and prewarm are not ported.  `compilations` raises NotImplementedError
-naming telemetry/compile_events.  `query_profiles` and `plan_decisions`
-give no rows, because no profile store can be attached yet.
+and prewarm are not ported.  `query_profiles` and `plan_decisions` read
+the profile store attached to the runner (`profile.archive-dir`, or
+`attach_profile_store`) and give no rows without one.
 """
 
 from __future__ import annotations
@@ -322,10 +323,11 @@ class SystemConnector(Connector):
                     )
             return out
         if table == "compilations":
-            raise NotImplementedError(
-                "system.runtime.compilations (telemetry/compile_events, the "
-                "compile observatory): not ported yet"
-            )
+            # the compile observatory's recent events (telemetry/
+            # compile_events): step-cache builds and kernel builds/loads
+            from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
+
+            return OBSERVATORY.rows()
         if table == "metrics":
             from trino_tpu_torch.telemetry import REGISTRY
 

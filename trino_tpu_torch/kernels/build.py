@@ -6,6 +6,8 @@ plain C interface, loaded with ctypes.  Libraries land in
 `build/trino_tpu_torch/` at the repository root (listed in .gitignore),
 named by a hash of their source so an edited kernel never loads a stale
 build.  `build_all` starts one nvcc per source at once and waits for all.
+Each nvcc run and each library load is a compile event
+(telemetry/compile_events, step `kernel:<name>`) with its seconds.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -60,7 +63,10 @@ def log_path(name: str) -> Path:
 def build_all(names) -> None:
     """Compile every listed kernel that has no current build, one nvcc
     process per source, all started together."""
+    from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = []
     for name in names:
         lib = library_path(name)
@@ -80,16 +86,33 @@ def build_all(names) -> None:
             failed.append(f"{name} (rc {rc}):\n{log_path(name).read_text()}")
             continue
         os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
+        # the seconds from the common start to this build's end
+        OBSERVATORY.record_kernel(name, time.perf_counter() - t0, "nvcc")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel `name`, built on first use."""
+    from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
+
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
             build_all([name])
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(library_path(name)))
             _LOADED[name] = lib
+            OBSERVATORY.record_kernel(name, time.perf_counter() - t0, "load")
         return lib
+
+
+def unload_all() -> list:
+    """Forget every loaded library, so each kernel's next launch loads it
+    again (and books a load event); returns the names forgotten.  A cold
+    start inside a running process: the library stays mapped, and the
+    reload is the `dlopen` of an already-open file."""
+    with _LOCK:
+        names = sorted(_LOADED)
+        _LOADED.clear()
+    return names

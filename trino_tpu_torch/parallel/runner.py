@@ -100,13 +100,35 @@ children before the fragment's body (`collective_async`, mirrored into
 lazy order would run first anyway, before any of the body's dynamic
 filters register, so the rows and the pruning stay the same.
 
-Not ported (each raises NotImplementedError when a session asks for it):
-fault tolerance and task retries, `resize_mesh`, membership heartbeats,
-prewarm and the compile observatory.
+Fault-tolerant execution (`retry_policy = 'TASK'`, or
+`fault_tolerant_execution = true`): every stage is a retryable unit of up
+to `TASK_ATTEMPTS` attempts.  A distributed stage's output crosses to the
+host once, is split per worker and spooled as one npz file per attempt
+(runtime/fte.SpoolManager, a directory per query, removed when the query
+ends); each consumer rehydrates the spooled shards onto the mesh's device
+with their placements, after the spool's `AttemptDedup` committed the
+first attempt and discarded the duplicates.  A failed stage re-runs alone:
+its finished children are served from the memo or the spool.  The
+injection points `stage:{fid}`, `stage:{fid}:finish` and
+`stage:{fid}:spooled` (runtime/retry.FAILURE_INJECTOR) fire before the
+body, after it and after the spool; each recovery is counted
+(`task_retries_total{outcome}`) and recorded in the decision ledger.
+
+Plan decisions (telemetry/decisions.py): `create_subplan` records the
+schedule license; each exchange, join side placement, broadcast,
+aggregation exchange and capacity-sized expansion runs under the scope of
+the decision that chose it, so the collective bytes it moves are credited
+there; a budget's waves and each join's capacity source are recorded where
+the runtime decides them.  A step's first launch closes the compile events
+its build opened (telemetry/compile_events.py).
+
+Not ported: `resize_mesh` (elastic membership) raises
+NotImplementedError; membership heartbeats and prewarm are absent.
 """
 
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
 from typing import Optional
 
@@ -137,9 +159,11 @@ from trino_tpu_torch.parallel.spmd import (
     WorkerMesh,
     bucket_cap,
     cached_spmd_step,
+    launch_bucket,
     mesh_key,
     shard,
     stack_batches,
+    stack_shards,
     trailing_cap,
     unstack_batch,
 )
@@ -176,6 +200,12 @@ from trino_tpu_torch.runtime.lifecycle import check_current
 from trino_tpu_torch.runtime.memory import batch_bytes
 from trino_tpu_torch.runtime.query_stats import MeshProfile
 from trino_tpu_torch.runtime.runner import LocalQueryRunner, MaterializedResult
+from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
+from trino_tpu_torch.telemetry.decisions import (
+    decision_scope,
+    observe_decision,
+    record_decision,
+)
 from trino_tpu_torch.telemetry.spans import now
 
 _DIST_KINDS = (SOURCE, FIXED_HASH, FIXED_ARBITRARY)
@@ -267,16 +297,6 @@ def _spec_sig(specs) -> tuple:
     )
 
 
-def _check_ported_knobs(properties) -> None:
-    """Raise for the session settings whose mesh paths are not ported."""
-    if properties.get("fault_tolerant_execution") or (
-        str(properties.get("retry_policy")).upper() == "TASK"
-    ):
-        raise NotImplementedError(
-            "fault-tolerant execution and task retries on the mesh: not ported yet"
-        )
-
-
 class DistributedQueryRunner(LocalQueryRunner):
     """A LocalQueryRunner whose queries run fragmented over `n_workers`
     logical workers on one device (the card unless `device` says
@@ -329,6 +349,18 @@ class DistributedQueryRunner(LocalQueryRunner):
         # divergence-free fragments license eager pre-dispatch of their
         # independent build-side children (verify/schedule.py)
         self.last_schedule_license = license_schedule(sub, self.wm.n)
+        lic = self.last_schedule_license
+        n_async = (
+            sum(len(v) for v in lic.async_children.values())
+            if lic is not None
+            else 0
+        )
+        record_decision(
+            "schedule_license", "planner.create_subplan",
+            "async" if n_async else "sync",
+            "sync" if n_async else "async",
+            {"async_children": n_async},
+        )
         return sub
 
     def explain_distributed(self, sql: str) -> str:
@@ -337,7 +369,8 @@ class DistributedQueryRunner(LocalQueryRunner):
     # -- execution ------------------------------------------------------------
 
     def _run_query(self, query, stats=None) -> MaterializedResult:
-        _check_ported_knobs(self.properties)
+        from trino_tpu_torch.runtime.lifecycle import current_query
+
         tr = self._tracer
         plan = self.plan_query(query)
         with tr.span("fragment"):
@@ -347,9 +380,12 @@ class DistributedQueryRunner(LocalQueryRunner):
         profile = MeshProfile(
             blocking=stats is not None, tracer=tr, device=self.wm.device
         )
+        ctx = current_query()
         executor = StageExecutor(
-            self.catalogs, self.wm, self.properties, profile=profile,
-            schedule=self.last_schedule_license,
+            self.catalogs, self.wm, self.properties,
+            # the statement's own id (spool file names, attempt dedup)
+            query_id=ctx.query_id if ctx is not None else "q",
+            profile=profile, schedule=self.last_schedule_license,
         )
         self.last_stage_executor = executor
         self.last_mesh_profile = profile
@@ -367,11 +403,16 @@ class StageExecutor:
     SqlStage inside PipelinedQueryScheduler, with on-device collectives as
     the data plane)."""
 
-    def __init__(self, catalogs, wm: WorkerMesh, properties,
+    #: attempts per stage under retry_policy = TASK (reference:
+    #: EventDrivenFaultTolerantQueryScheduler's task retry budget)
+    TASK_ATTEMPTS = 4
+
+    def __init__(self, catalogs, wm: WorkerMesh, properties, query_id: str = "q",
                  profile: Optional[MeshProfile] = None, schedule=None):
         self.catalogs = catalogs
         self.wm = wm
         self.properties = properties
+        self.query_id = query_id
         #: collective-schedule license (verify/schedule.py): authorizes the
         #: eager pre-dispatch of independent build-side child fragments;
         #: None (or a license for another mesh width) = strictly lazy
@@ -404,6 +445,27 @@ class StageExecutor:
         self.layouts = LayoutResolver(catalogs, properties)
         self.colocate = bool(properties.get("colocated_join"))
         self.license_caps = bool(properties.get("join_capacity_license"))
+        # fault_tolerant_execution implies the TASK machinery: stage outputs
+        # spool, stages retry one by one, consumers dedup attempts
+        self.retry_task = str(properties.get("retry_policy")).upper() == "TASK" or bool(
+            properties.get("fault_tolerant_execution")
+        )
+        #: the query's spool of stage outputs (TASK only; closed by `run`)
+        self.spool = None
+        #: fid -> (symbols, dictionaries, placements, realigned, unaligned)
+        #: of its spooled output
+        self._spool_meta: dict = {}
+        #: duplicate spooled attempts discarded by consumer-side dedup
+        self.dedup_discards = 0
+        #: spool traffic: bytes written and read, host seconds of `_spool`
+        #: and `_load_spooled`
+        self.spool_stats = {
+            "bytes_written": 0, "bytes_read": 0, "spool_s": 0.0, "load_s": 0.0,
+        }
+        if self.retry_task:
+            from trino_tpu_torch.runtime.fte import SpoolManager
+
+            self.spool = SpoolManager()
         # per-query budget tree of the mesh path: join builds and the fused
         # exchange's aggregation output reserve BEFORE materializing; over
         # budget they degrade to partition waves (runtime/spill.py)
@@ -458,10 +520,34 @@ class StageExecutor:
     def _call(self, fn, args, phase: str = "compute"):
         """Launch one step (the step cache's launch hook): the statement's
         cancel token and deadline are checked first, and the launch is
-        timed as `phase` of the executing fragment."""
+        timed as `phase` of the executing fragment.  A step's first launch
+        closes the compile events its build opened."""
         check_current()  # cooperative cancel/deadline point per launch
+        if not OBSERVATORY.has_open():
+            with self._phase(phase, launch=True):
+                return fn(*args)
+        # the first launch of a step the cache just built: it closes the
+        # compile events the build opened (telemetry/compile_events)
+        t0 = now()
         with self._phase(phase, launch=True):
-            return fn(*args)
+            out = fn(*args)
+        t1 = now()
+        fid = self._current_fid if self._current_fid >= 0 else None
+        events = OBSERVATORY.close_open(
+            t1 - t0, bucket=launch_bucket(args), fragment=fid,
+            mesh=mesh_key(self.wm),
+        )
+        tr = self.profile.tracer
+        if tr.enabled:
+            for ev in events:
+                tr.record(
+                    "compile", t1 - ev.wall_s, t1,
+                    {"step": ev.step, "key": ev.key_fp, "bucket": ev.bucket,
+                     "fragment": fid},
+                )
+        # deadline watchdog, as at every compile-event close
+        check_current()
+        return out
 
     def _note_build(self, seconds: float) -> None:
         """The step cache built a step (a miss): book it as the fragment's
@@ -558,6 +644,8 @@ class StageExecutor:
             # outputs now, or the cycles keep their device tensors alive
             # until the garbage collector next runs
             self._results.clear()
+            if self.spool is not None:
+                self.spool.close()
 
     def _finalize_profile(self) -> None:
         """The step cache's hits and misses during the run, each fragment's
@@ -586,16 +674,36 @@ class StageExecutor:
 
     def _fragment_result(self, fid: int):
         """Stage output: a _Dist, or ('host', batches, symbols) for SINGLE
-        fragments (materialized so several consumers can re-read it)."""
+        fragments (materialized so several consumers can re-read it).
+        Under retry_policy = TASK each stage is a retryable unit: a
+        distributed stage's output is spooled host-side and rehydrated for
+        each consumer, a failed stage re-executes alone, and finished
+        children are never re-run."""
         if fid not in self._results:
-            self._results[fid] = self._run_stage(fid)
+            res = self._run_stage(fid)
+            if isinstance(res, _Dist) and self.spool is not None:
+                # the spool IS the stage-output store: the device copy is
+                # released, consumers rehydrate on demand
+                self._results[fid] = ("spooled",)
+            else:
+                self._results[fid] = res
         res = self._results[fid]
+        if res == ("spooled",):
+            return self._load_spooled(fid)
         if isinstance(res, tuple):
             return PhysicalPlan(iter(res[1]), res[2])
         return res
 
     def _run_stage(self, fid: int):
+        from trino_tpu_torch.runtime.retry import (
+            FAILURE_INJECTOR,
+            RETRYABLE,
+            StageFailedException,
+        )
+
         sub = self._subplans[fid]
+        attempts = self.TASK_ATTEMPTS if self.retry_task else 1
+        last = None
         prev_fid, prev_depth = self._current_fid, self._window_depth
         self._current_fid, self._window_depth = fid, 0
         self._frame_stack.append({"child_s": 0.0})
@@ -604,12 +712,38 @@ class StageExecutor:
             with self.profile.tracer.span(
                 f"fragment-{fid}", kind=str(sub.fragment.partitioning)
             ):
+                # outside the attempt loop: a retry never pre-dispatches
+                # again (the licensed children are memoized or spooled)
                 self._predispatch(fid)
-                check_current()  # fragment-boundary cancellation point
-                if sub.fragment.partitioning.kind in _DIST_KINDS:
-                    return self._exec(sub.fragment.root)
-                out = self._local_fragment(sub)
-                return ("host", list(out.stream), out.symbols)
+                for attempt in range(attempts):
+                    check_current()  # fragment-boundary cancellation point
+                    try:
+                        FAILURE_INJECTOR.maybe_fail(f"stage:{fid}")
+                        if sub.fragment.partitioning.kind in _DIST_KINDS:
+                            res = self._exec(sub.fragment.root)
+                        else:
+                            out = self._local_fragment(sub)
+                            res = ("host", list(out.stream), out.symbols)
+                        # fires after the body ran (children memoized or
+                        # spooled): a failure here retries ONLY this stage
+                        FAILURE_INJECTOR.maybe_fail(f"stage:{fid}:finish")
+                        self._spool(fid, res, attempt)
+                        # fires after the attempt's output is durably
+                        # spooled: the retry then spools a duplicate
+                        # attempt, which the consumer's dedup discards
+                        FAILURE_INJECTOR.maybe_fail(f"stage:{fid}:spooled")
+                        return res
+                    except RETRYABLE as e:
+                        last = e
+                        if self.retry_task and attempt + 1 < attempts:
+                            self._record_recovery(fid, e, "retry")
+                if not self.retry_task:
+                    # keep the original (QUERY-level retryable) error
+                    raise last
+                self._record_recovery(fid, last, "fail")
+                raise StageFailedException(
+                    f"stage {fid} failed after {attempts} attempts: {last}"
+                ) from last
         finally:
             elapsed = now() - t0
             frame = self._frame_stack.pop()
@@ -618,6 +752,76 @@ class StageExecutor:
                 self._frame_stack[-1]["child_s"] += elapsed
             self._excl_s += elapsed
             self._current_fid, self._window_depth = prev_fid, prev_depth
+
+    # -- spooled stage outputs (ExchangeManager role) -------------------------
+
+    def _record_recovery(self, fid: int, exc: BaseException, outcome: str) -> None:
+        """Book one task-recovery decision: the {outcome} retry metric plus
+        a `recovery` entry in the plan-decision ledger."""
+        from trino_tpu_torch.runtime.lifecycle import error_code_of
+        from trino_tpu_torch.telemetry.metrics import task_retries_counter
+
+        task_retries_counter().labels(outcome).inc()
+        record_decision(
+            "recovery", f"stage:{fid}", outcome,
+            "fail" if outcome == "retry" else "retry",
+            {"error_code": error_code_of(exc), "fragment": int(fid)},
+        )
+
+    def _spool(self, fid: int, res, attempt_id: int = 0) -> None:
+        """Persist a distributed stage's output host-side, keyed by the
+        attempt that produced it.  Only _Dist results spool (a stacked
+        batch shares one dictionary per column across workers, so the
+        rehydration is exact); SINGLE-fragment results stay in the memo.
+        The stacked [W, cap] batch crosses to the host once, one copy per
+        plane, and is split per worker there (the spooled page files of
+        FileSystemExchangeSink)."""
+        if self.spool is None or not isinstance(res, _Dist):
+            return
+        from trino_tpu_torch.telemetry.metrics import spooled_fragments_counter
+
+        stacked = res.stacked  # a deferred chain runs as its own launches
+        t0 = time.perf_counter()
+        with self._phase("transfer"):
+            host = stacked.to("cpu")
+        nbytes = batch_bytes(host)
+        self.bump("spool_write")
+        spooled_fragments_counter().inc()
+        self.profile.fragment(fid).bytes_to_host += nbytes
+        shards = [shard(host, w) for w in range(self.wm.n)]
+        dicts = [c.dictionary for c in stacked.columns]
+        self.spool.save(self.query_id, fid, shards, res.symbols, attempt_id=attempt_id)
+        self._spool_meta[fid] = (
+            res.symbols, dicts, res.placements, res.realigned, res.unaligned
+        )
+        self.spool_stats["bytes_written"] += nbytes
+        self.spool_stats["spool_s"] += time.perf_counter() - t0
+
+    def _load_spooled(self, fid: int) -> _Dist:
+        """Rehydrate a spooled stage output worker for worker onto the
+        mesh's device, so its placements survive the host round trip.
+        Consumer-side dedup (DeduplicatingDirectExchangeBuffer): the FIRST
+        committed attempt wins for every consumer of this fragment, and
+        the losing duplicate attempts are deleted unread."""
+        t0 = time.perf_counter()
+        symbols, dicts, placements, realigned, unaligned = self._spool_meta[fid]
+        att = self.spool.dedup.committed(self.query_id, fid)
+        if att is None:
+            atts = self.spool.attempts(self.query_id, fid)
+            att = self.spool.dedup.commit(self.query_id, fid, atts[0] if atts else 0)
+            self.dedup_discards += self.spool.discard_duplicates(
+                self.query_id, fid, att
+            )
+        shards = self.spool.load(self.query_id, fid, symbols, dicts, attempt_id=att)
+        self.bump("spool_read")
+        with self._phase("transfer"):
+            stacked = stack_shards([b.to(self.wm.device) for b in shards])
+        self.spool_stats["bytes_read"] += batch_bytes(stacked)
+        self.spool_stats["load_s"] += time.perf_counter() - t0
+        return self._dist(
+            stacked, symbols, placements=placements, realigned=realigned,
+            unaligned=unaligned,
+        )
 
     def _predispatch(self, fid: int) -> None:
         """Schedule-licensed eager dispatch: run this fragment's licensed
@@ -810,9 +1014,13 @@ class StageExecutor:
         return merge_sorted_shards(shards, keys).to(self.wm.device)
 
     def _remote_as_dist(self, node: RemoteSourceNode) -> _Dist:
-        """Apply a repartition/broadcast exchange into a stacked batch."""
+        """Apply a repartition/broadcast exchange into a stacked batch.
+        The application runs under the placer decision's scope (the child's
+        execution stays outside it — nested exchanges scope themselves), so
+        the collective's bytes join the recorded choice."""
         stacked = self._to_stacked(self._raw_remote(node))
-        return self._apply_dist_exchange(node, stacked)
+        with decision_scope(node.decision_id):
+            return self._apply_dist_exchange(node, stacked)
 
     def _apply_dist_exchange(self, node: RemoteSourceNode, stacked: _Dist) -> _Dist:
         if node.exchange_kind == "broadcast":
@@ -830,6 +1038,7 @@ class StageExecutor:
                 t and set(t) <= set(names) for t in stacked.placements
             ):
                 self.bump("exchange_elided")
+                observe_decision(node.decision_id, elided=1)
                 return stacked
             chans = [stacked.channel(s.name) for s in node.partition_symbols]
             return self._repartition_side(stacked, chans)
@@ -928,8 +1137,14 @@ class StageExecutor:
                 )
             self.bump("scan_cache_miss")
 
+        from trino_tpu_torch.runtime.retry import FAILURE_INJECTOR
+
         per_worker: list = [[] for _ in range(self.wm.n)]
         for i, split in enumerate(splits):
+            # a split read that fails fails its stage, which TASK retries
+            FAILURE_INJECTOR.maybe_fail(
+                f"scan:{node.handle.schema}.{node.handle.table}:{split.seq}"
+            )
             op = ScanOperator(
                 connector, split, names, types, torch.device("cpu"),
                 page_rows=page_rows, use_cache=use_cache,
@@ -1100,7 +1315,8 @@ class StageExecutor:
             # whole on one worker, then aggregate there in one stage (a
             # uniform DISTINCT dedupes first): no partial/merge states, no
             # coordinator gather
-            return self._spmd_single_stage(node, src)
+            with decision_scope(node.source.decision_id):
+                return self._spmd_single_stage(node, src)
         states, specs, partial_op = self._agg_partial(node, src)
         self.bump("agg_partial_states")
         final_op = self._final_op(specs, partial_op, states)
@@ -1135,25 +1351,34 @@ class StageExecutor:
         row_bytes = max(1, s_bytes // max(1, self.wm.n * cap_s))
         need = s_bytes + self.wm.n * fcap * row_bytes
         ctx = self.memory.child("agg_final")
+        wave_k = 0
         try:
             ctx.add_bytes(need)
         except ExceededMemoryLimitException:
-            out = self._wave_agg_exchange(
-                node, states, chans, final_op, specs,
-                _spill.wave_count(need, self._budget(), self.properties), ctx,
+            wave_k = _spill.wave_count(need, self._budget(), self.properties)
+        if wave_k:
+            wdid = record_decision(
+                "wave", "runtime.agg_final", "waves", "direct",
+                {"waves": int(wave_k), "need_bytes": int(need),
+                 "budget_bytes": int(self._budget() or 0)},
             )
+            with decision_scope(wdid):
+                out = self._wave_agg_exchange(
+                    node, states, chans, final_op, specs, wave_k, ctx
+                )
         else:
             def final_step(b: Batch) -> Batch:
                 return final_op._reduce_step(b, out_cap=fcap)
 
-            out = ex.fused_repartition(
-                states, chans, self.wm, final_step,
-                ("agg_final", _spec_sig(specs), fcap, _sig(node.outputs)),
-                slot_cap,
-            )
-            self.profile.add_collective(
-                self._current_fid, batch_bytes(states), "all_to_all", "repartition"
-            )
+            with decision_scope(node.source.decision_id):
+                out = ex.fused_repartition(
+                    states, chans, self.wm, final_step,
+                    ("agg_final", _spec_sig(specs), fcap, _sig(node.outputs)),
+                    slot_cap,
+                )
+                self.profile.add_collective(
+                    self._current_fid, batch_bytes(states), "all_to_all", "repartition"
+                )
             ctx.close()
         return self._dist(
             out, node.outputs,
@@ -1447,20 +1672,23 @@ class StageExecutor:
             def residual(batch: Batch, _e=expr):
                 return ExprCompiler(batch).filter_mask(_e)
 
+        did = node.decision_id
         if node.distribution == "broadcast":
             # compact to the live bucket before the all-gather (stable, so
             # the build-row order and the search's tie order are unchanged)
             bs = build.stacked
-            if trailing_cap(bs) > 64:
-                bs = self._compact_live(bs, "broadcast_compact")
-            build_stacked = self._broadcast(bs)
+            with decision_scope(did):
+                if trailing_cap(bs) > 64:
+                    bs = self._compact_live(bs, "broadcast_compact")
+                build_stacked = self._broadcast(bs)
         else:
-            build = self._place_join_side(
-                build_node, build, [r for _, r in node.criteria]
-            )
-            probe = self._place_join_side(
-                probe_node, probe, [l for l, _ in node.criteria]
-            )
+            with decision_scope(did):
+                build = self._place_join_side(
+                    build_node, build, [r for _, r in node.criteria]
+                )
+                probe = self._place_join_side(
+                    probe_node, probe, [l for l, _ in node.criteria]
+                )
             build_stacked = build.stacked
 
         op = HashJoinOperator(
@@ -1480,24 +1708,48 @@ class StageExecutor:
         probe_fp = tuple(k for k, _ in probe.pending)
         probe_stacked = probe.stacked
         probe_types = [s.type for s in probe.symbols]
+        if did is not None:
+            # outcome inputs for the hindsight join (telemetry/decisions):
+            # static-shape byte math only, no device sync.  build_bytes is
+            # ONE logical build copy (a broadcast's stacked batch holds W
+            # replicas); probe_move_bytes is what the rejected partitioned
+            # plan would have moved for an unplaced probe
+            bb = int(batch_bytes(build_stacked))
+            observe_decision(
+                did,
+                build_bytes=(
+                    bb // max(1, self.wm.n)
+                    if node.distribution == "broadcast" else bb
+                ),
+                probe_move_bytes=(
+                    0 if (node.distribution == "broadcast" and probe.placements)
+                    else int(batch_bytes(probe_stacked))
+                ),
+            )
         # reserve the build's footprint (raw + sorted copy) BEFORE the
         # expansion materializes; over budget the join degrades to
         # hash-partition waves with spill instead of dying
         from trino_tpu_torch.runtime import spill as _spill
-        from trino_tpu_torch.runtime.memory import (
-            ExceededMemoryLimitException,
-            batch_bytes,
-        )
+        from trino_tpu_torch.runtime.memory import ExceededMemoryLimitException
 
         ctx = self.memory.child("join_build")
         need = 2 * batch_bytes(build_stacked)
+        wave_k = 0
         try:
             ctx.add_bytes(need)
         except ExceededMemoryLimitException:
-            out = self._wave_join(
-                node, op, probe_stacked, build_stacked, pk, bk, jkey, probe_types,
-                search, _spill.wave_count(need, self._budget(), self.properties), ctx,
+            wave_k = _spill.wave_count(need, self._budget(), self.properties)
+        if wave_k:
+            wdid = record_decision(
+                "wave", "runtime.join_build", "waves", "direct",
+                {"waves": int(wave_k), "need_bytes": int(need),
+                 "budget_bytes": int(self._budget() or 0)},
             )
+            with decision_scope(wdid):
+                out = self._wave_join(
+                    node, op, probe_stacked, build_stacked, pk, bk, jkey,
+                    probe_types, search, wave_k, ctx,
+                )
         else:
             locate, device_emit_total, expand = self._join_step_fns(
                 node, op, pk, bk, cap_b, probe_types, search
@@ -1750,10 +2002,24 @@ class StageExecutor:
             learned = max(
                 CAP_HISTORY.guess(hist_key, 0), CAP_HISTORY.guess(pkey, 0)
             )
-            declined = (learned and oc > _LICENSE_WIDTH_FACTOR * learned) or (
-                not learned and oc > next_pow2(cap_p, floor=1024)
-            )
-            if not declined:
+            declined = None
+            if learned and oc > _LICENSE_WIDTH_FACTOR * learned:
+                declined = f"width {oc} > {_LICENSE_WIDTH_FACTOR}x learned {learned}"
+            elif not learned and oc > next_pow2(cap_p, floor=1024):
+                # cold guard: with no history, accept only widths bounded
+                # by the probe's own static capacity
+                declined = f"cold width {oc} > probe capacity {cap_p}"
+            cap_inputs = {
+                "cert_kind": type(cert).__name__,
+                "licensed_cap": int(oc),
+                "learned_cap": int(learned),
+                "probe_cap": int(cap_p),
+            }
+            if declined is None:
+                did = record_decision(
+                    "join_capacity", "runtime.sized_expansion", "licensed",
+                    "runtime_check", cap_inputs,
+                )
 
                 def build_licensed(_oc=oc):
                     def step(pb: Batch, bb: Batch):
@@ -1766,16 +2032,30 @@ class StageExecutor:
                 fn = cached_spmd_step(
                     self.wm, ("licensed_expand", oc, cap_p) + key, build_licensed
                 )
-                out = fn(probe_stacked, build_stacked)
-                self.bump("join_capacity_proven")
-                if oc > 1024:
-                    # compact the licensed output to its live bucket and
-                    # record the tight width for the next run's economy check
-                    out = self._compact_live(
-                        out, ("licensed_compact",) + key, history_key=hist_key
-                    )
+                with decision_scope(did):
+                    out = fn(probe_stacked, build_stacked)
+                    self.bump("join_capacity_proven")
+                    if oc > 1024:
+                        # compact the licensed output to its live bucket and
+                        # record the tight width for the next run's economy
+                        # check
+                        out = self._compact_live(
+                            out, ("licensed_compact",) + key, history_key=hist_key
+                        )
+                observe_decision(
+                    did, executed=1, live_cap=int(CAP_HISTORY.guess(hist_key, 0))
+                )
                 return out
             self.bump("join_license_declined")
+            did = record_decision(
+                "join_capacity", "runtime.sized_expansion", "declined",
+                "licensed", {**cap_inputs, "declined_reason": declined},
+            )
+        else:
+            did = record_decision(
+                "join_capacity", "runtime.sized_expansion", "runtime_check",
+                "", {"probe_cap": int(cap_p)},
+            )
 
         out_cap = initial_cap(hist_key, spec) if spec is not None else None
 
@@ -1804,13 +2084,15 @@ class StageExecutor:
             fn = cached_spmd_step(
                 self.wm, ("fused_expand", out_cap, pcap) + key, build_fused
             )
-            out, total, live, over = fn(probe_stacked, build_stacked)
-            over_h, total_h, live_h = self._host_pull(over, total, live)
+            with decision_scope(did):
+                out, total, live, over = fn(probe_stacked, build_stacked)
+                over_h, total_h, live_h = self._host_pull(over, total, live)
             self.bump("join_overflow_check")
             if not over_h.any():
                 CAP_HISTORY.record(hist_key, out_cap)
                 if compact_probe:
                     CAP_HISTORY.record(pkey, pcap)
+                observe_decision(did, executed=1, runtime_cap=int(out_cap))
                 return out
             self.bump("join_speculative_retry")
             if int(live_h.max()) > pcap:
@@ -1828,8 +2110,9 @@ class StageExecutor:
             return step
 
         loc = cached_spmd_step(self.wm, ("locate",) + key, build_locate)
-        sb, start, count, total_dev, live_dev = loc(probe_stacked, build_stacked)
-        totals, lives = self._host_pull(total_dev, live_dev)
+        with decision_scope(did):
+            sb, start, count, total_dev, live_dev = loc(probe_stacked, build_stacked)
+            totals, lives = self._host_pull(total_dev, live_dev)
         self.bump("join_capacity_sync")
         cap = next_pow2(max(1, int(totals.max())), floor=1024)
 
@@ -1840,7 +2123,9 @@ class StageExecutor:
             return step
 
         fn = cached_spmd_step(self.wm, ("expand", cap) + key, build_expand)
-        out = fn(probe_stacked, sb, start, count, total_dev)
+        with decision_scope(did):
+            out = fn(probe_stacked, sb, start, count, total_dev)
+        observe_decision(did, executed=1, runtime_cap=int(cap))
         if spec is not None:
             CAP_HISTORY.record(hist_key, cap)
             if compact_probe:
@@ -1902,14 +2187,17 @@ class StageExecutor:
                 or node.filtering_key.name in filt.unaligned
             )
             if self.colocate and (src_placed or filt_placed or moved):
-                if src_placed:
-                    self.bump("exchange_elided")
-                else:
-                    src = self._repartition_side(src, [sk])
-                if filt_placed:
-                    self.bump("exchange_elided")
-                else:
-                    filt = self._repartition_side(filt, [fk])
+                with decision_scope(node.decision_id):
+                    if src_placed:
+                        self.bump("exchange_elided")
+                        observe_decision(node.decision_id, elided=1)
+                    else:
+                        src = self._repartition_side(src, [sk])
+                    if filt_placed:
+                        self.bump("exchange_elided")
+                        observe_decision(node.decision_id, elided=1)
+                    else:
+                        filt = self._repartition_side(filt, [fk])
             filt_stacked = filt.stacked
             has_null = global_has_null(filt_stacked)
             cap_b = trailing_cap(filt_stacked)
@@ -1945,8 +2233,17 @@ class StageExecutor:
             )
 
         op = SemiJoinOperator(sk, fk, filtering_types, null_aware=node.null_aware)
-        bcast = self._broadcast(filt.stacked)
+        with decision_scope(node.decision_id):
+            bcast = self._broadcast(filt.stacked)
         self.bump("broadcast")
+        if node.decision_id is not None:
+            observe_decision(
+                node.decision_id,
+                build_bytes=int(batch_bytes(bcast)) // max(1, self.wm.n),
+                probe_move_bytes=(
+                    0 if src.placements else int(batch_bytes(src.stacked))
+                ),
+            )
         cap_b = trailing_cap(bcast)
         has_null = global_has_null(bcast)
 

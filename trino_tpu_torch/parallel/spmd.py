@@ -27,6 +27,7 @@ import torch
 from trino_tpu_torch.columnar import Batch, Column
 from trino_tpu_torch.columnar.batch import pad_elements
 from trino_tpu_torch.ops.common import next_pow2
+from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
 
 
 class TraceCache:
@@ -35,9 +36,11 @@ class TraceCache:
     jitted SPMD programs; torch does not compile, so a hit saves only the
     closure construction).
 
-    `hits` and `misses` count lookups (a miss builds a step); `retraces`
-    stays 0, since nothing is traced; `evictions` counts entries dropped
-    past `limit`.  While a mesh statement runs, `on_build(seconds)` (set
+    `hits` and `misses` count lookups (a miss builds a step and opens a
+    compile event in telemetry/compile_events.OBSERVATORY, which the
+    step's first launch closes); `retraces` stays 0, since nothing is
+    traced; `evictions` counts entries dropped past `limit`.  While a
+    mesh statement runs, `on_build(seconds)` (set
     by the stage executor for its thread) receives each build's seconds,
     which its profile books as the fragment's `trace` phase.  `audit`
     (verify.cache_key_audit) is called as audit(key, build) on every get,
@@ -75,9 +78,19 @@ class TraceCache:
                 self.hits += 1
                 return fn
             self.misses += 1
+        # a miss is a compile event (telemetry/compile_events): opened now,
+        # closed by the step's first launch
+        ev = OBSERVATORY.open_miss(key)
         t0 = time.perf_counter()
-        fn = build()
+        try:
+            fn = build()
+        except BaseException:
+            # nothing was built: withdraw the event so the next launch does
+            # not inherit it
+            OBSERVATORY.abort(ev)
+            raise
         dt = time.perf_counter() - t0
+        OBSERVATORY.built(ev, dt)
         hook = self.on_build
         with self._lock:
             self._fns[key] = fn
@@ -348,14 +361,29 @@ def set_launch_hook(hook: Optional[Callable]) -> Optional[Callable]:
     return prev
 
 
-def _launcher(fn: Callable, phase: str) -> Callable:
+def _launcher(fn: Callable, phase: str, wm: WorkerMesh) -> Callable:
     def launch(*args):
         hook = getattr(_LAUNCH, "hook", None)
-        if hook is None:
+        if hook is not None:
+            return hook(fn, args, phase)
+        if not OBSERVATORY.has_open():
             return fn(*args)
-        return hook(fn, args, phase)
+        # outside a statement's executor: the launch closes the compile
+        # events its build opened
+        t0 = time.perf_counter()
+        out = fn(*args)
+        OBSERVATORY.close_open(
+            time.perf_counter() - t0, bucket=launch_bucket(args), mesh=mesh_key(wm)
+        )
+        return out
 
     return launch
+
+
+def launch_bucket(args) -> Optional[int]:
+    """The shape bucket of a launch: the trailing capacity of its first
+    stacked batch argument (a host-side shape read)."""
+    return next((trailing_cap(a) for a in args if isinstance(a, Batch)), None)
 
 
 def cached_spmd_step(wm: WorkerMesh, key: tuple, build_step: Callable,
@@ -368,4 +396,4 @@ def cached_spmd_step(wm: WorkerMesh, key: tuple, build_step: Callable,
         ("spmd", collective, mesh_key(wm)) + tuple(key),
         lambda: build_step() if collective else spmd_step(wm, build_step()),
     )
-    return _launcher(fn, "collective" if collective else "compute")
+    return _launcher(fn, "collective" if collective else "compute", wm)

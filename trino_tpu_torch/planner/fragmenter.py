@@ -21,6 +21,7 @@ from typing import Optional
 
 from trino_tpu_torch.planner import plan as P
 from trino_tpu_torch.planner.functions import HOLISTIC_AGGS, PARTITIONABLE_HOLISTIC
+from trino_tpu_torch.telemetry.decisions import record_decision
 
 # -- partitioning handles (SystemPartitioningHandle.java:41-57) ---------------
 
@@ -52,8 +53,9 @@ class RemoteSourceNode(P.PlanNode):
     exchange_kind: str  # repartition | broadcast | gather | merge
     partition_symbols: list = field(default_factory=list)
     orderings: list = field(default_factory=list)  # merge exchanges
-    #: plan-decision id carried from the cut ExchangeNode (the JAX
-    #: package's decision ledger; not ported, so always None here)
+    #: plan-decision id carried from the cut ExchangeNode: the runtime
+    #: applies this exchange under a matching decision_scope, so the
+    #: collective's measured bytes join the placer's recorded choice
     decision_id: Optional[str] = None
 
     @property
@@ -252,6 +254,10 @@ class ExchangePlacer:
                 if any(
                     t and set(t) <= gnames for t in self._placements(child)
                 ):
+                    record_decision(
+                        "exchange", "planner.agg_placement", "elide",
+                        "repartition", {"group_keys": sorted(gnames)},
+                    )
                     return (
                         node.with_children([child]),
                         _Distribution.DISTRIBUTED,
@@ -259,7 +265,14 @@ class ExchangePlacer:
             # the executor pushes the PARTIAL step to the producing side of
             # the exchange and runs FINAL above it (the
             # PushPartialAggregationThroughExchange effect)
-            ex = P.ExchangeNode(child, "repartition", list(node.group_symbols))
+            did = record_decision(
+                "exchange", "planner.agg_placement", "repartition", "gather",
+                {"group_keys": [s.name for s in node.group_symbols]},
+            )
+            ex = P.ExchangeNode(
+                child, "repartition", list(node.group_symbols),
+                decision_id=did,
+            )
             return node.with_children([ex]), _Distribution.DISTRIBUTED
         # global aggregation: partial states per worker, gathered + merged
         ex = P.ExchangeNode(child, "gather")
@@ -313,6 +326,15 @@ class ExchangePlacer:
             # one worker (reference: AddExchanges forces partitioned for
             # full/right joins)
             broadcast = False
+        # decision-ledger inputs: exactly what this rule saw when it chose
+        # (telemetry/decisions) — the hindsight join compares the measured
+        # collective bytes against the rejected alternative's estimate
+        inputs = {
+            "join_kind": node.kind,
+            "estimated_build_rows": est,
+            "broadcast_join_rows": limit,
+            "join_distribution_type": pref,
+        }
         if broadcast and self.colocate:
             # partitioning matching beats the stats heuristic: when the
             # PROBE side is already placed on its keys (bucketed layout or
@@ -323,28 +345,54 @@ class ExchangePlacer:
                 left, right, node.criteria
             )
             if dist == "colocated" or lex is left:
+                did = record_decision(
+                    "join_distribution", "planner.add_exchanges", dist,
+                    "broadcast", inputs,
+                )
+                self._stamp(lex, did)
+                self._stamp(rex, did)
                 return (
                     P.JoinNode(
                         node.kind, lex, rex, node.criteria, node.filter,
-                        dist, node.capacity_cert,
+                        dist, node.capacity_cert, did,
                     ),
                     _Distribution.DISTRIBUTED,
                 )
         if broadcast:
-            ex = P.ExchangeNode(right, "broadcast")
+            did = record_decision(
+                "join_distribution", "planner.add_exchanges", "broadcast",
+                "partitioned", inputs,
+            )
+            ex = P.ExchangeNode(right, "broadcast", decision_id=did)
             out = P.JoinNode(
                 node.kind, left, ex, node.criteria, node.filter,
-                "broadcast", node.capacity_cert,
+                "broadcast", node.capacity_cert, did,
             )
         else:
             lex, rex, dist = self._partitioned_join_sides(
                 left, right, node.criteria
             )
+            did = record_decision(
+                "join_distribution", "planner.add_exchanges", dist,
+                "broadcast", inputs,
+            )
+            self._stamp(lex, did)
+            self._stamp(rex, did)
             out = P.JoinNode(
                 node.kind, lex, rex, node.criteria, node.filter, dist,
-                node.capacity_cert,
+                node.capacity_cert, did,
             )
         return out, _Distribution.DISTRIBUTED
+
+    @staticmethod
+    def _stamp(node, decision_id) -> None:
+        """Attribute an exchange the placer just inserted to a decision
+        (never overwrites: an exchange belongs to exactly one choice)."""
+        if (
+            isinstance(node, P.ExchangeNode)
+            and node.decision_id is None
+        ):
+            node.decision_id = decision_id
 
     def _partitioned_join_sides(self, left, right, criteria):
         """Exchange placement for a partitioned join, with partitioning
@@ -368,8 +416,24 @@ class ExchangePlacer:
         rprops = self._placements(right)
         coding = dict(derive_dictionary_coding(left, self.resolver))
         coding.update(derive_dictionary_coding(right, self.resolver))
-        # versioned varchar keys participate in hash alignment like integers
         aligned = hash_aligned_criteria(criteria, coding)
+        # dictionary-coding placement lift: versioned varchar keys that
+        # participate in hash alignment like integers — a choice worth a
+        # ledger entry, because the rejected alternative (dropping the
+        # string keys from the alignment) forces a wider repartition
+        from trino_tpu_torch import types as T
+
+        coded = [
+            f"{l.name}={r.name}"
+            for l, r in aligned
+            if T.is_string_kind(l.type)
+        ]
+        if coded:
+            record_decision(
+                "dictionary_placement", "planner.partitioned_join_sides",
+                "coded_colocate", "exclude_varchar_keys",
+                {"keys": coded},
+            )
         l2r = {l.name: r for l, r in aligned}
         for tl in lprops:
             if tl and all(n in l2r for n in tl):
@@ -405,16 +469,28 @@ class ExchangePlacer:
             # so every key-matching candidate pair is co-located; the
             # residual evaluates per shard (reference: AddExchanges semi join
             # partitioned distribution)
+            did = record_decision(
+                "join_distribution", "planner.semijoin", "partitioned",
+                "broadcast",
+                {"residual": True, "key": node.source_key.name},
+            )
             sex = P.ExchangeNode(
-                src, "repartition", [node.source_key]
+                src, "repartition", [node.source_key], decision_id=did
             )
             fex = P.ExchangeNode(
-                filt, "repartition", [node.filtering_key]
+                filt, "repartition", [node.filtering_key], decision_id=did
             )
             out = node.with_children([sex, fex])
+            out.decision_id = did
             return out, _Distribution.DISTRIBUTED
-        ex = P.ExchangeNode(filt, "broadcast")
+        did = record_decision(
+            "join_distribution", "planner.semijoin", "broadcast",
+            "partitioned",
+            {"residual": False, "key": node.source_key.name},
+        )
+        ex = P.ExchangeNode(filt, "broadcast", decision_id=did)
         out = node.with_children([src, ex])
+        out.decision_id = did
         return out, _Distribution.DISTRIBUTED
 
     # -- sorting / limiting: partial per worker + merge/gather + final --
@@ -461,8 +537,12 @@ class ExchangePlacer:
                 node.with_children([self._gathered(child, dist)]),
                 _Distribution.SINGLE,
             )
+        did = record_decision(
+            "exchange", "planner.window", "repartition", "gather",
+            {"partition_by": [s.name for s in node.partition_by]},
+        )
         ex = P.ExchangeNode(
-            child, "repartition", list(node.partition_by)
+            child, "repartition", list(node.partition_by), decision_id=did
         )
         return node.with_children([ex]), _Distribution.DISTRIBUTED
 
@@ -472,8 +552,12 @@ class ExchangePlacer:
             return node.with_children([child]), _Distribution.SINGLE
         # repartition on the full key set: every distinct combination lands
         # wholly on one worker, so first-occurrence marks are globally unique
+        did = record_decision(
+            "exchange", "planner.mark_distinct", "repartition", "gather",
+            {"keys": [s.name for s in node.key_symbols]},
+        )
         ex = P.ExchangeNode(
-            child, "repartition", list(node.key_symbols)
+            child, "repartition", list(node.key_symbols), decision_id=did
         )
         return node.with_children([ex]), _Distribution.DISTRIBUTED
 

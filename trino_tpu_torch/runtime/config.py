@@ -14,10 +14,11 @@ continuation.
 Port of trino_tpu/runtime/config.py.  The `tpch`, `tpcds`, `memory` and
 `blackhole` connectors load; the `hive`, `iceberg` and `parquet`
 factories raise NotImplementedError naming themselves (their connectors
-are not ported).  The file event listener is ported.  The knobs of
-pieces that are not ported raise NotImplementedError naming the piece
-when config.properties sets them: `profile.archive-dir` (the profile
-store), `audit.log-path` (the audit log), `prewarm.manifest-path`
+are not ported).  The file event listener is ported, and so are the
+query performance observatory's knobs: `profile.archive-dir` attaches a
+profile store and `audit.log-path` an audit log to the runner.  The
+knobs of pieces that are not ported raise NotImplementedError naming the
+piece when config.properties sets them: `prewarm.manifest-path`
 (prewarm) and `access-control.config-file` (security); unset, they do
 nothing, as in the JAX package.  `runner_from_etc` builds a
 LocalQueryRunner on the card unless `device=` names another device.
@@ -160,12 +161,12 @@ def _coerce(v: str):
 
 def runner_from_etc(etc_dir: str, **kw):
     """LocalQueryRunner wired from an etc/ directory (catalogs, session
-    defaults, the event listener); `kw` goes to the runner (`device=`)."""
+    defaults, the event listener, the profile store and the audit log);
+    `kw` goes to the runner (`device=`)."""
     from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
     cfg = load_etc(etc_dir)
-    # the query performance observatory (`profile.archive-dir`,
-    # `audit.log-path`), prewarm (`prewarm.manifest-path`) and security
+    # prewarm (`prewarm.manifest-path`) and security
     # (`access-control.config-file`) are not ported: configuring one raises
     for key, piece in _UNPORTED_KNOBS:
         if cfg.node_properties.get(key):
@@ -203,13 +204,20 @@ def runner_from_etc(etc_dir: str, **kw):
         from trino_tpu_torch.runtime.events import FileEventListener
 
         r.events.add(FileEventListener(el_props["file.path"]))
+    # query performance observatory: the JSONL audit log (`audit.log-path`)
+    # and the per-query profile archive (`profile.archive-dir`) attach when
+    # configured — both no-ops without their knobs (load_etc installed the
+    # typed config they read)
+    from trino_tpu_torch.telemetry.audit import attach_audit_log
+    from trino_tpu_torch.telemetry.profile_store import attach_profile_store
+
+    attach_profile_store(r)
+    attach_audit_log(r)
     return r
 
 
 #: config.properties keys of pieces the port does not have yet
 _UNPORTED_KNOBS = (
-    ("profile.archive-dir", "telemetry/profile_store, the profile archive"),
-    ("audit.log-path", "telemetry/audit, the audit log"),
     ("prewarm.manifest-path", "runtime/prewarm, the prewarm executor"),
     ("access-control.config-file", "security, rule-based access control"),
 )

@@ -373,13 +373,40 @@ class GlobalDictionaryService:
                       max_inline: int = DEFAULT_MAX_INLINE_VALUES) -> None:
         """Persist atomically through the filesystem SPI (tmp + rename —
         a reader never observes a torn snapshot)."""
-        raise NotImplementedError("dictionary snapshots: filesystem SPI not ported yet")
+        from trino_tpu_torch.filesystem import filesystem_for, strip_scheme
+
+        fs = filesystem_for(location)
+        doc = self.snapshot_doc(max_inline)
+        fs.write(
+            strip_scheme(location),
+            (json.dumps(doc, indent=1) + "\n").encode(),
+        )
 
     def load_snapshot(self, location: str) -> int:
         """Load a snapshot; a missing/torn/unreadable one degrades LOUDLY
         to producer-local codes (plans lose varchar co-location — slower,
         never wrong).  Returns entries adopted (0 on degrade)."""
-        raise NotImplementedError("dictionary snapshots: filesystem SPI not ported yet")
+        from trino_tpu_torch.filesystem import filesystem_for, strip_scheme
+
+        try:
+            fs = filesystem_for(location)
+            path = strip_scheme(location)
+            if not fs.exists(path):
+                log.warning(
+                    "global dictionary snapshot missing at %s: degrading to "
+                    "producer-local codes (varchar keys lose co-location "
+                    "until connectors re-register)", location,
+                )
+                return 0
+            doc = json.loads(fs.read(path).decode())
+        except (NotImplementedError, OSError, ValueError) as e:
+            log.warning(
+                "global dictionary snapshot unreadable at %s (%s): degrading "
+                "to producer-local codes (never wrong results, but varchar "
+                "keys repartition until connectors re-register)", location, e,
+            )
+            return 0
+        return self.load_doc(doc)
 
     # -- maintenance -----------------------------------------------------------
 

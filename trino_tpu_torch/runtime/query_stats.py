@@ -24,6 +24,7 @@ from dataclasses import dataclass, field
 import torch
 
 from trino_tpu_torch.telemetry import NULL_TRACER, now
+from trino_tpu_torch.telemetry.decisions import observe_collective
 from trino_tpu_torch.telemetry.metrics import (
     collective_bytes_counter,
     mesh_events_counter,
@@ -165,9 +166,10 @@ class MeshProfile:
         key = (kind, purpose)
         st.collective_by[key] = st.collective_by.get(key, 0) + nbytes
         collective_bytes_counter().labels(kind, purpose).inc(nbytes)
-        # the JAX package also credits these bytes to the decision ledger
-        # (telemetry/decisions observe_collective); the ledger is not
-        # ported, so the attribution ends here
+        # decision-ledger attribution (telemetry/decisions): the same
+        # bytes, credited to the planner choice whose scope is active —
+        # host-side bookkeeping on an int the profile already holds
+        observe_collective(fid, nbytes, kind, purpose)
 
     def collective_sequences(self) -> dict:
         """{fragment id: ((kind, purpose), ...)} of mesh collectives in

@@ -27,9 +27,7 @@ table co-located on its bucket columns.
 Not ported: security (GRANT, REVOKE, roles, SHOW ROLES/GRANTS) raises
 NotImplementedError naming itself.  The
 JAX runner's access-control checks and ownership records are left out:
-its default control allows everything, so no result changes.  Neither
-are the decision ledger and the profile archive (`profile_store` stays
-None; attaching one raises).
+its default control allows everything, so no result changes.
 
 Each statement runs under a QueryContext (runtime/lifecycle.py) made by
 the runner's QueryTracker: its state machine, its deadlines
@@ -39,7 +37,12 @@ The statement emits created and completed events (runtime/events.py;
 system.runtime.queries reads them), bumps the registry's counters, and,
 under `query_trace`, records a span tree (telemetry/spans.py: query ->
 analyze, optimize, execute) that EXPLAIN ANALYZE VERBOSE renders and
-system.runtime.spans lists.  `retry_policy = 'QUERY'` re-runs a statement
+system.runtime.spans lists.  Each statement also gets a plan-decision
+ledger (telemetry/decisions.py), finalized with hindsight verdicts when
+it ends; with a profile store attached (`profile_store`,
+telemetry/profile_store.py) its profile artifact is assembled on the
+statement thread and written by the store's writer thread.
+`retry_policy = 'QUERY'` re-runs a statement
 that failed with a retryable error (runtime/retry.py).  When the
 statement ends, success or failure, its spill stores are closed (their
 files deleted) and its reservations released, even when a wave generator
@@ -151,9 +154,14 @@ class LocalQueryRunner:
         self.last_trace = None
         #: (query_id, flattened spans) ring buffer (system.runtime.spans)
         self.traces = deque(maxlen=64)
-        #: the archive of per-query profiles (telemetry/profile_store) is
-        #: not ported: it stays None, and attaching one raises
-        self._profile_store = None
+        #: persistent per-query profile archive (telemetry/profile_store):
+        #: None = archiving off (zero cost).  Attached by runner_from_etc
+        #: (attach_profile_store) or explicitly; not here, so a dispatcher
+        #: lane never builds a store it immediately replaces
+        self.profile_store = None
+        #: statement-thread seconds the last archived artifact's assembly
+        #: took (`_archive_profile`)
+        self.last_artifact_s = 0.0
         #: the last statement's QueryContext (its peak reservation)
         self.last_query = None
         #: the running statement's class name and its `_collect_rows`
@@ -168,29 +176,17 @@ class LocalQueryRunner:
         #: append)
         self.last_writes: list = []
 
-    @property
-    def profile_store(self):
-        return self._profile_store
-
-    @profile_store.setter
-    def profile_store(self, store) -> None:
-        if store is not None:
-            raise NotImplementedError(
-                "profile_store (telemetry/profile_store, the per-query "
-                "profile archive): not ported yet"
-            )
-        self._profile_store = None
-
     def clone_for_dispatch(self) -> "Optional[LocalQueryRunner]":
         """An engine-lane clone for the concurrent dispatcher
         (runtime/dispatcher.QueryDispatcher): it shares everything whose
         identity matters across lanes (the device, catalogs and through
         them the system connector bound to THIS runner, the query tracker
         and id counter, the events and query history, the session
-        properties, transactions, views, prepared statements and the span
-        ring) while per-statement state (tracer, last trace, mesh profile,
-        last query) stays lane-private.  Subclasses (the mesh runner)
-        return None: the dispatcher then runs one lane."""
+        properties, transactions, views, prepared statements, the span
+        ring and the profile store) while per-statement state (tracer,
+        last trace, mesh profile, last query) stays lane-private.
+        Subclasses (the mesh runner) return None: the dispatcher then runs
+        one lane."""
         if type(self) is not LocalQueryRunner:
             return None
         lane = LocalQueryRunner(
@@ -209,6 +205,7 @@ class LocalQueryRunner:
         lane.views = self.views
         lane.prepared = self.prepared
         lane.traces = self.traces
+        lane.profile_store = self.profile_store
         return lane
 
     # -- per-statement telemetry handles (lane safety) -------------------------
@@ -345,6 +342,15 @@ class LocalQueryRunner:
         prev_tracer = self._tracer  # a nested execute (EXECUTE) restores it
         self._tracer = tracer
         ctx.tracer = tracer
+        # plan-decision ledger: one per statement, like the tracer, so
+        # concurrent lanes record into disjoint ledgers
+        from trino_tpu_torch.telemetry.decisions import ensure_ledger
+
+        ensure_ledger(ctx)
+        if self.profile_store is not None and self.device.type == "cuda":
+            # the artifact's peak memory is the allocator's peak during
+            # this statement
+            torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.time()
         self.events.query_created(QueryCreatedEvent(qid, sql, t0))
         try:
@@ -370,6 +376,11 @@ class LocalQueryRunner:
             queries_counter().labels(state, etype).inc()
             query_wall_histogram().observe(end - t0)
             self._finish_trace(qid, tracer, prev_tracer, ctx)
+            self._finalize_decisions(ctx)
+            self._archive_profile(
+                ctx, sql, state, end - t0,
+                error_code=getattr(e, "error_code", None),
+            )
             self.events.query_completed(
                 QueryCompletedEvent(
                     qid, sql, state, t0, end, error=str(e),
@@ -390,6 +401,8 @@ class LocalQueryRunner:
         queries_counter().labels("FINISHED", "").inc()
         query_wall_histogram().observe(end - t0)
         self._finish_trace(qid, tracer, prev_tracer, ctx)
+        self._finalize_decisions(ctx)
+        self._archive_profile(ctx, sql, "FINISHED", end - t0, rows=result.row_count)
         self.events.query_completed(
             QueryCompletedEvent(
                 qid, sql, "FINISHED", t0, end, rows=result.row_count,
@@ -433,6 +446,81 @@ class LocalQueryRunner:
         self.last_trace = trace
         self.traces.append((qid, tracer.flat_spans()))
 
+    def _finalize_decisions(self, ctx) -> None:
+        """Join the statement's plan-decision ledger with its measured
+        outcomes and stamp hindsight verdicts (telemetry/decisions).
+        Runs before the profile artifact is assembled so the ledger lands
+        in it.  Host-side arithmetic on integers the profile already
+        holds; must never break a query."""
+        ledger = getattr(ctx, "decisions", None)
+        if ledger is None:
+            return
+        try:
+            wm = getattr(self, "wm", None)
+            n = wm.n if wm is not None else 1
+            prof = ctx.mesh_profile
+            phases = (
+                {fid: st.wall_s for fid, st in prof.fragments.items()}
+                if prof is not None
+                else None
+            )
+            ledger.finalize(
+                n_workers=n,
+                regret_ratio=float(
+                    self.properties.get("decision_regret_ratio")
+                ),
+                min_bytes=int(
+                    self.properties.get("decision_regret_min_bytes")
+                ),
+                fragment_phases=phases,
+            )
+        except Exception:
+            import logging
+
+            logging.getLogger("trino_tpu_torch.decisions").warning(
+                "failed to finalize decision ledger for %s", ctx.query_id,
+                exc_info=True,
+            )
+
+    def _archive_profile(self, ctx, sql: str, state: str, wall_s: float,
+                         rows: int = 0, error_code=None) -> None:
+        """Assemble + archive this statement's profile artifact
+        (telemetry/profile_store) when a store is attached.  Assembly is
+        host-side dict building on the statement thread, timed into
+        `last_artifact_s`; the SPI write happens on the store's background
+        writer, after FINISHING.  Archiving must never break a query."""
+        store = getattr(self, "profile_store", None)
+        if store is None:
+            return
+        t0 = time.perf_counter()
+        try:
+            from trino_tpu_torch.telemetry.profile_store import artifact_from_runner
+
+            ctx.profile_ref = store.archive(
+                artifact_from_runner(
+                    self, ctx, sql, state, wall_s, rows=rows,
+                    error_code=error_code,
+                )
+            )
+        except Exception:
+            import logging
+
+            logging.getLogger("trino_tpu_torch.profile_store").warning(
+                "failed to assemble profile artifact for %s", ctx.query_id,
+                exc_info=True,
+            )
+        self.last_artifact_s = time.perf_counter() - t0
+
+    def compile_manifest(self) -> list:
+        """The deduplicated (step, bucket, mesh) compile-key set this
+        process's workload has needed, with per-key seconds — the compile
+        observatory's manifest (telemetry/compile_events): step-cache
+        builds and kernel builds/loads.  A workload whose warm replays add
+        zero entries has a closed key set."""
+        from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
+
+        return OBSERVATORY.manifest()
+
     def _query_statistics(self, wall_s: float, rows: int, tracer, ctx):
         """The QueryStatistics payload from the statement's own handles
         (the mesh profile when distributed, the span count, the peak
@@ -457,6 +545,9 @@ class LocalQueryRunner:
             stats.group, stats.queued_s = adm[0], round(adm[1], 6)
         if tracer.enabled:
             stats.spans = len(tracer.flat_spans())
+        ref = ctx.profile_ref
+        if ref is not None:
+            stats.profile_key = ref["key"]
         return stats
 
     def _collect_rows(self, stream) -> list:

@@ -11,9 +11,13 @@ Prometheus text.
     Chrome-trace/Perfetto JSON; zero-overhead NULL_TRACER when off.
   * `metrics` — counters/gauges/histograms registered once and bumped
     everywhere.
-
-The compile observatory, the decision ledger, the profile store and the
-audit log of the JAX package's telemetry are not ported yet.
+  * `compile_events` — the compile observatory: step-cache builds and
+    kernel builds/loads as events (system.runtime.compilations).
+  * `decisions` — the per-statement plan-decision ledger with hindsight
+    verdicts (system.runtime.plan_decisions).
+  * `profile_store` — the per-query profile archive
+    (`profile.archive-dir`, system.runtime.query_profiles).
+  * `audit` — the JSONL query audit log (`audit.log-path`).
 """
 
 from trino_tpu_torch.telemetry.metrics import (

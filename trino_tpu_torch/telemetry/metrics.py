@@ -11,20 +11,23 @@ host integer or float: bumping a metric never synchronizes with the
 device.  `system.runtime.metrics` and `system.metrics.metrics` read
 `REGISTRY.rows()`.
 
-The engine vocabulary is the JAX package's, name for name.  Some series
-are fed by modules that are not ported yet, so nothing in the port bumps
-them and they stay at their initial values: compile events
-(`compile_seconds`, `compile_events_total`), the circuit breakers of the
-multi-host HTTP tier (`breaker_trips_total`, `breaker_state`), membership
-(`membership_events_total`, `worker_alive`), task retries and spooling
-(`task_retries_total`, `spooled_fragments_total`), prewarm
-(`prewarm_runs_total`, `prewarm_statements_total`, `prewarm_state`),
-profiles and audit (`profiles_archived_total`, `profiles_pruned_total`,
-`audit_events_total`, `audit_rotations_total`), the decimal fast paths,
-join capacity outcomes, plan decisions and collective-schedule
-pre-dispatch.  The trace-cache series read the port's step cache
-(parallel/spmd.TRACE_CACHE): torch runs eagerly and traces nothing, so a
-miss builds a step closure and `retraces` stays 0.
+The engine vocabulary is the JAX package's, name for name.  The compile
+series (`compile_seconds`, `compile_events_total`) read the compile
+observatory (telemetry/compile_events: step-cache builds and kernel
+builds/loads); task retries and spooling (`task_retries_total`,
+`spooled_fragments_total`) count the mesh's fault-tolerant execution;
+the profile archive and the audit log bump `profiles_archived_total`,
+`profiles_pruned_total`, `audit_events_total` and
+`audit_rotations_total`; the decision ledger bumps
+`plan_decisions_total`.  Some series are fed by modules that are not
+ported yet, so nothing in the port bumps them and they stay at their
+initial values: the circuit breakers of the multi-host HTTP tier
+(`breaker_trips_total`, `breaker_state`), membership
+(`membership_events_total`, `worker_alive`) and prewarm
+(`prewarm_runs_total`, `prewarm_statements_total`, `prewarm_state`).  The
+trace-cache series read the port's step cache (parallel/spmd.TRACE_CACHE):
+torch runs eagerly and traces nothing, so a miss builds a step closure
+and `retraces` stays 0.
 """
 
 from __future__ import annotations
@@ -485,9 +488,9 @@ GATE_SECONDS_BUCKETS = (
 
 
 def _compile_events_total():
-    # the compile observatory (telemetry/compile_events) is not ported:
-    # nothing records a compile event
-    return 0
+    from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
+
+    return OBSERVATORY.count
 
 
 def _trace_cache_series(stat: str):

@@ -30,7 +30,9 @@ that class at test time:
   * `instrument_attr(obj, "_lock", name)` wraps one existing lock in place
     (for process singletons created before the capture began);
     `instrument_singletons()` does it for the port's own process-wide
-    locks.
+    locks (the compile observatory's and the audit sequence's among
+    them) and for the profile store of each runner passed to
+    `capture(runners=...)`.
 
 Everything is deterministic: the graph is about ORDER, not interleaving, so
 a single thread acquiring A->B then B->A is enough to prove the hazard.
@@ -267,7 +269,7 @@ def _singleton_sites() -> list:
     from trino_tpu_torch.partitioning.speculative import CAP_HISTORY
     from trino_tpu_torch.runtime import buffer_pool, dispatcher, lifecycle, spill
     from trino_tpu_torch.runtime.dictionary_service import DICTIONARY_SERVICE
-    from trino_tpu_torch.telemetry import metrics
+    from trino_tpu_torch.telemetry import audit, compile_events, metrics
 
     return [
         (dispatcher, "_DEVICE_GATE", "dispatcher:_DEVICE_GATE"),
@@ -288,25 +290,32 @@ def _singleton_sites() -> list:
         (spill.REVOCABLES, "_lock", "REVOCABLES._lock"),
         (DICTIONARY_SERVICE, "_lock", "DICTIONARY_SERVICE._lock"),
         (CAP_HISTORY, "_lock", "CAP_HISTORY._lock"),
+        (compile_events.OBSERVATORY, "_lock", "OBSERVATORY._lock"),
+        (audit, "_seq_lock", "audit:_seq_lock"),
     ]
 
 
-def instrument_singletons(graph: Optional[LockGraph] = None) -> list:
+def instrument_singletons(graph: Optional[LockGraph] = None, runners=()) -> list:
     """Wrap the port's process-wide locks (created at import time, before
-    any capture() could see them).  Returns restore callables."""
-    return [
-        instrument_attr(obj, attr, name, graph)
-        for obj, attr, name in _singleton_sites()
-    ]
+    any capture() could see them) and the lock of each given runner's
+    profile store (attached before the capture).  Returns restore
+    callables."""
+    sites = list(_singleton_sites())
+    for r in runners:
+        store = getattr(r, "profile_store", None)
+        if store is not None:
+            sites.append((store, "_lock", "ProfileStore._lock"))
+    return [instrument_attr(obj, attr, name, graph) for obj, attr, name in sites]
 
 
 @contextmanager
-def capture(graph: Optional[LockGraph] = None, singletons: bool = True):
+def capture(graph: Optional[LockGraph] = None, singletons: bool = True,
+            runners=()):
     """Scope in which every `threading.Lock()` and `threading.RLock()`
     creation yields an instrumented lock named by its allocation site,
     feeding `graph` (a fresh LockGraph when None — yielded to the caller).
-    With `singletons`, the port's import-time locks are wrapped for the
-    scope too.
+    With `singletons`, the port's import-time locks (and the profile
+    stores of `runners`) are wrapped for the scope too.
 
     The patch is process-global for the scope: locks created by OTHER
     threads during it are instrumented as well — which is the point, the
@@ -320,7 +329,7 @@ def capture(graph: Optional[LockGraph] = None, singletons: bool = True):
     def make_rlock():
         return InstrumentedRLock(f"rlock@{_site()}", g, inner=real_rlock())
 
-    restores = instrument_singletons(g) if singletons else []
+    restores = instrument_singletons(g, runners) if singletons else []
     threading.Lock, threading.RLock = make_lock, make_rlock
     try:
         yield g

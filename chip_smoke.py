@@ -299,6 +299,30 @@ catches nothing and never falls back to the CPU):
      statement, and the statement thread's artifact-assembly seconds
      logged.  N1's and N2's rows are held to the port's CPU run with phases
      4-5c's;
+  5o. serving on the card at tpch.sf1: the port's coordinators on 127.0.0.1
+     with ephemeral ports.  O1: a CoordinatorServer with a password
+     authenticator (alice, admin) over a runner built by runner_from_etc
+     from an etc/ directory under build/ (tpch and memory catalogs, 2
+     dispatcher lanes, `pallas_agg` on, an access-control file: alice may
+     SELECT tpch only, admin anything); alice runs Q1, Q6 and Q1-double
+     over HTTP with Basic credentials through the Client, cold and warm
+     (Q1-double must launch the grouped-sums kernel); a wrong password and
+     no credentials get 401; alice's CTAS into memory fails with
+     AccessDeniedError and creates no table; admin's CREATE ROLE, GRANT,
+     SHOW GRANTS, REVOKE, SHOW ROLES and DROP ROLE answer as they must.
+     O2: a CoordinatorServer over the 4-worker mesh: Q3 and Q18 over HTTP,
+     cold and warm, each launching the sorted-probe kernel.  O3: eight
+     DB-API connections run Q6 one after the other, then all at once on
+     O1's 2 lanes, both walls logged.  O4: about 100,000 lineitem rows in
+     key order (SERVE_PAGED) paged 4,096 rows a page, equal to the
+     in-process card run's rows; the served wall against the in-process
+     wall, split into the engine's wall, the queue, the encoding seconds,
+     the client's decoding, the long-poll waits and the requests that
+     carried data.  O5: a ProxyServer in front of O1's server and the
+     verifier (testing/verifier.py) with the in-process card runner as
+     control and DB-API through the proxy as test: Q1, Q3, Q6 and Q18 must
+     be MATCH.  O1's, O2's and O3's rows are held to the port's CPU run
+     with phases 4-5c's;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows),
      of the local T1's, of D1's Q1's (phase 5k) and of L1's Q1-double
@@ -4556,6 +4580,331 @@ def run_fte_observatory_path(probe_record: dict) -> dict:
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "check": check}
 
 
+# -- phase 5o: serving on the card ------------------------------------------------
+
+#: O1's users and passwords (the server's PasswordAuthenticator)
+SERVE_USERS = {"alice": "alice-pw", "admin": "admin-pw"}
+#: O1's access-control file: alice may SELECT tpch only, admin anything
+SERVE_RULES = {"tables": [
+    {"user": "alice", "catalog": "tpch", "privileges": ["SELECT"]},
+    {"user": "admin", "privileges": ["SELECT", "INSERT", "UPDATE", "DELETE", "OWNERSHIP"]},
+]}
+#: O1's engine lanes, and O3's concurrent DB-API clients
+SERVE_LANES = 2
+SERVE_CLIENTS = 8
+#: O4: about 100,000 lineitem rows in key order, paged by the coordinator
+SERVE_PAGED = (
+    "select l_orderkey, l_linenumber, l_quantity, l_extendedprice, l_discount, "
+    "l_shipdate, l_returnflag, l_comment from lineitem where l_orderkey <= 25000 "
+    "order by l_orderkey, l_linenumber"
+)
+#: O1's admin statements, each with what its rows must hold: ("has", row),
+#: ("lacks", row) or ("rows", rows)
+SERVE_ROLE_STEPS = (
+    ("create role analysts", None),
+    ("grant select on tpch.sf1.nation to analysts", None),
+    ("grant analysts to alice", None),
+    ("show grants", ("has", ("analysts", "SELECT", "tpch", "sf1", "nation"))),
+    ("revoke select on tpch.sf1.nation from analysts", None),
+    ("show grants", ("lacks", ("analysts", "SELECT", "tpch", "sf1", "nation"))),
+    ("show roles", ("rows", [("analysts",)])),
+    ("drop role analysts", None),
+    ("show roles", ("rows", [])),
+)
+#: O5's verifier suite
+SERVE_VERIFIED = (1, 3, 6, 18)
+
+
+def served_exchange(url: str, sql: str, headers: dict) -> dict:
+    """One statement over raw HTTP with the timing of every request: POST,
+    then nextUri to the end.  Returns the decoded rows, the page count, each
+    request's (seconds, carried data) and the client's decode seconds."""
+    import urllib.request
+
+    from trino_tpu_torch.server import protocol
+
+    t_post = time.time()
+    requests, pages, data, columns, decode_s = [], 0, [], None, 0.0
+    path, method, body = "/v1/statement", "POST", sql.encode()
+    qid = None
+    while path is not None:
+        req = urllib.request.Request(url + path, data=body, method=method, headers=headers)
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            raw = resp.read()
+        got = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        doc = json.loads(raw)
+        if doc.get("error"):
+            raise AssertionError(f"served {sql[:60]!r}: {doc['error'].get('message')}")
+        qid = doc["id"]
+        columns = doc.get("columns", columns)
+        if "data" in doc:
+            data.extend(protocol.decode_rows(doc["data"], columns))
+            pages += 1
+        decode_s += time.perf_counter() - t1
+        requests.append((got, "data" in doc, len(raw)))
+        path, method, body = doc.get("nextUri"), "GET", None
+    return {"rows": data, "pages": pages, "requests": requests, "decode_s": decode_s,
+            "t_post": t_post, "t_end": time.time(), "qid": qid}
+
+
+class _DbapiEngine:
+    """An `.execute(sql)` engine over a DB-API connection (the verifier's
+    test side): the rows of the cursor."""
+
+    def __init__(self, conn):
+        self.conn = conn
+
+    def execute(self, sql: str):
+        return self.conn.cursor().execute(sql).fetchall()
+
+
+def run_serving_path() -> dict:
+    """Phase 5o (see the module docstring, O1-O5) on the card at tpch.sf1:
+    the port's coordinators on 127.0.0.1 with ephemeral ports.  The
+    kernels' counts are set to 0 just before the path and read just after.
+    Returns the launches and the check of O1's, O2's and O3's rows against
+    the CPU run (made with phases 4-5c's)."""
+    import base64
+    import shutil
+    import statistics
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from trino_tpu_torch import config, dbapi
+    from trino_tpu_torch.client import Client, QueryFailed
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.config import runner_from_etc
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.server import CoordinatorServer, protocol
+    from trino_tpu_torch.server.proxy import ProxyServer
+    from trino_tpu_torch.server.security import PasswordAuthenticator
+    from trino_tpu_torch.testing.verifier import Verifier
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "build", "chip_smoke_5o")
+    shutil.rmtree(work, ignore_errors=True)
+    etc = os.path.join(work, "etc")
+    os.makedirs(os.path.join(etc, "catalog"))
+    rules = os.path.join(work, "rules.json")
+    with open(rules, "w") as f:
+        json.dump(SERVE_RULES, f)
+    with open(os.path.join(etc, "config.properties"), "w") as f:
+        f.write(f"default.catalog=tpch\ndefault.schema=sf1\naccess-control.config-file={rules}\n"
+                f"dispatcher.lanes={SERVE_LANES}\nsession.pallas_agg=true\n")
+    for name in ("tpch", "memory"):
+        with open(os.path.join(etc, "catalog", f"{name}.properties"), "w") as f:
+            f.write(f"connector.name={name}\n")
+    local = runner_from_etc(etc)
+    if local.device.type != "cuda" or type(local.access_control).__name__ != (
+            "RuleBasedAccessControl"):
+        raise AssertionError(f"O1: runner on {local.device}, {local.access_control}")
+    in_process = LocalQueryRunner(catalog="tpch", schema="sf1")
+    mesh = DistributedQueryRunner(catalog="tpch", schema="sf1", n_workers=MESH_WORKERS)
+    creds = {u: {"Authorization": "Basic " + base64.b64encode(f"{u}:{p}".encode()).decode()}
+             for u, p in SERVE_USERS.items()}
+    results: dict = {}
+    started: list = []
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    try:
+        srv = CoordinatorServer(runner=local, port=0,
+                                authenticator=PasswordAuthenticator(SERVE_USERS))
+        srv.start()
+        started.append(srv)
+        if srv.dispatcher.lanes != SERVE_LANES:
+            raise AssertionError(f"O1: {srv.dispatcher.lanes} lanes")
+        url = f"http://127.0.0.1:{srv.port}"
+        alice = Client(url, user="alice", password=SERVE_USERS["alice"])
+        admin = Client(url, user="admin", password=SERVE_USERS["admin"])
+
+        # -- O1: an etc/-configured runner behind authentication and rules ------
+        for name, sql in (("q1", QUERIES[1]), ("q6", QUERIES[6]), ("q1_double", Q1_DOUBLE)):
+            for attempt in ("cold", "warm"):
+                k1 = gs.grouped_sums.launches
+                t0 = time.perf_counter()
+                _, rows = alice.execute(sql)
+                wall = time.perf_counter() - t0
+                k1 = gs.grouped_sums.launches - k1
+                results[f"O1_{name}_{attempt}"] = rows
+                log(f"serving O1 {name} {attempt} (alice over HTTP): wall_s={wall!r} "
+                    f"rows={len(rows)} grouped_sums={k1}")
+                if name == "q1_double" and k1 == 0:
+                    raise AssertionError(f"O1 {name} {attempt}: no grouped_sums launch")
+        for who, headers in (("a wrong password", {"Authorization": "Basic " + base64.b64encode(
+                b"alice:wrong").decode()}), ("no credentials", {})):
+            req = urllib.request.Request(url + "/v1/statement", data=b"select 1",
+                                         method="POST", headers=headers)
+            try:
+                urllib.request.urlopen(req, timeout=60)
+            except urllib.error.HTTPError as e:
+                if e.code != 401:
+                    raise
+                log(f"serving O1 {who}: HTTP {e.code} {json.loads(e.read())['error']}")
+            else:
+                raise AssertionError(f"O1: {who} was not refused")
+        try:
+            alice.execute("create table memory.default.t as select * from nation")
+        except QueryFailed as e:
+            err = e.error
+            log(f"serving O1 alice's CTAS: {err['errorName']} {err['errorType']} "
+                f"{err['errorCode']}: {err['message']}")
+            if err["errorName"] != "AccessDeniedError" or "lacks INSERT" not in err["message"]:
+                raise
+        else:
+            raise AssertionError("O1: alice's CTAS was not denied")
+        _, tables = admin.execute("show tables from memory.default")
+        if ("t",) in tables:
+            raise AssertionError(f"O1: the denied CTAS created a table: {tables}")
+        for sql, want in SERVE_ROLE_STEPS:
+            names, rows = admin.execute(sql)
+            log(f"serving O1 admin {sql!r}: {names} {rows}")
+            if want is not None and not {
+                "has": lambda: want[1] in rows, "lacks": lambda: want[1] not in rows,
+                "rows": lambda: rows == want[1],
+            }[want[0]]():
+                raise AssertionError(f"O1 {sql!r}: {rows} does not hold {want}")
+
+        # -- O2: the 4-worker mesh behind a coordinator ---------------------------
+        msrv = CoordinatorServer(runner=mesh, port=0)
+        msrv.start()
+        started.append(msrv)
+        mclient = Client(f"http://127.0.0.1:{msrv.port}")
+        for qid in (3, 18):
+            for attempt in ("cold", "warm"):
+                k2 = ls.locate_sorted.launches
+                t0 = time.perf_counter()
+                _, rows = mclient.execute(QUERIES[qid])
+                wall = time.perf_counter() - t0
+                k2 = ls.locate_sorted.launches - k2
+                results[f"O2_q{qid}_{attempt}"] = rows
+                log(f"serving O2 mesh q{qid} {attempt}: wall_s={wall!r} rows={len(rows)} "
+                    f"locate_sorted={k2}")
+                if k2 == 0:
+                    raise AssertionError(f"O2 q{qid} {attempt}: no locate_sorted launch")
+
+        # -- O3: eight DB-API clients at once, on 2 lanes --------------------------
+        def q6_client(out: list, i: int, barrier=None):
+            conn = dbapi.connect(url, user="alice", password=SERVE_USERS["alice"])
+            if barrier is not None:
+                barrier.wait()
+            t0 = time.perf_counter()
+            out[i] = (conn.cursor().execute(QUERIES[6]).fetchall(), time.perf_counter() - t0)
+
+        serial = [None] * SERVE_CLIENTS
+        t0 = time.perf_counter()
+        for i in range(SERVE_CLIENTS):
+            q6_client(serial, i)
+        serial_wall = time.perf_counter() - t0
+        concurrent = [None] * SERVE_CLIENTS
+        barrier = threading.Barrier(SERVE_CLIENTS)
+        threads = [threading.Thread(target=q6_client, args=(concurrent, i, barrier))
+                   for i in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        concurrent_wall = time.perf_counter() - t0
+        if any(c is None for c in concurrent):
+            raise AssertionError("O3: a client did not finish")
+        results["O3"] = [c[0] for c in serial + concurrent]
+        log(f"serving O3 q6 x{SERVE_CLIENTS} over dbapi on {SERVE_LANES} lanes: "
+            f"concurrent_wall_s={concurrent_wall!r} serial_wall_s={serial_wall!r} "
+            f"serial_median_s={statistics.median(c[1] for c in serial)!r} "
+            f"concurrent_client_walls_s={sorted(c[1] for c in concurrent)}")
+
+        # -- O4: a paged result of ~100,000 rows ------------------------------------
+        encode = {"s": 0.0, "pages": 0}
+        plain_encode = protocol.encode_rows
+
+        def timed_encode(rows):
+            t = time.perf_counter()
+            out = plain_encode(rows)
+            encode["s"] += time.perf_counter() - t
+            encode["pages"] += 1
+            return out
+
+        walls = []
+        for _ in range(2):  # the first run stages the scan
+            t0 = time.perf_counter()
+            expect = in_process.execute(SERVE_PAGED).rows
+            walls.append(time.perf_counter() - t0)
+        in_wall = walls[-1]
+        page_rows = config.get_config().coordinator.result_page_rows
+        served = None
+        for attempt in ("cold", "warm"):
+            encode.update(s=0.0, pages=0)
+            protocol.encode_rows = timed_encode
+            try:
+                t0 = time.perf_counter()
+                served = served_exchange(url, SERVE_PAGED, creds["alice"])
+                wall = time.perf_counter() - t0
+            finally:
+                protocol.encode_rows = plain_encode
+            rows_match(served["rows"], expect, 0.0)
+            if served["pages"] != -(-len(expect) // page_rows):
+                raise AssertionError(f"O4: {served['pages']} pages for {len(expect)} rows")
+            ctx = srv.query(served["qid"]).lifecycle
+            hist = next(e for e in local.query_history.entries if e["query_id"] == ctx.query_id)
+            waits = [s for s, has_data, _ in served["requests"][1:] if not has_data]
+            data_reqs = [s for s, has_data, _ in served["requests"] if has_data]
+            log(f"serving O4 {attempt}: rows={len(served['rows'])} pages={served['pages']} "
+                f"page_rows={page_rows} served_wall_s={wall!r} in_process_wall_s={in_wall!r} "
+                f"engine_wall_s={hist['wall_s']!r} "
+                f"queued_s={hist['create_time'] - served['t_post']!r} "
+                f"after_engine_s={served['t_end'] - hist['end_time']!r} "
+                f"encode_s={encode['s']!r} encode_pages={encode['pages']} "
+                f"client_decode_s={served['decode_s']!r} poll_waits={len(waits)} "
+                f"poll_wait_s={sum(waits)!r} data_requests_s={sum(data_reqs)!r} "
+                f"bytes={sum(b for _, _, b in served['requests'])} "
+                f"post_s={served['requests'][0][0]!r}")
+        log(f"serving O4: {len(expect)} served rows equal the in-process run's")
+
+        # -- O5: the proxy, and the verifier against the in-process card runner ------
+        proxy = ProxyServer(url).start()
+        started.append(proxy)
+        test = _DbapiEngine(dbapi.connect(proxy.url, user="alice",
+                                          password=SERVE_USERS["alice"]))
+        report = Verifier(in_process, test).run({f"q{q}": QUERIES[q] for q in SERVE_VERIFIED})
+        for r in report.results:
+            log(f"serving O5 verifier {r.query_id}: {r.status} control_wall_s="
+                f"{r.control_wall_s!r} test_wall_s={r.test_wall_s!r} {r.detail[:200]}")
+        if report.matched != len(SERVE_VERIFIED):
+            raise AssertionError(f"O5: {report.summary()}")
+    finally:
+        for s in reversed(started):
+            s.shutdown()
+        config.reset_config()
+        shutil.rmtree(work, ignore_errors=True)
+    k1_launches = gs.grouped_sums.launches  # read just after the path
+    k2_launches = ls.locate_sorted.launches
+    log(f"serving path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+    if k1_launches <= 0 or k2_launches <= 0:
+        raise AssertionError("the serving path never launched a kernel")
+
+    def check(cpu_tpch: dict) -> None:
+        for name, sql, rtol in (("q1", QUERIES[1], 0.0), ("q6", QUERIES[6], 0.0),
+                                ("q1_double", Q1_DOUBLE, KERNEL_RTOL)):
+            for attempt in ("cold", "warm"):
+                rows_match(results[f"O1_{name}_{attempt}"], cpu_tpch[sql][0], rtol)
+        for qid in (3, 18):
+            for attempt in ("cold", "warm"):
+                rows_match(results[f"O2_q{qid}_{attempt}"], cpu_tpch[QUERIES[qid]][0], 0.0)
+        for rows in results["O3"]:
+            rows_match(rows, cpu_tpch[QUERIES[6]][0], 0.0)
+        log("serving path: O1's Q1, Q6 and Q1-double, O2's mesh Q3 and Q18 and O3's "
+            "sixteen Q6 match the CPU run")
+
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "check": check}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -4865,6 +5214,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     sch_path = timed("5m", run_schedule_layout_path, tpcds_reference, schedule)
     fte: dict = {}
     fte_path = timed("5n", run_fte_observatory_path, fte)
+    srv_path = timed("5o", run_serving_path)
     tpcds = timed("5d-5e wait", wait_tpcds_card, card, card_path, procs, dev)
     for phase in ("5d", "5e"):  # the second card process's seconds
         seconds[phase] = tpcds[phase]["seconds"]
@@ -4873,21 +5223,22 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
 
     def check_tpch_paths():
         cpu = tpcds_reference("tpch")
-        for path in (main_path, mesh_path, semi_path, func_path, sch_path, fte_path):
+        for path in (main_path, mesh_path, semi_path, func_path, sch_path, fte_path,
+                     srv_path):
             path.pop("check")(cpu)
 
     timed("4-5c checks", check_tpch_paths)
     k1["launches"] += (
         arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
         + tem_path["k1_launches"] + stm_path["k1_launches"] + lc_path["k1_launches"]
-        + sch_path["k1_launches"] + fte_path["k1_launches"]
+        + sch_path["k1_launches"] + fte_path["k1_launches"] + srv_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
         "aggregates": agg_path["k1_launches"], "holistic": hol_path["k1_launches"],
         "temporal": tem_path["k1_launches"], "statements": stm_path["k1_launches"],
         "lifecycle": lc_path["k1_launches"], "schedule_layouts": sch_path["k1_launches"],
-        "fte_observatory": fte_path["k1_launches"],
+        "fte_observatory": fte_path["k1_launches"], "serving": srv_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
@@ -4901,7 +5252,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         + tds_path["launches"] + tdw_path["launches"] + mem_path["launches"]
         + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
         + tem_path["k2_launches"] + stm_path["k2_launches"] + lc_path["k2_launches"]
-        + sch_path["k2_launches"] + fte_path["k2_launches"]
+        + sch_path["k2_launches"] + fte_path["k2_launches"] + srv_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -4921,6 +5272,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "lifecycle": lc_path["k2_launches"],
         "schedule_layouts": sch_path["k2_launches"],
         "fte_observatory": fte_path["k2_launches"],
+        "serving": srv_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of trino_tpu_torch, and not chip_smoke.py,
 imports jax or anything of the JAX package (importing any trino_tpu module
-imports jax), and its entry points never fall back to the CPU silently."""
+imports jax), and its entry points (the runners, the coordinator, the CLI,
+the DB-API driver) never fall back to the CPU silently."""
 
 import ast
 from pathlib import Path
@@ -97,6 +98,36 @@ def test_mesh_runner_without_device_needs_cuda():
     assert r.wm.device == torch.device("cpu") and r.wm.n == 4
     with pytest.raises(NotImplementedError, match="multi-card mesh"):
         WorkerMesh(2, ["cuda:0", "cuda:1"])
+
+
+def test_serving_entry_points_need_cuda(capsys):
+    """The coordinator, the CLI's in-process backend and the DB-API driver
+    run on the card unless told otherwise: without one they raise, and
+    with device="cpu" (--device cpu) they run on the CPU."""
+    from trino_tpu_torch import cli, dbapi
+    from trino_tpu_torch.server import CoordinatorServer
+
+    if torch.cuda.is_available():
+        assert CoordinatorServer(port=0).runner.device.type == "cuda"
+        assert cli._LocalBackend("tpch", "tiny").runner.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            CoordinatorServer(port=0)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli._LocalBackend("tpch", "tiny")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["-e", "select 1"])
+    # connect() never builds a runner of its own
+    with pytest.raises(dbapi.InterfaceError, match="needs a url or a runner"):
+        dbapi.connect(runner=None)
+    srv = CoordinatorServer(port=0, device="cpu")
+    assert srv.runner.device == torch.device("cpu")
+    assert all(lane.runner.device == torch.device("cpu") for lane in srv.dispatcher._lanes)
+    assert cli._LocalBackend("tpch", "tiny", "cpu").runner.device == torch.device("cpu")
+    assert cli.main(["--device", "cpu", "-e", "select 1"]) == 0
+    assert "(1 row)" in capsys.readouterr().out
+    conn = dbapi.connect(runner=srv.runner)
+    assert conn.cursor().execute("select 2").fetchall() == [(2,)]
 
 
 def test_resolve_device_rejects_other_devices():

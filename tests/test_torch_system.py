@@ -292,23 +292,34 @@ def test_runner_from_etc_needs_cuda_by_default(etc_dir):
 def test_unported_knobs_raise_by_name(etc_dir, tmp_path, key):
     """The observatory's knobs attach their pieces (as in the JAX package:
     the profile store archives each statement under the directory, the
-    audit log writes one line per statement); prewarm and access control
-    still raise naming themselves."""
+    audit log writes one line per statement), and the access-control file
+    installs its rules (the runner's user may read nation, not region);
+    prewarm still raises naming itself."""
+    import json
+
     from trino_tpu_torch.config import reset_config
     from trino_tpu_torch.runtime.config import runner_from_etc
+    from trino_tpu_torch.server.security import AccessDeniedError
     from trino_tpu_torch.telemetry.audit import QueryAuditLog
 
     target = tmp_path / "x"
+    if key == "access-control.config-file":
+        target.write_text(json.dumps({"tables": [
+            {"user": "user", "catalog": "tpch", "table": "nation", "privileges": ["SELECT"]},
+        ]}))
     with open(os.path.join(etc_dir, "config.properties"), "a") as fh:
         fh.write(f"{key}={target}\n")
     try:
-        if key in ("prewarm.manifest-path", "access-control.config-file"):
+        if key == "prewarm.manifest-path":
             with pytest.raises(NotImplementedError, match=key):
                 runner_from_etc(etc_dir, device="cpu")
             return
         r = runner_from_etc(etc_dir, device="cpu")
         r.execute("select count(*) from nation")
-        if key == "profile.archive-dir":
+        if key == "access-control.config-file":
+            with pytest.raises(AccessDeniedError, match="lacks SELECT on tpch.tiny.region"):
+                r.execute("select count(*) from region")
+        elif key == "profile.archive-dir":
             assert r.profile_store is not None and r.profile_store.flush(10.0)
             assert len(os.listdir(target)) == 1
         else:

@@ -1,5 +1,5 @@
-"""Typed engine configuration: the dispatcher, memory, profile and audit
-sections.
+"""Typed engine configuration: the dispatcher, memory, profile, audit and
+coordinator sections.
 
 Port of part of trino_tpu/config.py (the airlift ``@Config`` analog).
 Each field carries its properties key; a knob resolves, first hit wins,
@@ -9,19 +9,19 @@ uppercased), the properties dict, then the dataclass default.
 Ported: the ``dispatcher`` section (runtime/dispatcher.py's lanes,
 Retry-After and drain waits), ``memory`` (``memory.pool-limit-bytes``,
 ``memory.spill-dir``), ``profile`` (the profile archive,
-telemetry/profile_store.py) and ``audit`` (the audit log,
-telemetry/audit.py), with `get_config` / `install_config` /
+telemetry/profile_store.py), ``audit`` (the audit log,
+telemetry/audit.py) and ``coordinator`` (the result page size and long-poll
+bound of server/coordinator.py), with `get_config` / `install_config` /
 `reset_config` / `load_config`; installing a config with a pool limit
 arms the shared memory pool's limit.  Not ported: the ``breaker``
 section (the circuit breakers of the multi-host HTTP tier), the
 ``lifecycle`` section (its HTTP request timeouts), the JAX package's
 per-worker and per-catalog overrides (``<key>@<token>``) with
 `breaker_for` / `section_for`, and the sections of the other unported
-pieces (heartbeat, remote, worker, coordinator, compile cache, prewarm,
-dictionary).  `load_cluster_config` raises
-NotImplementedError naming the piece for a ``breaker.`` or
-``lifecycle.`` key or an override, and `breaker_for` / `section_for`
-raise; runtime/config.py raises for the knobs of the other pieces when
+pieces (heartbeat, remote, worker, compile cache, prewarm, dictionary).
+`load_cluster_config` raises NotImplementedError naming the piece for a
+``breaker.`` or ``lifecycle.`` key or an override, and `breaker_for` /
+`section_for` raise; runtime/config.py raises for the knobs of the other pieces when
 an etc/ directory sets them.
 """
 
@@ -194,6 +194,20 @@ class AuditConfig(ConfigSection):
 
 
 @dataclass
+class CoordinatorConfig(ConfigSection):
+    """Coordinator protocol knobs (server/coordinator.py)."""
+
+    result_page_rows: int = knob(
+        4096, "coordinator.result-page-rows",
+        "rows per paged statement response",
+    )
+    poll_wait_s: float = knob(
+        1.0, "coordinator.poll-wait",
+        "statement/trace long-poll bound",
+    )
+
+
+@dataclass
 class ClusterConfig:
     """The ported sections plus the raw properties."""
 
@@ -201,6 +215,7 @@ class ClusterConfig:
     memory: MemoryConfig = field(default_factory=MemoryConfig)
     profile: ProfileConfig = field(default_factory=ProfileConfig)
     audit: AuditConfig = field(default_factory=AuditConfig)
+    coordinator: CoordinatorConfig = field(default_factory=CoordinatorConfig)
     properties: dict = field(default_factory=dict)
 
     def breaker_for(self, worker: str):
@@ -241,6 +256,7 @@ def load_cluster_config(props: Optional[dict] = None, env=None) -> ClusterConfig
         memory=MemoryConfig.from_properties(props, env),
         profile=ProfileConfig.from_properties(props, env),
         audit=AuditConfig.from_properties(props, env),
+        coordinator=CoordinatorConfig.from_properties(props, env),
         properties=props,
     )
 

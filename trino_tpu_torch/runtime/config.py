@@ -16,12 +16,13 @@ Port of trino_tpu/runtime/config.py.  The `tpch`, `tpcds`, `memory` and
 factories raise NotImplementedError naming themselves (their connectors
 are not ported).  The file event listener is ported, and so are the
 query performance observatory's knobs: `profile.archive-dir` attaches a
-profile store and `audit.log-path` an audit log to the runner.  The
-knobs of pieces that are not ported raise NotImplementedError naming the
-piece when config.properties sets them: `prewarm.manifest-path`
-(prewarm) and `access-control.config-file` (security); unset, they do
-nothing, as in the JAX package.  `runner_from_etc` builds a
-LocalQueryRunner on the card unless `device=` names another device.
+profile store and `audit.log-path` an audit log to the runner, and
+`access-control.config-file` (a JSON file of rules under "tables" or
+"rules") installs a RuleBasedAccessControl.  `prewarm.manifest-path`
+raises NotImplementedError naming the prewarm executor, which is not
+ported, when config.properties sets it; unset, it does nothing, as in the
+JAX package.  `runner_from_etc` builds a LocalQueryRunner on the card
+unless `device=` names another device.
 """
 
 from __future__ import annotations
@@ -166,8 +167,7 @@ def runner_from_etc(etc_dir: str, **kw):
     from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
     cfg = load_etc(etc_dir)
-    # prewarm (`prewarm.manifest-path`) and security
-    # (`access-control.config-file`) are not ported: configuring one raises
+    # prewarm (`prewarm.manifest-path`) is not ported: configuring it raises
     for key, piece in _UNPORTED_KNOBS:
         if cfg.node_properties.get(key):
             raise NotImplementedError(f"{key} ({piece}): not ported yet")
@@ -213,11 +213,21 @@ def runner_from_etc(etc_dir: str, **kw):
 
     attach_profile_store(r)
     attach_audit_log(r)
+    ac_file = cfg.node_properties.get("access-control.config-file")
+    if ac_file:
+        import json
+
+        from trino_tpu_torch.server.security import RuleBasedAccessControl
+
+        with open(ac_file) as fh:
+            doc = json.load(fh)
+        r.access_control = RuleBasedAccessControl.from_dicts(
+            doc.get("tables", doc.get("rules", []))
+        )
     return r
 
 
 #: config.properties keys of pieces the port does not have yet
 _UNPORTED_KNOBS = (
     ("prewarm.manifest-path", "runtime/prewarm, the prewarm executor"),
-    ("access-control.config-file", "security, rule-based access control"),
 )

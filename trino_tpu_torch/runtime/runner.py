@@ -24,10 +24,14 @@ one (memory: it rolls back with the table) owns it, otherwise it goes to
 the process registry, which DROP TABLE clears; the mesh scans such a
 table co-located on its bucket columns.
 
-Not ported: security (GRANT, REVOKE, roles, SHOW ROLES/GRANTS) raises
-NotImplementedError naming itself.  The
-JAX runner's access-control checks and ownership records are left out:
-its default control allows everything, so no result changes.
+Security (server/security.py): each statement runs as `user` under
+`access_control` (allow-all by default): `check_can_execute_query` before
+it parses, `check_can_select` for every table the local plan scans
+(`_check_table_access`; the mesh runner's `_run_query` does not call it,
+as in the JAX package), and the write, delete and update checks at every
+write site.  CREATE TABLE, CTAS and a rename record the user as owner in
+`grants`, the SQL-standard store that GRANT, REVOKE, CREATE/DROP ROLE and
+SHOW ROLES/GRANTS read and write.
 
 Each statement runs under a QueryContext (runtime/lifecycle.py) made by
 the runner's QueryTracker: its state machine, its deadlines
@@ -122,6 +126,15 @@ class LocalQueryRunner:
         self.properties.set("target_splits", target_splits)
         self.events = EventListenerManager()
         self.transactions = TransactionManager(self.catalogs)
+        # security: the statement's identity, set per statement by the
+        # coordinator and dbapi layers
+        from trino_tpu_torch.server.security import AllowAllAccessControl, GrantManager
+
+        self.access_control = AllowAllAccessControl()
+        #: SQL-standard grants and roles, read by GRANT/REVOKE and by
+        #: SqlStandardAccessControl when installed
+        self.grants = GrantManager()
+        self.user = "user"
         self._query_ids = _QUERY_IDS
         #: live statements by query id: `query_tracker.cancel(query_id)`
         #: cancels one, and the deadlines come from the session properties
@@ -183,8 +196,9 @@ class LocalQueryRunner:
         them the system connector bound to THIS runner, the query tracker
         and id counter, the events and query history, the session
         properties, transactions, views, prepared statements, the span
-        ring and the profile store) while per-statement state (tracer,
-        last trace, mesh profile, last query) stays lane-private.
+        ring, the profile store, the grants and the access control) while
+        per-statement state (tracer, last trace, mesh profile, last query,
+        user) stays lane-private.
         Subclasses (the mesh runner) return None: the dispatcher then runs
         one lane."""
         if type(self) is not LocalQueryRunner:
@@ -206,6 +220,8 @@ class LocalQueryRunner:
         lane.prepared = self.prepared
         lane.traces = self.traces
         lane.profile_store = self.profile_store
+        lane.grants = self.grants
+        lane.access_control = self.access_control
         return lane
 
     # -- per-statement telemetry handles (lane safety) -------------------------
@@ -312,12 +328,15 @@ class LocalQueryRunner:
             classify_error,
         )
         from trino_tpu_torch.runtime.retry import execute_with_retry
+        from trino_tpu_torch.runtime.session import CURRENT_USER
         from trino_tpu_torch.telemetry import NULL_TRACER, SpanTracer
         from trino_tpu_torch.telemetry.metrics import (
             queries_counter,
             query_wall_histogram,
         )
 
+        self.access_control.check_can_execute_query(self.user)
+        CURRENT_USER.set(self.user)
         stmt = parse_statement(sql)
         m = getattr(self, "_exec_" + type(stmt).__name__, None)
         if m is None:
@@ -604,10 +623,28 @@ class LocalQueryRunner:
             list(plan.column_names), rows, [s.type for s in plan.symbols]
         )
 
+    def _check_table_access(self, plan) -> None:
+        """check_can_select for every scanned table (the reference checks in
+        the analyzer; checking the optimized plan also covers views/CTEs)."""
+        from trino_tpu_torch.planner.plan import TableScanNode
+
+        def walk(node):
+            if isinstance(node, TableScanNode):
+                h = node.handle
+                self.access_control.check_can_select(
+                    self.user, h.catalog, h.schema, h.table
+                )
+            for c in node.children:
+                walk(c)
+
+        walk(plan)
+
     def _run_query(self, query: ast.Query, stats=None) -> MaterializedResult:
-        """Plan and run one query (the seam the mesh runner overrides);
-        `stats` is EXPLAIN ANALYZE's StatsCollector."""
-        return self._execute_plan(self.plan_query(query), stats=stats)
+        """Plan, check SELECT access and run one query (the seam the mesh
+        runner overrides); `stats` is EXPLAIN ANALYZE's StatsCollector."""
+        plan = self.plan_query(query)
+        self._check_table_access(plan)
+        return self._execute_plan(plan, stats=stats)
 
     def _exec_SelectStatement(self, stmt: ast.SelectStatement) -> MaterializedResult:
         return self._run_query(stmt.query)
@@ -873,9 +910,20 @@ class LocalQueryRunner:
             )
             ddl = f"CREATE TABLE {cat}.{schema}.{table} (\n{cols}\n)"
             return MaterializedResult(["Create Table"], [(ddl,)], [T.VARCHAR])
-        if stmt.what in ("roles", "grants"):
-            raise NotImplementedError(
-                f"SHOW {stmt.what.upper()} (security): not ported yet"
+        if stmt.what == "roles":
+            return MaterializedResult(
+                ["Role"], [(r,) for r in self.grants.list_roles()], [T.VARCHAR]
+            )
+        if stmt.what == "grants":
+            if stmt.target:
+                cat, schema, table = self._resolve_table(stmt.target)
+                rows = self.grants.grants_for(cat, schema, table)
+            else:
+                rows = self.grants.grants_for()
+            return MaterializedResult(
+                ["grantee", "privilege", "catalog", "schema", "table"],
+                rows,
+                [T.VARCHAR] * 5,
             )
         if stmt.what == "stats":
             # reference: sql/rewrite/ShowStatsRewrite.java — one row per
@@ -996,6 +1044,7 @@ class LocalQueryRunner:
 
         cat, schema, table = self._resolve_table(stmt.name)
         conn = self.catalogs.get(cat)
+        self.access_control.check_can_write(self.user, cat, schema, table)
         if table in conn.metadata().list_tables(schema):
             if stmt.if_not_exists:
                 return _ok("CREATE TABLE")
@@ -1007,6 +1056,7 @@ class LocalQueryRunner:
         self.transactions.notify_write(cat, schema, table)
         owned = self._create_with_layout(conn, schema, table, cols, layout)
         self._register_layout(cat, schema, table, layout, owned)
+        self.grants.set_owner(cat, schema, table, self.user)
         return _ok("CREATE TABLE")
 
     def _exec_CreateTableAs(self, stmt: ast.CreateTableAs) -> MaterializedResult:
@@ -1014,6 +1064,7 @@ class LocalQueryRunner:
 
         cat, schema, table = self._resolve_table(stmt.name)
         conn = self.catalogs.get(cat)
+        self.access_control.check_can_write(self.user, cat, schema, table)
         if table in conn.metadata().list_tables(schema):
             if stmt.if_not_exists:
                 return _ok("CREATE TABLE AS")
@@ -1026,6 +1077,7 @@ class LocalQueryRunner:
         self.transactions.notify_write(cat, schema, table)
         owned = self._create_with_layout(conn, schema, table, cols, layout)
         self._register_layout(cat, schema, table, layout, owned)
+        self.grants.set_owner(cat, schema, table, self.user)
         self._write_rows(conn, TableHandle(cat, schema, table), result)
         return MaterializedResult(["rows"], [(result.row_count,)], [])
 
@@ -1050,6 +1102,7 @@ class LocalQueryRunner:
                 [c.name for c in meta.columns], reordered,
                 [c.type for c in meta.columns],
             )
+        self.access_control.check_can_write(self.user, cat, schema, table)
         self.transactions.notify_write(cat, schema, table)
         self._write_rows(conn, TableHandle(cat, schema, table), result)
         return MaterializedResult(["rows"], [(result.row_count,)], [])
@@ -1147,6 +1200,7 @@ class LocalQueryRunner:
         if not conn.supports_writes():
             raise NotImplementedError(f"connector {cat} does not support ALTER")
         meta = conn.metadata().table_metadata(schema, table)
+        self.access_control.check_can_write(self.user, cat, schema, table)
         self.transactions.notify_write(cat, schema, table)
         data = self._run_query(
             ast.Query(
@@ -1220,20 +1274,35 @@ class LocalQueryRunner:
             raise
         if not same_name:
             conn.drop_table(TableHandle(cat, schema, table))
+            self.grants.set_owner(cat, new_schema, new_table, self.user)
         return _ok("ALTER TABLE")
 
-    # -- security: not ported ---------------------------------------------------
+    # -- security ---------------------------------------------------------------
 
     def _exec_GrantStatement(self, stmt: ast.GrantStatement) -> MaterializedResult:
-        raise NotImplementedError("GRANT (security): not ported yet")
+        if stmt.roles:
+            for r in stmt.roles:
+                self.grants.grant_role(r, stmt.grantee)
+            return _ok("GRANT ROLE")
+        cat, schema, table = self._resolve_table(stmt.name)
+        self.grants.grant(stmt.grantee, stmt.privileges, cat, schema, table)
+        return _ok("GRANT")
 
     def _exec_RevokeStatement(self, stmt: ast.RevokeStatement) -> MaterializedResult:
-        raise NotImplementedError("REVOKE (security): not ported yet")
+        if stmt.roles:
+            for r in stmt.roles:
+                self.grants.revoke_role(r, stmt.grantee)
+            return _ok("REVOKE ROLE")
+        cat, schema, table = self._resolve_table(stmt.name)
+        self.grants.revoke(stmt.grantee, stmt.privileges, cat, schema, table)
+        return _ok("REVOKE")
 
     def _exec_RoleStatement(self, stmt: ast.RoleStatement) -> MaterializedResult:
-        raise NotImplementedError(
-            f"{stmt.action.upper()} ROLE (security): not ported yet"
-        )
+        if stmt.action == "create":
+            self.grants.create_role(stmt.role)
+            return _ok("CREATE ROLE")
+        self.grants.drop_role(stmt.role)
+        return _ok("DROP ROLE")
 
     # -- DML --------------------------------------------------------------------
 
@@ -1247,6 +1316,7 @@ class LocalQueryRunner:
         if not conn.supports_writes():
             raise NotImplementedError(f"connector {cat} does not support DELETE")
         meta = conn.metadata().table_metadata(schema, table)
+        self.access_control.check_can_delete(self.user, cat, schema, table)
         # rows to KEEP: predicate FALSE or NULL; bare DELETE keeps nothing
         if stmt.where is None:
             keep_where: ast.Node = ast.BooleanLiteral(False)
@@ -1318,6 +1388,8 @@ class LocalQueryRunner:
         if not conn.supports_writes():
             raise NotImplementedError(f"connector {cat} does not support MERGE")
         meta = conn.metadata().table_metadata(schema, table)
+        self.access_control.check_can_update(self.user, cat, schema, table)
+        self.access_control.check_can_write(self.user, cat, schema, table)
         ta = stmt.target_alias or table
         tgt_rel: ast.Node = ast.AliasedRelation(
             ast.TableRef((cat, schema, table)), ta
@@ -1520,6 +1592,7 @@ class LocalQueryRunner:
         unknown = set(assigns) - {c.name for c in meta.columns}
         if unknown:
             raise ValueError(f"unknown columns in UPDATE: {sorted(unknown)}")
+        self.access_control.check_can_update(self.user, cat, schema, table)
         cond = (
             ast.FunctionCall("coalesce", (stmt.where, ast.BooleanLiteral(False)))
             if stmt.where is not None
@@ -1566,6 +1639,7 @@ class LocalQueryRunner:
         conn = self.catalogs.get(cat)
         if stmt.if_exists and table not in conn.metadata().list_tables(schema):
             return _ok("DROP TABLE")
+        self.access_control.check_can_write(self.user, cat, schema, table)
         self.transactions.notify_write(cat, schema, table)
         conn.drop_table(TableHandle(cat, schema, table))
         from trino_tpu_torch.partitioning import drop_layout

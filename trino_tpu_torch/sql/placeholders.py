@@ -2,14 +2,23 @@
 prepared-statement parameters).
 
 A copy of `_split_placeholders`, `_substitute` and `_literal` from
-trino_tpu/dbapi.py; the DB-API module itself belongs to the serving layer,
-which the port does not have yet.  A placeholder/parameter mismatch or an
-unsupported parameter type raises ValueError.
+trino_tpu/dbapi.py, shared by the runner's EXECUTE and the port's DB-API
+driver (trino_tpu_torch/dbapi.py, which re-exports the two error classes).
+A placeholder/parameter mismatch or an unsupported parameter type raises
+InterfaceError, as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
+
+
+class Error(Exception):
+    """The DB-API's base error (PEP 249)."""
+
+
+class InterfaceError(Error):
+    pass
 
 
 def _split_placeholders(operation: str) -> list:
@@ -56,7 +65,7 @@ def substitute(operation: str, parameters: Sequence) -> str:
         return operation
     parts = _split_placeholders(operation)
     if len(parts) - 1 != len(parameters):
-        raise ValueError(
+        raise InterfaceError(
             f"statement has {len(parts) - 1} placeholders, "
             f"{len(parameters)} parameters given"
         )
@@ -83,4 +92,4 @@ def _literal(v) -> str:
         return str(v)
     if isinstance(v, datetime.date):
         return f"date '{v.isoformat()}'"
-    raise ValueError(f"unsupported parameter type {type(v).__name__}")
+    raise InterfaceError(f"unsupported parameter type {type(v).__name__}")

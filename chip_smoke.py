@@ -323,10 +323,41 @@ catches nothing and never falls back to the CPU):
      control and DB-API through the proxy as test: Q1, Q3, Q6 and Q18 must
      be MATCH.  O1's, O2's and O3's rows are held to the port's CPU run
      with phases 4-5c's;
+  5p. the multi-host worker tier on the card at tpch.sf1, every process
+     under the cluster secret (TRINO_TPU_CLUSTER_SECRET).  P1: a
+     MultiHostQueryRunner on the card over three WorkerServers on the
+     card, two on threads of this process (their K1 launches are counted)
+     and one started as `python -m trino_tpu_torch.server.worker --device
+     cuda --port 0` under PYTHONHASHSEED=0; tests/test_multihost.py's
+     seven queries, Q1-double under `pallas_agg` (K1 in the single-stage
+     aggregation each in-process worker runs over the lineitem rows
+     repartitioned to it; its cold run keeps the largest launch's inputs)
+     and Q3 and Q18, cold and warm, each with its wall, the tasks
+     per worker and, per stage, the bytes serialized and pulled over HTTP
+     and the host seconds of the copy off the card, bucketing, encoding and
+     decoding (from the merged cross-host trace); every materialized batch
+     list a plan reads (pulled page sets, merged shards, coordinator-side
+     fragments) must lie on the card.  P2: through a CoordinatorServer over
+     that runner, an unsigned PUT /v1/worker/register gets 401 "bad
+     signature"; a signed drain of the process worker makes the next Q1
+     plan at W = 2 (the process then exits); add_worker of a fresh
+     in-process worker, W = 3; a signed register of a second worker
+     process, which is terminated at the query's first result pull: Q3
+     re-plans once at W = 3; a HeartbeatDetector tick follows, and
+     system.runtime.nodes must show the killed worker DEAD with its breaker
+     open.  P4: a signed register of another in-process worker, then
+     Q1-double and Q3 served over /v1/statement through the Client at
+     W = 4.  P3: a DistributedQueryRunner on the card resized 4 -> 2 -> 4
+     (`resize_mesh`), Q3 at each width with its K2 launches and the scan
+     entries the resize dropped; the W = 2 run keeps its largest K2
+     launch's inputs.  Every result is held to the port's CPU run (Q1, Q3,
+     Q18 and Q1-double with phases 4-5c's; the seven queries computed last
+     by the reference process);
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows),
-     of the local T1's, of D1's Q1's (phase 5k) and of L1's Q1-double
-     (phase 5l), and time it there;
+     of the local T1's, of D1's Q1's (phase 5k), of L1's Q1-double
+     (phase 5l) and of a 5p worker's Q1-double aggregation, and
+     time it there;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -342,8 +373,9 @@ catches nothing and never falls back to the CPU):
      at the largest launch of phase 5e; bit-exact and timed at the largest
      launch of the mesh H3 (phase 5i), of the mesh T2 (phase 5j), of D3's
      mesh join (phase 5k), of L2's mesh Q3 (phase 5l), of M2's
-     co-located join (phase 5m) and of N1's largest launch fed by a spooled
-     stage output (phase 5n);
+     co-located join (phase 5m), of N1's largest launch fed by a spooled
+     stage output (phase 5n) and of the W = 2 mesh Q3 after `resize_mesh`
+     (phase 5p);
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -1571,13 +1603,13 @@ def _pin_to_cores(upper: bool, share: int = 1) -> str:
 #: not yet written
 REFERENCE_PARTS = {
     "tpcds": ("5d", "5e"),
-    "rest": ("5k", "5l", "tpch", "5f", "5g", "5h", "5i", "5j"),
+    "rest": ("5k", "5l", "tpch", "5f", "5g", "5h", "5i", "5j", "5p"),
 }
 #: each phase's result file, beside the reference path
 REFERENCE_SUFFIX = {
     "5d": "", "5e": ".window", "5f": ".memory", "5g": ".arrays", "5h": ".aggregates",
     "5i": ".holistic", "5j": ".temporal", "5k": ".statements", "5l": ".lifecycle",
-    "tpch": ".tpch",
+    "tpch": ".tpch", "5p": ".multihost",
 }
 
 
@@ -1626,6 +1658,7 @@ def cpu_reference(part: str, out_path: str) -> int:
         "5h": aggregates_cpu_reference, "5i": holistic_cpu_reference,
         "5j": temporal_cpu_reference, "5k": statements_cpu_reference,
         "5l": lifecycle_cpu_reference, "tpch": tpch_cpu_reference,
+        "5p": multihost_cpu_reference,
     }
     try:
         for phase in REFERENCE_PARTS[part]:
@@ -1640,8 +1673,8 @@ def cpu_reference(part: str, out_path: str) -> int:
 
 
 def tpch_reference_sqls() -> list:
-    """The statements phases 4-5c and 5m's M1 hold to the port's CPU run,
-    each once."""
+    """The statements phases 4-5c, 5m's M1 and 5p (its Q1, Q3, Q18 and
+    Q1-double) hold to the port's CPU run, each once."""
     from trino_tpu_torch.connectors.tpch.queries import QUERIES
 
     sqls = [QUERIES[1], QUERIES[6], Q1_DOUBLE, QUERIES[3]]
@@ -4905,6 +4938,427 @@ def run_serving_path() -> dict:
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "check": check}
 
 
+# -- phase 5p: the multi-host worker tier on the card --------------------------
+
+#: P1: tests/test_multihost.py's QUERIES (name -> SQL) at sf1
+MULTIHOST_QUERIES = {
+    "count": "select count(*) from lineitem",
+    "group": ("select l_returnflag, l_linestatus, sum(l_quantity), count(*) "
+              "from lineitem group by l_returnflag, l_linestatus"),
+    "part_join": ("select count(*) from lineitem, orders where l_orderkey = o_orderkey "
+                  "and o_orderstatus = 'F'"),
+    "bcast_join": ("select n_name, count(*) from customer, nation "
+                   "where c_nationkey = n_nationkey group by n_name"),
+    "merge_sort": ("select l_orderkey, l_extendedprice from lineitem "
+                   "where l_orderkey < 50 order by l_extendedprice desc, l_orderkey"),
+    "topn": "select o_orderkey, o_totalprice from orders order by o_totalprice desc limit 10",
+    "window": ("select l_orderkey, l_linenumber, "
+               "rank() over (partition by l_orderkey order by l_extendedprice desc) r "
+               "from lineitem where l_orderkey < 30"),
+}
+#: the cluster secret every 5p process shares (TRINO_TPU_CLUSTER_SECRET)
+MULTIHOST_SECRET = "chip-smoke-5p"
+
+
+def multihost_sqls() -> dict:
+    """P1-P4's statements, name -> SQL (all held to the CPU run)."""
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+
+    return {**MULTIHOST_QUERIES, "q1_double": Q1_DOUBLE, "q3": QUERIES[3],
+            "q18": QUERIES[18], "q1": QUERIES[1]}
+
+
+def multihost_cpu_reference(out_path: str) -> None:
+    """The CPU run of phase 5p's MULTIHOST_QUERIES (its other statements
+    are phases 4-5c's), pickled to `out_path` + ".multihost" as {sql:
+    (rows, seconds)}."""
+    import pickle
+
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    cpu = LocalQueryRunner(catalog="tpch", schema="sf1", device="cpu")
+    out = {}
+    for sql in MULTIHOST_QUERIES.values():
+        t0 = time.perf_counter()
+        rows = cpu.execute(sql).rows
+        out[sql] = (rows, time.perf_counter() - t0)
+    path = out_path + REFERENCE_SUFFIX["5p"]
+    with open(path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(path + ".part", path)
+
+
+def start_worker_process(here: str, coordinator_url: str):
+    """A WorkerServer in a process of its own on the card (`python -m
+    trino_tpu_torch.server.worker --device cuda --port 0`), started with
+    subprocess (never forked after CUDA is up), under PYTHONHASHSEED=0, the
+    cluster secret and `worker.coordinator-url`."""
+    env = {**os.environ, "PYTHONHASHSEED": "0", "TRINO_TPU_CLUSTER_SECRET": MULTIHOST_SECRET,
+           "TRINO_TPU_WORKER_COORDINATOR_URL": coordinator_url}
+    return subprocess.Popen(
+        [sys.executable, "-m", "trino_tpu_torch.server.worker", "--device", "cuda",
+         "--port", "0"],
+        cwd=here, env=env, stdout=subprocess.PIPE, text=True,
+    )
+
+
+def worker_process_url(proc, timeout_s: float = 180.0) -> str:
+    """The url a worker process prints once it listens."""
+    import threading
+
+    got: dict = {}
+    reader = threading.Thread(target=lambda: got.update(line=proc.stdout.readline()),
+                              daemon=True, name="worker-url")
+    reader.start()
+    reader.join(timeout_s)
+    line = got.get("line", "")
+    if not line.startswith("worker listening on "):
+        raise AssertionError(f"worker process {proc.pid}: {line!r} (exit {proc.poll()})")
+    return line.split()[-1]
+
+
+def exchange_report(flat: list) -> dict:
+    """Per stage of one traced multi-host query, from its merged trace: the
+    bytes its tasks serialized and the bytes pulled from it (by the
+    consumers' tasks and by the coordinator), and the host seconds of the
+    output's copy off the card, bucketing, serialization and decoding;
+    plus the tasks per worker and the replacement tasks among them."""
+    from collections import Counter
+
+    attrs = {s["span_id"]: json.loads(s["attributes"]) if s["attributes"] else {}
+             for s in flat}
+    stages: dict = {}
+    workers: Counter = Counter()
+    replaced = 0
+
+    def stage(fid):
+        return stages.setdefault(fid, {
+            "kind": None, "tasks": 0, "serialized_bytes": 0, "pulled_bytes": 0,
+            "d2h_s": 0.0, "partition_s": 0.0, "encode_s": 0.0, "decode_s": 0.0})
+
+    for s in flat:
+        a = attrs[s["span_id"]]
+        if s["name"] == "fragment" and "fragment_id" in a:
+            st = stage(a["fragment_id"])
+            st["kind"] = a.get("kind")
+            st["pulled_bytes"] += a.get("pulled_bytes", 0)
+            st["decode_s"] += a.get("decode_s", 0.0)
+        elif s["name"] == "task":
+            parent = attrs.get(s["parent_id"], {})
+            st = stage(parent.get("fragment_id"))
+            st["tasks"] += 1
+            st["serialized_bytes"] += a.get("output_bytes", 0)
+            for k in ("d2h_s", "partition_s", "encode_s"):
+                st[k] += a.get(k, 0.0)
+            workers[a.get("worker")] += 1
+            # a replacement task's id carries r<seq> (_replace_task)
+            replaced += bool(re.search(r"_w\d+r\d+$", a.get("task_id", "")))
+        elif s["name"] == "input_fetch":
+            st = stage(a.get("source_fragment"))
+            st["pulled_bytes"] += a.get("bytes", 0)
+            st["decode_s"] += a.get("decode_s", 0.0)
+    return {"stages": stages, "tasks_per_worker": dict(workers), "replaced": replaced}
+
+
+class _PulledBatchCheck:
+    """While installed: every materialized batch list a plan reads (the
+    page sets pulled over HTTP, merged shards, a coordinator-side
+    fragment's output, spooled stages) is checked to lie on the card; the
+    streams of the engine's own operators pass through unchecked."""
+
+    #: the device type every checked batch must lie on
+    device_type = "cuda"
+
+    def __init__(self):
+        self.checked = 0
+        self.off_card: list = []
+
+    def __enter__(self):
+        import trino_tpu_torch.parallel.remote as remote
+        import trino_tpu_torch.runtime.local_planner as local_planner
+
+        check = self
+        base = local_planner.PhysicalPlan
+
+        class CheckedPlan(base):
+            def __init__(self, stream, symbols):
+                if type(stream).__name__ == "list_iterator":
+                    stream = check.wrap(stream)
+                super().__init__(stream, symbols)
+
+        self._saved = (local_planner.PhysicalPlan, remote.PhysicalPlan)
+        local_planner.PhysicalPlan = CheckedPlan
+        remote.PhysicalPlan = CheckedPlan
+        return self
+
+    def wrap(self, stream):
+        for b in stream:
+            self.checked += 1
+            planes = [c.data for c in b.columns]
+            if b.row_mask is not None:
+                planes.append(b.row_mask)
+            if any(t.device.type != self.device_type for t in planes):
+                self.off_card.append(str(b.device))
+            yield b
+
+    def __exit__(self, *exc):
+        import trino_tpu_torch.parallel.remote as remote
+        import trino_tpu_torch.runtime.local_planner as local_planner
+
+        local_planner.PhysicalPlan, remote.PhysicalPlan = self._saved
+        return False
+
+
+def run_multihost_path(probe_record: dict, k1_capture: dict, schema: str = "sf1") -> dict:
+    """Phase 5p (see the module docstring, P1-P4) on the card at tpch.sf1.
+    The kernels' counts are set to 0 just before the path and read just
+    after; the K1 inputs of a worker's Q1-double aggregation and
+    the K2 inputs of the resized mesh's largest W = 2 launch are kept for
+    phases 6a and 6.  Returns the launches and the check of every result
+    against the CPU run (phases 4-5c's and its own, `multihost_cpu_reference`)."""
+    import urllib.error
+    import urllib.request
+
+    from trino_tpu_torch.client import Client
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel import remote
+    from trino_tpu_torch.parallel.remote import MultiHostQueryRunner
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.retry import BREAKERS
+    from trino_tpu_torch.server import CoordinatorServer
+    from trino_tpu_torch.server.worker import WorkerServer, sign_body
+    from trino_tpu_torch.telemetry.metrics import breaker_trips_counter
+    from trino_tpu_torch.testing import result_order
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sqls = multihost_sqls()
+    results: dict = {}
+    orders: dict = {}
+    secret_before = os.environ.get("TRINO_TPU_CLUSTER_SECRET")
+    os.environ["TRINO_TPU_CLUSTER_SECRET"] = MULTIHOST_SECRET
+    procs: dict = {}
+    in_process: list = []
+    servers: list = []
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    check = _PulledBatchCheck()
+    plain_fetch = remote._fetch_ok
+    try:
+        in_process = [WorkerServer(port=0).start() for _ in range(2)]
+        if any(w.device.type != check.device_type for w in in_process):
+            raise AssertionError("P1: an in-process worker is not on the card")
+        mh = MultiHostQueryRunner([w.url for w in in_process], catalog="tpch", schema=schema)
+        srv = CoordinatorServer(runner=mh, port=0)
+        srv.start()  # the runner's heartbeat loop; /v1/dictionary, /v1/worker/*
+        servers.append(srv)
+        url = f"http://127.0.0.1:{srv.port}"
+        # the worker processes resolve the coordinator's global dictionary
+        # refs through its /v1/dictionary (`worker.coordinator-url`)
+        procs = {name: start_worker_process(here, url) for name in ("A", "B")}
+        urls = {name: worker_process_url(p) for name, p in procs.items()}
+        log(f"multihost workers: in-process {[w.url for w in in_process]}, "
+            f"processes {urls} (pids {[p.pid for p in procs.values()]})")
+        mh.add_worker(urls["A"])
+        mh.execute("set session query_trace = true")
+        for name, sql in sqls.items():
+            orders[name] = result_order(mh.create_plan(sql))
+
+        # a task the coordinator could not pull is replaced on a live worker
+        # (or the query re-plans); each such failure is logged with its text
+        failures: list = []
+
+        def noting_fetch(task, *a, **kw):
+            try:
+                return plain_fetch(task, *a, **kw)
+            except Exception as e:
+                failures.append(f"{task.task_id} on {task.worker_url}: {e}"[:3000])
+                raise
+
+        remote._fetch_ok = noting_fetch
+
+        def run(name: str, label: str, want_w: int) -> tuple:
+            trips = breaker_trips_counter().value()
+            failures.clear()
+            k1 = gs.grouped_sums.launches
+            t0 = time.perf_counter()
+            rows = mh.execute(sqls[name]).rows
+            wall = time.perf_counter() - t0
+            k1 = gs.grouped_sums.launches - k1
+            log(f"multihost {label} {name}: breaker trips {breaker_trips_counter().value() - trips}"
+                f", breakers {BREAKERS.states()}, failed pulls {len(failures)}")
+            for text in failures:
+                log(f"multihost {label} {name} failed pull: {text}")
+            if label.startswith("P1") and failures:
+                raise AssertionError(f"P1 {name}: {len(failures)} task failures")
+            if len(mh.last_plan_workers) != want_w:
+                raise AssertionError(f"{label} {name}: planned at W = "
+                                     f"{len(mh.last_plan_workers)}, not {want_w}")
+            results[f"{label}_{name}"] = (name, rows)
+            return rows, wall, k1
+
+        # -- P1: the queries over two in-process workers and one process ------
+        with check:
+            mh.execute("set session pallas_agg = true")
+            original_launch, recording = grouped_sums_recorder(k1_capture)
+            for name in list(MULTIHOST_QUERIES) + ["q1_double", "q3", "q18"]:
+                for attempt in ("cold", "warm"):
+                    if name == "q1_double" and attempt == "cold":
+                        gs._launch = recording  # a worker's aggregation
+                    try:
+                        rows, wall, k1 = run(name, f"P1_{attempt}", 3)
+                    finally:
+                        gs._launch = original_launch
+                    rep = exchange_report(mh.traces[-1][1])
+                    log(f"multihost P1 {name} {attempt}: wall_s={wall!r} rows={len(rows)} "
+                        f"grouped_sums={k1} replaced_tasks={rep['replaced']} "
+                        f"tasks_per_worker={rep['tasks_per_worker']} "
+                        f"stages={json.dumps(rep['stages'], sort_keys=True)}")
+                    if name == "q1_double" and k1 == 0:
+                        raise AssertionError("P1 q1_double: no grouped_sums launch in a worker")
+            k1_capture["query"] = "q1_double_worker_agg"
+            log(f"multihost P1: {check.checked} pulled batches read, all on the card")
+
+            # -- P2: membership through the coordinator ---------------------------
+            def put(path: str, body: bytes, signed: bool) -> tuple:
+                headers = {"X-Cluster-Auth": sign_body(MULTIHOST_SECRET.encode(), body)} \
+                    if signed else {}
+                req = urllib.request.Request(url + path, data=body, headers=headers,
+                                             method="PUT")
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        return r.status, json.loads(r.read())
+                except urllib.error.HTTPError as e:
+                    return e.code, json.loads(e.read())
+
+            got = put("/v1/worker/register", urls["B"].encode(), signed=False)
+            log(f"multihost P2 unsigned register: {got}")
+            if got != (401, {"error": {"message": "bad signature"}}):
+                raise AssertionError(f"P2: an unsigned register was not refused: {got}")
+            got = put("/v1/worker/drain", urls["A"].encode(), signed=True)
+            if got != (200, {"draining": urls["A"]}):
+                raise AssertionError(f"P2: drain answered {got}")
+            rows, wall, _ = run("q1", "P2_drained", 2)
+            log(f"multihost P2 q1 after draining the process worker: wall_s={wall!r} "
+                f"workers={mh.last_plan_workers}")
+            procs["A"].wait(timeout=120)  # the drained process exits by itself
+            log(f"multihost P2: the drained worker process exited {procs['A'].returncode}")
+            grown = WorkerServer(port=0).start()
+            in_process.append(grown)
+            mh.add_worker(grown.url)
+            rows, wall, _ = run("q1", "P2_grown", 3)
+            log(f"multihost P2 q1 after add_worker: wall_s={wall!r} W=3")
+            got = put("/v1/worker/register", urls["B"].encode(), signed=True)
+            if got != (200, {"registered": urls["B"]}):
+                raise AssertionError(f"P2: register answered {got}")
+            original_fetch = remote._fetch_ok
+            killed: dict = {}
+
+            def killing_fetch(task, *a, **kw):
+                if not killed:  # the first pull of the query: B dies now
+                    procs["B"].terminate()
+                    killed["rc"] = procs["B"].wait(timeout=60)
+                return original_fetch(task, *a, **kw)
+
+            remote._fetch_ok = killing_fetch
+            try:
+                rows, wall, _ = run("q3", "P2_killed", 3)
+            finally:
+                remote._fetch_ok = original_fetch
+            log(f"multihost P2 q3 with the process worker killed mid-pull "
+                f"(exit {killed.get('rc')}): wall_s={wall!r} replans={mh.last_replans} "
+                f"W={len(mh.last_plan_workers)}")
+            if mh.last_replans != 1 or urls["B"] in mh.last_plan_workers:
+                raise AssertionError(f"P2: {mh.last_replans} re-plans, workers "
+                                     f"{mh.last_plan_workers}")
+            died = mh.failure_detector.tick()
+            nodes = mh.execute("select node_id, state, heartbeat_age_s, breaker_state "
+                               "from system.runtime.nodes").rows
+            log(f"multihost P2 detector tick declared {died}; nodes {nodes}")
+            state = {r[0]: r for r in nodes}
+            if state[urls["B"]][1] != "DEAD" or state[urls["B"]][3] != "open" \
+                    or BREAKERS.get(urls["B"]).state != "open":
+                raise AssertionError(f"P2: the killed worker is {state[urls['B']]}")
+
+            # -- P4: served over /v1/statement; a worker registered over HTTP -----
+            fresh = WorkerServer(port=0).start()
+            in_process.append(fresh)
+            got = put("/v1/worker/register", fresh.url.encode(), signed=True)
+            if got != (200, {"registered": fresh.url}):
+                raise AssertionError(f"P4: register answered {got}")
+            client = Client(url)
+            for name in ("q1_double", "q3"):
+                k1 = gs.grouped_sums.launches
+                t0 = time.perf_counter()
+                _, rows = client.execute(sqls[name])
+                wall = time.perf_counter() - t0
+                results[f"P4_{name}"] = (name, [tuple(r) for r in rows])
+                log(f"multihost P4 {name} served: wall_s={wall!r} rows={len(rows)} "
+                    f"W={len(mh.last_plan_workers)} "
+                    f"grouped_sums={gs.grouped_sums.launches - k1}")
+                if len(mh.last_plan_workers) != 4:
+                    raise AssertionError(f"P4: planned at W = {len(mh.last_plan_workers)}")
+        if check.off_card:
+            raise AssertionError(f"P1-P4: {len(check.off_card)} pulled batches read off "
+                                 f"the card: {sorted(set(check.off_card))}")
+        log(f"multihost P1-P4: {check.checked} pulled batches read, all on the card")
+
+        # -- P3: resize_mesh on the one-card mesh, 4 -> 2 -> 4 ----------------------
+        mesh = DistributedQueryRunner(catalog="tpch", schema=schema, n_workers=MESH_WORKERS)
+        kernel, recording = shape_recording_probe(probe_record)
+        import trino_tpu_torch.parallel.runner as mesh_runner
+
+        for w in (4, 2, 4):
+            mesh.resize_mesh(w)
+            k2 = ls.locate_sorted.launches
+            if w == 2:
+                probe_record["query"] = "q3_w2"
+                mesh_runner.locate_sorted = recording
+            try:
+                t0 = time.perf_counter()
+                rows = mesh.execute(sqls["q3"]).rows
+                wall = time.perf_counter() - t0
+            finally:
+                mesh_runner.locate_sorted = kernel
+            k2 = ls.locate_sorted.launches - k2
+            results[f"P3_w{w}_{len(results)}"] = ("q3", rows)
+            log(f"multihost P3 mesh q3 at W={w}: wall_s={wall!r} locate_sorted={k2} "
+                f"scan entries dropped by the resize={mesh.last_resize_invalidated}")
+            if k2 == 0:
+                raise AssertionError(f"P3 W={w}: no locate_sorted launch")
+    finally:
+        remote._fetch_ok = plain_fetch
+        for s in servers:
+            s.shutdown()
+        for w in in_process:
+            w.shutdown()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            p.stdout.close()
+        if secret_before is None:
+            os.environ.pop("TRINO_TPU_CLUSTER_SECRET", None)
+        else:
+            os.environ["TRINO_TPU_CLUSTER_SECRET"] = secret_before
+    k1_launches = gs.grouped_sums.launches  # read just after the path
+    k2_launches = ls.locate_sorted.launches
+    log(f"multihost path: grouped_sums launches={k1_launches} (in-process workers) "
+        f"locate_sorted launches={k2_launches}")
+    if k1_launches <= 0 or k2_launches <= 0:
+        raise AssertionError("the multi-host path never launched a kernel")
+
+    def check_rows(cpu_tpch: dict) -> None:
+        from trino_tpu_torch.testing import assert_rows_match
+
+        for key, (name, rows) in results.items():
+            rtol = KERNEL_RTOL if name == "q1_double" else DOUBLE_RTOL
+            assert_rows_match(rows, cpu_tpch[sqls[name]][0], orders[name], rtol)
+        log(f"multihost path: {len(results)} results match the CPU run")
+
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "check": check_rows}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -4981,7 +5435,7 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
                         tdw: dict, arrays: dict, holistic: dict, temporal: dict,
                         statements: dict, lifecycle: dict, schedule: dict,
-                        fte: dict) -> dict:
+                        fte: dict, multihost: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -5008,6 +5462,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured in phase 5m")
     if "largest" not in fte:
         raise AssertionError("no spooled sorted-probe launch was captured in phase 5n")
+    if "largest" not in multihost:
+        raise AssertionError("no sorted-probe launch was captured on phase 5p's W = 2 mesh")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -5021,6 +5477,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"lifecycle_largest_{lifecycle['largest_query']}",) + lifecycle["largest"]]
     cases += [(f"schedule_largest_{schedule['largest_query']}",) + schedule["largest"]]
     cases += [(f"fte_largest_{fte['largest_query']}",) + fte["largest"]]
+    cases += [(f"multihost_largest_{multihost['largest_query']}",) + multihost["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -5053,6 +5510,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     schedule_largest["query"] = schedule["largest_query"]
     fte_largest = time_probe_inputs("fte_largest", dev, fte["largest"])
     fte_largest["query"] = fte["largest_query"]
+    multihost_largest = time_probe_inputs("multihost_largest", dev, multihost["largest"])
+    multihost_largest["query"] = multihost["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -5071,6 +5530,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "lifecycle_inputs": lifecycle_largest,
         "schedule_inputs": schedule_largest,
         "fte_inputs": fte_largest,
+        "multihost_inputs": multihost_largest,
     }
 
 
@@ -5215,6 +5675,9 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     fte: dict = {}
     fte_path = timed("5n", run_fte_observatory_path, fte)
     srv_path = timed("5o", run_serving_path)
+    multihost_probe: dict = {}
+    multihost_k1: dict = {}
+    mh_path = timed("5p", run_multihost_path, multihost_probe, multihost_k1)
     tpcds = timed("5d-5e wait", wait_tpcds_card, card, card_path, procs, dev)
     for phase in ("5d", "5e"):  # the second card process's seconds
         seconds[phase] = tpcds[phase]["seconds"]
@@ -5226,12 +5689,14 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         for path in (main_path, mesh_path, semi_path, func_path, sch_path, fte_path,
                      srv_path):
             path.pop("check")(cpu)
+        mh_path.pop("check")({**cpu, **tpcds_reference("5p")})
 
     timed("4-5c checks", check_tpch_paths)
     k1["launches"] += (
         arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
         + tem_path["k1_launches"] + stm_path["k1_launches"] + lc_path["k1_launches"]
         + sch_path["k1_launches"] + fte_path["k1_launches"] + srv_path["k1_launches"]
+        + mh_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
@@ -5239,13 +5704,15 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "temporal": tem_path["k1_launches"], "statements": stm_path["k1_launches"],
         "lifecycle": lc_path["k1_launches"], "schedule_layouts": sch_path["k1_launches"],
         "fte_observatory": fte_path["k1_launches"], "serving": srv_path["k1_launches"],
+        "multihost": mh_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
     k1["statements_inputs"] = check_grouped_sums_captured(dev, statements_k1, "statements")
     k1["lifecycle_inputs"] = check_grouped_sums_captured(dev, lifecycle_k1, "lifecycle")
+    k1["multihost_inputs"] = check_grouped_sums_captured(dev, multihost_k1, "multihost")
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
-               holistic, temporal, statements, lifecycle, schedule, fte)
+               holistic, temporal, statements, lifecycle, schedule, fte, multihost_probe)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
@@ -5253,6 +5720,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
         + tem_path["k2_launches"] + stm_path["k2_launches"] + lc_path["k2_launches"]
         + sch_path["k2_launches"] + fte_path["k2_launches"] + srv_path["k2_launches"]
+        + mh_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -5273,6 +5741,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "schedule_layouts": sch_path["k2_launches"],
         "fte_observatory": fte_path["k2_launches"],
         "serving": srv_path["k2_launches"],
+        "multihost": mh_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

@@ -101,16 +101,29 @@ def test_mesh_runner_without_device_needs_cuda():
 
 
 def test_serving_entry_points_need_cuda(capsys):
-    """The coordinator, the CLI's in-process backend and the DB-API driver
-    run on the card unless told otherwise: without one they raise, and
-    with device="cpu" (--device cpu) they run on the CPU."""
+    """The coordinator, the CLI's in-process backend, the DB-API driver,
+    the worker server (and its `main`) and the multi-host runner run on the
+    card unless told otherwise: without one they raise, and with
+    device="cpu" (--device cpu) they run on the CPU."""
     from trino_tpu_torch import cli, dbapi
+    from trino_tpu_torch.parallel.remote import MultiHostQueryRunner
     from trino_tpu_torch.server import CoordinatorServer
+    from trino_tpu_torch.server import worker as worker_mod
 
     if torch.cuda.is_available():
         assert CoordinatorServer(port=0).runner.device.type == "cuda"
         assert cli._LocalBackend("tpch", "tiny").runner.device.type == "cuda"
+        w = worker_mod.WorkerServer(port=0).start()
+        assert w.device.type == "cuda"
+        w.shutdown()
+        assert MultiHostQueryRunner(["http://127.0.0.1:1"]).device.type == "cuda"
     else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            worker_mod.WorkerServer(port=0)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            worker_mod.main(["--port", "0"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            MultiHostQueryRunner(["http://127.0.0.1:1"])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             CoordinatorServer(port=0)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -128,6 +141,11 @@ def test_serving_entry_points_need_cuda(capsys):
     assert "(1 row)" in capsys.readouterr().out
     conn = dbapi.connect(runner=srv.runner)
     assert conn.cursor().execute("select 2").fetchall() == [(2,)]
+    w = worker_mod.WorkerServer(port=0, device="cpu").start()
+    assert w.device == torch.device("cpu")
+    w.shutdown()
+    mh = MultiHostQueryRunner(["http://127.0.0.1:1"], device="cpu")
+    assert mh.device == torch.device("cpu")
 
 
 def test_resolve_device_rejects_other_devices():

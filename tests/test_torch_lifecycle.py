@@ -1,7 +1,7 @@
 """The port's query lifecycle, events and retry against the JAX package's.
 
 The cases of tests/test_lifecycle.py (less the spool GC, the lint rule and
-the worker server's result wait, whose pieces are not ported) and of
+the worker server's result wait) and of
 tests/test_events_retry.py.  The unit cases run once per package (`pkg`)
 with the same inputs, fake clocks and seeded rngs, and hold the same
 outcomes; the runner cases run one statement sequence through the JAX
@@ -53,21 +53,11 @@ def pkg(request):
 def _clean_globals():
     for p in PKGS:
         mod(p, "runtime.retry").FAILURE_INJECTOR.clear()
-    mod("trino_tpu", "runtime.retry").BREAKERS.reset()
+        mod(p, "runtime.retry").BREAKERS.reset()
     yield
     for p in PKGS:
         mod(p, "runtime.retry").FAILURE_INJECTOR.clear()
-    mod("trino_tpu", "runtime.retry").BREAKERS.reset()
-
-
-def remote_tasks_unported():
-    """The port has no remote tasks: their hooks raise by name."""
-    return pytest.raises(NotImplementedError, match="remote tasks")
-
-
-def breakers_unported():
-    """The port has no circuit breakers: constructing one raises by name."""
-    return pytest.raises(NotImplementedError, match="circuit breakers")
+        mod(p, "runtime.retry").BREAKERS.reset()
 
 
 # -- state machine ------------------------------------------------------------
@@ -144,21 +134,8 @@ def test_cancel_aborts_at_next_check_and_first_reason_wins(pkg):
 
 
 def test_cancel_fans_out_to_registered_tasks(pkg):
-    """The JAX package cancels every registered remote task; the port has
-    no remote tasks, so registering one raises by name and a cancel still
-    arms the token."""
+    """A cancel, a kill and a failure cancel every registered remote task."""
     L = mod(pkg, "runtime.lifecycle")
-    if pkg == "trino_tpu_torch":
-        ctx = L.QueryContext("q1")
-        with remote_tasks_unported():
-            ctx.register_task(object())
-        with remote_tasks_unported():
-            L.register_task(object())
-        with remote_tasks_unported():
-            ctx.cancel_tasks()
-        ctx.cancel()
-        assert ctx.canceled
-        return
     canceled = []
 
     class FakeTask:
@@ -176,16 +153,21 @@ def test_cancel_fans_out_to_registered_tasks(pkg):
     ctx.register_task(FakeTask(3))
     ctx.cancel_tasks()
     assert sorted(canceled) == [1, 2, 3]
+    ctx2 = L.QueryContext("q2")
+    ctx2.begin()
+    token = L.set_current(ctx2)
+    try:
+        L.register_task(FakeTask(4))  # the executing query's
+    finally:
+        L.reset_current(token)
+    L.register_task(FakeTask(5))  # no executing query: a no-op
+    ctx2.fail(RuntimeError("boom"))
+    assert sorted(canceled) == [1, 2, 3, 4]
 
 
 def test_http_timeout_derives_from_remaining_deadline(pkg):
-    """JAX: the HTTP timeout follows the remaining deadline.  Port: there is
-    no HTTP tier, so the hook raises by name."""
+    """The HTTP timeout follows the remaining deadline."""
     L = mod(pkg, "runtime.lifecycle")
-    if pkg == "trino_tpu_torch":
-        with remote_tasks_unported():
-            L.QueryContext("q1", max_run_time_s=10.0, clock=FakeClock()).http_timeout(600.0)
-        return
     clock = FakeClock()
     ctx = L.QueryContext("q1", max_run_time_s=10.0, clock=clock)
     assert ctx.http_timeout(600.0) == pytest.approx(10.0)
@@ -199,15 +181,8 @@ def test_http_timeout_derives_from_remaining_deadline(pkg):
 
 
 def test_request_timeout_uses_contextvar(pkg):
-    """JAX: the request timeout reads the executing query's deadline.  Port:
-    there is no HTTP tier, so the helper raises by name."""
+    """The request timeout reads the executing query's deadline."""
     L = mod(pkg, "runtime.lifecycle")
-    if pkg == "trino_tpu_torch":
-        with remote_tasks_unported():
-            L.request_timeout(42.0)
-        with remote_tasks_unported():
-            L.request_timeout()
-        return
     assert L.request_timeout(42.0) == 42.0
     assert L.request_timeout() == 600.0  # the typed config's default
     clock = FakeClock()
@@ -389,10 +364,6 @@ def test_task_policy_runs_once(pkg):
 
 def test_breaker_trips_after_consecutive_failures(pkg):
     R = mod(pkg, "runtime.retry")
-    if pkg == "trino_tpu_torch":
-        with breakers_unported():
-            R.CircuitBreaker(failure_threshold=3, cooldown_s=5.0, clock=FakeClock())
-        return
     b = R.CircuitBreaker(failure_threshold=3, cooldown_s=5.0, clock=FakeClock())
     b.record_failure()
     b.record_failure()
@@ -407,10 +378,6 @@ def test_breaker_trips_after_consecutive_failures(pkg):
 
 def test_breaker_half_open_probe_then_close_or_reopen(pkg):
     R = mod(pkg, "runtime.retry")
-    if pkg == "trino_tpu_torch":
-        with breakers_unported():
-            R.CircuitBreaker(failure_threshold=1, cooldown_s=5.0, clock=FakeClock())
-        return
     clock = FakeClock()
     b = R.CircuitBreaker(failure_threshold=1, cooldown_s=5.0, clock=clock)
     b.record_failure()
@@ -430,17 +397,9 @@ def test_breaker_half_open_probe_then_close_or_reopen(pkg):
 
 
 def test_breaker_registry_states_surface_in_metrics(pkg):
-    """JAX: breaker states surface as the breaker_state gauge.  Port: the
-    registry raises by name, and the gauge keeps its name with no series."""
+    """Breaker states surface as the breaker_state gauge."""
     R = mod(pkg, "runtime.retry")
     REGISTRY = mod(pkg, "telemetry.metrics").REGISTRY
-    if pkg == "trino_tpu_torch":
-        with breakers_unported():
-            R.CircuitBreakerRegistry(failure_threshold=1, clock=FakeClock())
-        assert not hasattr(R, "BREAKERS")
-        assert not [r for r in REGISTRY.rows() if r[0] == "trino_tpu_breaker_state"]
-        assert "trino_tpu_breaker_state" in REGISTRY.render_prometheus()
-        return
     reg = R.CircuitBreakerRegistry(failure_threshold=1, clock=FakeClock())
     assert reg.get("http://w1") is reg.get("http://w1")
     for _ in range(3):

@@ -274,8 +274,8 @@ def test_unported_mesh_settings_raise(setting):
     and fault-tolerant execution (spooled stage outputs, task retries).
     Each case runs Q3 and holds the rows to the local run; the TASK cases
     spool every distributed stage and leave no spool behind, and the
-    layouts case then holds `resize_mesh`, still unported, to its
-    NotImplementedError."""
+    layouts case then resizes the mesh to W / 2 (`resize_mesh`, a layout
+    whose bucket count W / 2 still divides) and holds Q3 again."""
     import os
 
     from trino_tpu_torch.runtime.runner import LocalQueryRunner
@@ -286,8 +286,9 @@ def test_unported_mesh_settings_raise(setting):
     assert r.execute(QUERIES[3]).rows == local.execute(QUERIES[3]).rows
     if setting.startswith("table_layouts"):
         assert r.last_mesh_profile.counters.get("scan_bucketize", 0) == 1
-        with pytest.raises(NotImplementedError, match="resize_mesh"):
-            r.resize_mesh(W // 2)
+        r.resize_mesh(W // 2)
+        assert r.wm.n == W // 2 and r.last_resize_invalidated >= 1
+        assert r.execute(QUERIES[3]).rows == local.execute(QUERIES[3]).rows
     if setting.startswith(("fault_tolerant", "retry_policy")):
         ex = r.last_stage_executor
         assert ex.retry_task and ex.counters.get("spool_write", 0) == 4

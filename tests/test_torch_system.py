@@ -2,8 +2,7 @@
 package's: every case of tests/test_system_tables.py (the query history,
 nodes, session properties, caches, spans and the metrics tables) and of
 tests/test_config.py (properties files, etc/ catalogs, runner_from_etc,
-the per-catalog and per-worker overrides, which the port refuses by
-name, and the file event listener).
+the per-catalog and per-worker overrides and the file event listener).
 
 Each case runs the same statements through the JAX LocalQueryRunner and
 the port's (`device="cpu"`) at tpch.tiny and holds the rows and column
@@ -339,66 +338,66 @@ def test_unknown_connector_rejected(tmp_path):
 
 
 def test_catalog_override_resolution_order():
-    """JAX: env > per-catalog > per-worker > base.  The port has no breaker
-    section and no overrides: such keys raise naming the piece."""
+    """env > per-catalog > per-worker > base, in both packages."""
     props = {
         "breaker.failure-threshold": "4",
         "breaker.failure-threshold@tpch": "6",
         "breaker.failure-threshold@8123": "9",
     }
-    B = mod("trino_tpu", "config").BreakerConfig
-    assert (
-        B.from_properties(props).failure_threshold,
-        B.from_properties(props, worker="http://127.0.0.1:8123", catalog="tpch").failure_threshold,
-        B.from_properties(props, worker="http://127.0.0.1:8123").failure_threshold,
-        B.from_properties(
-            props, env={"TRINO_TPU_BREAKER_FAILURE_THRESHOLD": "2"},
-            worker="http://127.0.0.1:8123", catalog="tpch",
-        ).failure_threshold,
-    ) == (4, 6, 9, 2)
-    config = mod("trino_tpu_torch", "config")
-    assert not hasattr(config, "BreakerConfig")
-    with pytest.raises(NotImplementedError, match="circuit breakers"):
-        config.load_cluster_config(props, env={})
+    got = []
+    for p in PKGS:
+        B = mod(p, "config").BreakerConfig
+        got.append((
+            B.from_properties(props).failure_threshold,
+            B.from_properties(props, worker="http://127.0.0.1:8123", catalog="tpch").failure_threshold,
+            B.from_properties(props, worker="http://127.0.0.1:8123").failure_threshold,
+            B.from_properties(
+                props, env={"TRINO_TPU_BREAKER_FAILURE_THRESHOLD": "2"},
+                worker="http://127.0.0.1:8123", catalog="tpch",
+            ).failure_threshold,
+        ))
+        cfg = mod(p, "config").load_cluster_config(props, env={})
+        assert cfg.breaker.failure_threshold == 4
+    assert got[0] == got[1] == (4, 6, 9, 2)
 
 
 def test_catalog_override_is_exact_match():
-    """JAX: a per-catalog override matches the catalog's exact name.  The
-    port raises for any ``<key>@<token>`` override, of a ported section
-    too, and the base key still resolves."""
-    B = mod("trino_tpu", "config").BreakerConfig
+    """A per-catalog override matches the catalog's exact name, of every
+    section, in both packages; the base key still resolves."""
     props = {"breaker.failure-threshold@tpch": "6"}
-    assert B.from_properties(props, catalog="tpch_backup").failure_threshold == 3
-    assert B.from_properties(props, catalog="tpch").failure_threshold == 6
-    config = mod("trino_tpu_torch", "config")
-    with pytest.raises(NotImplementedError, match="per-worker and per-catalog overrides"):
-        config.load_cluster_config({"dispatcher.lanes@tpch": "2"}, env={})
-    got = [mod(p, "config").load_cluster_config({"dispatcher.lanes": "2"}, env={})
-           for p in PKGS]
+    for p in PKGS:
+        B = mod(p, "config").BreakerConfig
+        assert B.from_properties(props, catalog="tpch_backup").failure_threshold == 3
+        assert B.from_properties(props, catalog="tpch").failure_threshold == 6
+    got = [mod(p, "config").load_cluster_config(
+        {"dispatcher.lanes": "2", "dispatcher.lanes@tpch": "5"}, env={}) for p in PKGS]
     assert got[0].dispatcher.lanes == got[1].dispatcher.lanes == 2
+    assert [c.section_for("dispatcher", catalog="tpch").lanes for c in got] == [5, 5]
 
 
 def test_cluster_config_section_for():
-    """The sections both packages have resolve alike; the port's
-    section_for and breaker_for (overrides, breakers) and its lifecycle
-    keys (HTTP request timeouts) raise naming the piece."""
+    """Every section resolves alike in both packages, and so do
+    section_for (per-worker and per-catalog overrides), breaker_for and the
+    lifecycle keys (the HTTP tier's request timeouts)."""
     props = {
         "dispatcher.drain-grace": "1.5",
         "dispatcher.lanes": "3",
         "memory.spill-dir": "/nonexistent/spill",
+        "dispatcher.lanes@h:8200": "7",
+        "breaker.cooldown@h:8200": "0.5",
+        "lifecycle.request-timeout": "50",
     }
     got = []
     for p in PKGS:
         cfg = mod(p, "config").load_cluster_config(props, env={})
-        got.append((cfg.dispatcher.drain_grace_s, cfg.dispatcher.lanes, cfg.memory.spill_dir))
-    assert got[0] == got[1] == (1.5, 3, "/nonexistent/spill")
-    with pytest.raises(NotImplementedError, match="overrides"):
-        cfg.section_for("dispatcher", worker="http://h:8200")
-    with pytest.raises(NotImplementedError, match="circuit breakers"):
-        cfg.breaker_for("http://h:8200")
-    with pytest.raises(NotImplementedError, match="HTTP request timeouts"):
-        mod("trino_tpu_torch", "config").load_cluster_config(
-            {"lifecycle.request-timeout": "50"}, env={})
+        got.append((
+            cfg.dispatcher.drain_grace_s, cfg.dispatcher.lanes, cfg.memory.spill_dir,
+            cfg.section_for("dispatcher", worker="http://h:8200").lanes,
+            cfg.breaker_for("http://h:8200").cooldown_s,
+            cfg.breaker_for("http://h:9999").cooldown_s,
+            cfg.lifecycle.request_timeout_s,
+        ))
+    assert got[0] == got[1] == (1.5, 3, "/nonexistent/spill", 7, 0.5, 5.0, 50.0)
 
 
 def test_file_event_listener(etc_dir, tmp_path):

@@ -1,28 +1,29 @@
-"""Typed engine configuration: the dispatcher, memory, profile, audit and
-coordinator sections.
+"""Typed engine configuration (the airlift ``@Config`` analog).
 
-Port of part of trino_tpu/config.py (the airlift ``@Config`` analog).
-Each field carries its properties key; a knob resolves, first hit wins,
-from the environment (``TRINO_TPU_<KEY>`` with ``.``/``-`` -> ``_``,
-uppercased), the properties dict, then the dataclass default.
+Port of trino_tpu/config.py.  Each field carries its properties key; a
+knob resolves, first hit wins, from:
 
-Ported: the ``dispatcher`` section (runtime/dispatcher.py's lanes,
-Retry-After and drain waits), ``memory`` (``memory.pool-limit-bytes``,
-``memory.spill-dir``), ``profile`` (the profile archive,
-telemetry/profile_store.py), ``audit`` (the audit log,
-telemetry/audit.py) and ``coordinator`` (the result page size and long-poll
-bound of server/coordinator.py), with `get_config` / `install_config` /
-`reset_config` / `load_config`; installing a config with a pool limit
-arms the shared memory pool's limit.  Not ported: the ``breaker``
-section (the circuit breakers of the multi-host HTTP tier), the
-``lifecycle`` section (its HTTP request timeouts), the JAX package's
-per-worker and per-catalog overrides (``<key>@<token>``) with
-`breaker_for` / `section_for`, and the sections of the other unported
-pieces (heartbeat, remote, worker, compile cache, prewarm, dictionary).
-`load_cluster_config` raises NotImplementedError naming the piece for a
-``breaker.`` or ``lifecycle.`` key or an override, and `breaker_for` /
-`section_for` raise; runtime/config.py raises for the knobs of the other pieces when
-an etc/ directory sets them.
+  1. the environment: ``TRINO_TPU_<KEY>`` with ``.``/``-`` -> ``_`` and
+     uppercased (``breaker.failure-threshold`` ->
+     ``TRINO_TPU_BREAKER_FAILURE_THRESHOLD``);
+  2. a per-catalog override ``<key>@<catalog>`` (the EXACT catalog name a
+     resolution is scoped to);
+  3. a per-worker override ``<key>@<token>``, where ``<token>`` is a
+     substring of the worker id/url (``breaker.failure-threshold@8123=5``
+     tunes only the worker whose url contains ``8123``);
+  4. the properties dict: ``<key>=<value>``;
+  5. the dataclass default.
+
+Sections: ``breaker`` (the per-worker circuit breakers, runtime/retry.py),
+``heartbeat`` (runtime/membership.HeartbeatDetector), ``lifecycle`` (the
+HTTP tier's request timeouts), ``remote`` (parallel/remote.py's retry
+budgets), ``worker`` (server/worker.py), ``coordinator``, ``dispatcher``,
+``memory``, ``profile`` and ``audit``, with `get_config` /
+`install_config` / `reset_config` / `load_config`; installing a config
+with a pool limit arms the shared memory pool's limit.  The JAX package's
+``compile-cache`` section configures XLA's on-disk compilation cache and
+has no torch counterpart; the ``prewarm`` and ``dictionary`` sections are
+not ported yet (runtime/config.py raises for ``prewarm.manifest-path``).
 """
 
 from __future__ import annotations
@@ -57,10 +58,12 @@ def _coerce(value: str, typ: type):
 
 class ConfigSection:
     """Base for typed config dataclasses: `from_properties` resolves every
-    `knob()` field through env > properties > default."""
+    `knob()` field through env > per-worker override > properties > default."""
 
     @classmethod
-    def from_properties(cls, props: Optional[dict] = None, env=None):
+    def from_properties(cls, props: Optional[dict] = None, env=None,
+                        worker: Optional[str] = None,
+                        catalog: Optional[str] = None):
         props = props or {}
         env = os.environ if env is None else env
         values = {}
@@ -70,6 +73,10 @@ class ConfigSection:
                 continue
             typ = type(f.default)
             raw = env.get(_env_name(key))
+            if raw is None and catalog is not None:
+                raw = props.get(f"{key}@{catalog}")
+            if raw is None and worker is not None:
+                raw = _worker_override(props, key, worker)
             if raw is None:
                 raw = props.get(key)
             if raw is None:
@@ -92,7 +99,156 @@ class ConfigSection:
         return out
 
 
+def _worker_override(props: dict, key: str, worker: str) -> Optional[str]:
+    """``<key>@<token>`` entries whose token occurs in the worker id win
+    over the base key (longest matching token wins — the most specific
+    override).  Tokens are substrings because worker ids are urls and the
+    properties syntax cannot carry ``:`` inside a key."""
+    best = None
+    best_len = -1
+    prefix = key + "@"
+    for k, v in props.items():
+        if not k.startswith(prefix):
+            continue
+        token = k[len(prefix):]
+        if token and token in worker and len(token) > best_len:
+            best, best_len = v, len(token)
+    return best
+
+
 # -- sections ------------------------------------------------------------------
+
+
+@dataclass
+class BreakerConfig(ConfigSection):
+    """Per-worker circuit breakers on the multi-host HTTP tier (the
+    knobs, loadable; reference: the failure-detection half of
+    HttpRemoteTask)."""
+
+    failure_threshold: int = knob(
+        3, "breaker.failure-threshold",
+        "consecutive failures before a worker's breaker trips OPEN",
+    )
+    cooldown_s: float = knob(
+        5.0, "breaker.cooldown",
+        "seconds an OPEN breaker holds traffic before one half-open probe",
+    )
+
+
+@dataclass
+class HeartbeatConfig(ConfigSection):
+    """Coordinator-side heartbeat failure detection (reference:
+    failuredetector/HeartbeatFailureDetector)."""
+
+    interval_s: float = knob(
+        1.0, "heartbeat.interval",
+        "seconds between failure-detector probe rounds",
+    )
+    miss_threshold: int = knob(
+        3, "heartbeat.miss-threshold",
+        "consecutive missed probes before a worker is declared DEAD",
+    )
+    probe_timeout_s: float = knob(
+        5.0, "heartbeat.probe-timeout",
+        "per-probe HTTP timeout (GET /v1/info)",
+    )
+
+
+@dataclass
+class LifecycleConfig(ConfigSection):
+    """HTTP-tier timeout bounds (the lifecycle constants): every socket
+    wait is additionally capped by the executing query's remaining run time
+    via `lifecycle.request_timeout`."""
+
+    request_timeout_s: float = knob(
+        600.0, "lifecycle.request-timeout",
+        "default per-request HTTP bound when no query deadline caps it",
+    )
+    submit_timeout_s: float = knob(
+        60.0, "lifecycle.submit-timeout",
+        "task submission POST bound (small body, worker answers fast)",
+    )
+    cancel_timeout_s: float = knob(
+        10.0, "lifecycle.cancel-timeout",
+        "best-effort task cancel DELETE bound",
+    )
+    probe_timeout_s: float = knob(
+        5.0, "lifecycle.probe-timeout",
+        "worker liveness probe bound (GET /v1/info)",
+    )
+
+
+@dataclass
+class RemoteConfig(ConfigSection):
+    """Coordinator-side remote scheduling knobs (parallel/remote.py — the
+    module the no-module-level-knob lint now keeps literal-free)."""
+
+    submit_attempts: int = knob(
+        3, "remote.submit-attempts",
+        "transient-submit retries against one worker before it is "
+        "declared gone (REFUSED skips them)",
+    )
+    fetch_attempts: int = knob(
+        3, "remote.fetch-attempts",
+        "transient result-fetch retries against the SAME worker before "
+        "task replacement",
+    )
+    probe_ttl_s: float = knob(
+        15.0, "remote.probe-ttl",
+        "seconds a cached liveness-probe verdict stays fresh",
+    )
+    backoff_base_s: float = knob(
+        0.05, "remote.backoff-base",
+        "full-jitter backoff base for submit/fetch retries",
+    )
+    backoff_cap_s: float = knob(
+        1.0, "remote.backoff-cap",
+        "full-jitter backoff ceiling for submit/fetch retries",
+    )
+    max_replans: int = knob(
+        8, "remote.max-replans",
+        "mesh-shrink re-planning attempts per query before giving up",
+    )
+    max_task_retries: int = knob(
+        4, "remote.max-task-retries",
+        "same-plan recovery attempts per query under "
+        "fault_tolerant_execution (lost tasks re-run on survivors, "
+        "spooled fragments resume) before classifying the mesh as shrunk "
+        "below the plan's requirements and re-planning",
+    )
+
+
+@dataclass
+class WorkerConfig(ConfigSection):
+    """Worker-server execution knobs (server/worker.py)."""
+
+    max_concurrent_tasks: int = knob(
+        4, "worker.max-concurrent-tasks",
+        "tasks running concurrently on one worker (TaskExecutor slots)",
+    )
+    result_wait_s: float = knob(
+        600.0, "worker.result-wait",
+        "result long-poll bound when a task carries no deadline",
+    )
+    status_wait_s: float = knob(
+        1.0, "worker.status-wait",
+        "task status long-poll bound",
+    )
+    drain_task_wait_s: float = knob(
+        600.0, "worker.drain-task-wait",
+        "max seconds graceful drain waits on each running task",
+    )
+    drain_grace_s: float = knob(
+        5.0, "worker.drain-grace",
+        "seconds a drained server lingers after its last task finishes so "
+        "downstream consumers can still pull its results",
+    )
+    coordinator_url: str = knob(
+        "", "worker.coordinator-url",
+        "coordinator base url a starting worker announces itself to "
+        "(PUT /v1/worker/register) so a restarted worker resurrects its "
+        "membership entry without operator action; empty = no announce",
+    )
 
 
 @dataclass
@@ -209,33 +365,41 @@ class CoordinatorConfig(ConfigSection):
 
 @dataclass
 class ClusterConfig:
-    """The ported sections plus the raw properties."""
+    """All ported sections plus the raw properties (kept for per-worker
+    override resolution at breaker-creation time)."""
 
+    breaker: BreakerConfig = field(default_factory=BreakerConfig)
+    heartbeat: HeartbeatConfig = field(default_factory=HeartbeatConfig)
+    lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
+    remote: RemoteConfig = field(default_factory=RemoteConfig)
+    worker: WorkerConfig = field(default_factory=WorkerConfig)
+    coordinator: CoordinatorConfig = field(default_factory=CoordinatorConfig)
     dispatcher: DispatcherConfig = field(default_factory=DispatcherConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
     profile: ProfileConfig = field(default_factory=ProfileConfig)
     audit: AuditConfig = field(default_factory=AuditConfig)
-    coordinator: CoordinatorConfig = field(default_factory=CoordinatorConfig)
     properties: dict = field(default_factory=dict)
 
-    def breaker_for(self, worker: str):
-        raise NotImplementedError(
-            "breaker_for: circuit breakers (the multi-host HTTP tier): not ported yet"
+    def breaker_for(self, worker: str) -> BreakerConfig:
+        """Breaker knobs for ONE worker: base config plus any
+        ``breaker.<knob>@<token>`` overrides matching its id."""
+        return BreakerConfig.from_properties(
+            self.properties, env=self._env, worker=worker
         )
 
     def section_for(self, section: str, worker: Optional[str] = None,
-                    catalog: Optional[str] = None):
-        raise NotImplementedError(
-            "section_for: per-worker and per-catalog overrides: not ported yet"
+                    catalog: Optional[str] = None) -> ConfigSection:
+        """Re-resolve one subsystem section ('breaker', 'worker', ...)
+        scoped to a worker and/or catalog: ``<key>@<catalog>`` (exact
+        catalog name, between env and the per-worker tier) and
+        ``<key>@<token>`` overrides apply on top of the base config."""
+        cls = type(getattr(self, section))
+        return cls.from_properties(
+            self.properties, env=self._env, worker=worker, catalog=catalog
         )
 
-
-#: config.properties key prefixes of sections that are not ported, and the
-#: piece each configures
-UNPORTED_SECTIONS = (
-    ("breaker.", "circuit breakers (the multi-host HTTP tier)"),
-    ("lifecycle.", "HTTP request timeouts (the multi-host HTTP tier)"),
-)
+    #: env mapping captured at load so breaker_for stays reproducible
+    _env = None
 
 
 def load_cluster_config(props: Optional[dict] = None, env=None) -> ClusterConfig:
@@ -243,22 +407,21 @@ def load_cluster_config(props: Optional[dict] = None, env=None) -> ClusterConfig
     ``etc/config.properties``) + environment overrides."""
     props = dict(props or {})
     env = os.environ if env is None else env
-    for key in props:
-        for prefix, piece in UNPORTED_SECTIONS:
-            if key.startswith(prefix):
-                raise NotImplementedError(f"{key} ({piece}): not ported yet")
-        if "@" in key:
-            raise NotImplementedError(
-                f"{key} (per-worker and per-catalog overrides): not ported yet"
-            )
-    return ClusterConfig(
+    cfg = ClusterConfig(
+        breaker=BreakerConfig.from_properties(props, env),
+        heartbeat=HeartbeatConfig.from_properties(props, env),
+        lifecycle=LifecycleConfig.from_properties(props, env),
+        remote=RemoteConfig.from_properties(props, env),
+        worker=WorkerConfig.from_properties(props, env),
+        coordinator=CoordinatorConfig.from_properties(props, env),
         dispatcher=DispatcherConfig.from_properties(props, env),
         memory=MemoryConfig.from_properties(props, env),
         profile=ProfileConfig.from_properties(props, env),
         audit=AuditConfig.from_properties(props, env),
-        coordinator=CoordinatorConfig.from_properties(props, env),
         properties=props,
     )
+    cfg._env = env
+    return cfg
 
 
 def load_config(path: Optional[str] = None, props: Optional[dict] = None,

@@ -26,11 +26,15 @@ Tables (schema `runtime`):
 Schema `metrics` re-exposes the registry as `system.metrics.metrics` (the
 Prometheus surface's SQL twin).
 
-Port of trino_tpu/connectors/system.py.  Differences: `nodes` lists the
-runner's device (one row per CUDA device when the runner is on the card,
-one `cpu` row otherwise; the JAX package lists its XLA devices by id),
-with no heartbeat age, breaker state or prewarm state, since membership
-and prewarm are not ported.  `query_profiles` and `plan_decisions` read
+Port of trino_tpu/connectors/system.py.  `nodes` lists the cluster
+membership's workers (runtime/membership: a multi-host runner's registry,
+or the mesh runner's heartbeat detector over `worker-0..W-1`) with their
+state, heartbeat age and breaker state; a runner with neither lists its
+device (one row per CUDA device when it runs on the card, one `cpu` row
+otherwise; the JAX package lists its XLA devices by id).  The prewarm
+column is NULL: prewarm is not ported yet.  (The JAX mesh runner's
+`nodes` raises AttributeError: it reads a detector field that its
+membership-backed detector no longer has.)  `query_profiles` and `plan_decisions` read
 the profile store attached to the runner (`profile.archive-dir`, or
 `attach_profile_store`) and give no rows without one.
 """
@@ -333,9 +337,21 @@ class SystemConnector(Connector):
 
             return REGISTRY.rows()
         if table == "nodes":
-            # the runner's device: every CUDA device when it runs on the
-            # card, one row for the CPU otherwise (membership, heartbeats,
-            # breakers and prewarm are not ported: their columns are NULL)
+            # cluster membership (runtime/membership) is authoritative when
+            # present: worker id, ACTIVE|DRAINING|DEAD, heartbeat age, the
+            # worker's breaker state, and the process's prewarm state
+            pw = getattr(r, "prewarm", None)
+            pstate = pw.state if pw is not None else None
+            membership = getattr(r, "membership", None)
+            det = getattr(r, "failure_detector", None)
+            if membership is None and det is not None:
+                membership = getattr(det, "membership", None)
+                if membership is not None and hasattr(det, "refresh"):
+                    det.refresh()  # silent past the timeout -> DEAD
+            if membership is not None:
+                return [row + (pstate,) for row in membership.snapshot()]
+            # no membership: the runner's device, every CUDA device when
+            # it runs on the card, one row for the CPU otherwise
             import torch
 
             dev = getattr(r, "device", None)

@@ -73,18 +73,23 @@ def build_all(names) -> None:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        log = open(log_path(name), "wb")
+        # each process writes its own log, renamed into place with the
+        # library: processes building at once never share a log file
+        tmp_log = tmp.with_suffix(f".log{os.getpid()}")
+        log = open(tmp_log, "wb")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append(
-            (name, lib, tmp, log, subprocess.Popen(cmd, stdout=log, stderr=log))
+            (name, lib, tmp, tmp_log, log,
+             subprocess.Popen(cmd, stdout=log, stderr=log))
         )
     failed = []
-    for name, lib, tmp, log, proc in procs:
+    for name, lib, tmp, tmp_log, log, proc in procs:
         rc = proc.wait()
         log.close()
         if rc != 0:
-            failed.append(f"{name} (rc {rc}):\n{log_path(name).read_text()}")
+            failed.append(f"{name} (rc {rc}):\n{tmp_log.read_text()}")
             continue
+        os.replace(tmp_log, log_path(name))
         os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
         # the seconds from the common start to this build's end
         OBSERVATORY.record_kernel(name, time.perf_counter() - t0, "nvcc")

@@ -122,8 +122,12 @@ there; a budget's waves and each join's capacity source are recorded where
 the runtime decides them.  A step's first launch closes the compile events
 its build opened (telemetry/compile_events.py).
 
-Not ported: `resize_mesh` (elastic membership) raises
-NotImplementedError; membership heartbeats and prewarm are absent.
+Membership: the runner keeps a `failure_detector`
+(runtime/membership.HeartbeatFailureDetector) over `worker-0..W-1`,
+refreshed and checked before every query (a worker silent past its
+timeout fails the query), and `resize_mesh(W)` re-shapes the mesh for
+later queries, dropping the old signature's device scan-cache entries.
+Prewarm is not ported yet.
 """
 
 from __future__ import annotations
@@ -310,17 +314,54 @@ class DistributedQueryRunner(LocalQueryRunner):
         n_workers: int = 4,
         device=None,
     ):
+        from trino_tpu_torch.runtime.membership import HeartbeatFailureDetector
+
         super().__init__(catalogs, catalog=catalog, schema=schema, device=device)
         self.wm = WorkerMesh(n_workers, self.device)
+        #: coordinator-side worker liveness (HeartbeatFailureDetector.java:78);
+        #: in-process mesh workers share our liveness, so they are refreshed
+        #: at query start
+        self.failure_detector = HeartbeatFailureDetector()
+        for i in range(self.wm.n):
+            self.failure_detector.register(f"worker-{i}")
         #: the last query's executor (its dynamic filters and event counts)
         self.last_stage_executor = None
         #: the last subplan's collective signature and schedule license
         #: (create_subplan), which verify.device_residency reads
         self.last_collective_signature = None
         self.last_schedule_license = None
+        #: scan-cache entries the last resize_mesh dropped (evidence)
+        self.last_resize_invalidated = 0
 
     def resize_mesh(self, n_workers: int) -> None:
-        raise NotImplementedError("resize_mesh (elastic membership): not ported yet")
+        """Re-shape the mesh for subsequent queries.  A changed W is a new
+        mesh signature: the old signature's device-resident scan entries
+        are dead weight and are dropped here.  The mesh is W logical
+        workers on one card, so no device count bounds W from above (the
+        JAX mesh slices W of its devices); W < 1 raises ValueError as it
+        does there.  Prewarm is not ported yet, so nothing replays a
+        workload at the new signature.
+
+        Deliberately NOT named `add_worker`: that name is the coordinator
+        register endpoint's protocol (`add_worker(url)` on the multi-host
+        runner).  Call between queries."""
+        from trino_tpu_torch.parallel.spmd import mesh_key
+        from trino_tpu_torch.runtime.membership import invalidate_mesh_scans
+
+        if n_workers < 1:
+            raise ValueError(f"mesh size {n_workers} out of range (must be >= 1)")
+        if n_workers == self.wm.n:
+            return
+        old_sig = mesh_key(self.wm)
+        old_n = self.wm.n
+        self.wm = WorkerMesh(n_workers, self.wm.device)
+        for i in range(self.wm.n):
+            self.failure_detector.register(f"worker-{i}")
+        # a SHRINK must forget the dropped workers: a stale detector entry
+        # would time out and fail every later query's liveness check
+        for i in range(self.wm.n, old_n):
+            self.failure_detector.unregister(f"worker-{i}")
+        self.last_resize_invalidated = invalidate_mesh_scans(old_sig)
 
     # -- planning -------------------------------------------------------------
 
@@ -371,6 +412,13 @@ class DistributedQueryRunner(LocalQueryRunner):
     def _run_query(self, query, stats=None) -> MaterializedResult:
         from trino_tpu_torch.runtime.lifecycle import current_query
 
+        # in-process mesh workers share this process's liveness: refresh them
+        # BEFORE the dead check, so only stale registrations can fail it
+        for i in range(self.wm.n):
+            self.failure_detector.heartbeat(f"worker-{i}")
+        dead = self.failure_detector.failed_workers()
+        if dead:
+            raise RuntimeError(f"workers failed heartbeat: {sorted(dead)}")
         tr = self._tracer
         plan = self.plan_query(query)
         with tr.span("fragment"):

@@ -1,22 +1,29 @@
-"""Host-side row hashing and partitioning, and dictionary wire payloads.
+"""Exchange wire format for the multi-host data plane, and host-side row
+hashing and partitioning.
 
-Port of part of trino_tpu/parallel/serde.py (reference roles:
-InterpretedHashGenerator for partitioned exchanges, PagesSerde's
-dictionary handling).  These run on the host over batches of CPU tensors
-(numpy underneath): the spill tier partitions its waves by this value
-hash, which is process-stable and bit-equal to the JAX package's.
+Port of trino_tpu/parallel/serde.py (reference roles: PagesSerde, the
+page serializer of HTTP exchanges between workers, and
+InterpretedHashGenerator for partitioned exchanges).  A page set on the
+wire is a zlib (level 1) pickle of host numpy planes (data, validity,
+array lengths, the live-row mask), column types and dictionary payloads,
+the JAX package's format.  Everything here runs on the host over batches
+of CPU tensors: `batches_to_bytes` reads CPU batches (the caller moves a
+task's output off the card once, `Batch.to("cpu")`) and `bytes_to_batches`
+returns CPU batches, which the consumer moves to its own device.  A long
+decimal travels as its [n, 2] limb plane, an array column as its
+[rows, K] block plus lengths, a timestamp with time zone as its packed
+int64.  The spill tier partitions its waves by the value hash below,
+which is process-stable and bit-equal to the JAX package's.
 
 Difference from the JAX package: a long-decimal key column (an [n, 2]
 limb plane) hashes as its two limbs, high then low, each mixed like a
 column of its own; the JAX package's hash raises a broadcasting error on
 such a key.  Every other key hashes bit for bit as there.
-
-The serialized exchange (`batches_to_bytes`) belongs to multi-host
-serving and is not ported yet.
 """
 
 from __future__ import annotations
 
+import pickle
 import threading
 import zlib
 from collections import OrderedDict
@@ -62,6 +69,51 @@ def _dict_restore(payload):
 
 def _np(t) -> np.ndarray:
     return t.numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _opt_np(t):
+    return None if t is None else _np(t)
+
+
+def _opt_tensor(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def batches_to_bytes(batches: Sequence[Batch]) -> bytes:
+    """Serialize host batches (CPU tensors; a batch on the card raises)."""
+    doc = []
+    for b in batches:
+        cols = []
+        for c in b.columns:
+            cols.append(
+                {
+                    "data": _np(c.data),
+                    "valid": _opt_np(c.valid),
+                    "lengths": _opt_np(c.lengths),
+                    "type": c.type,
+                    "dict": _dict_payload(c.dictionary),
+                }
+            )
+        doc.append({"cols": cols, "mask": _np(b.mask())})
+    return zlib.compress(pickle.dumps(doc, protocol=pickle.HIGHEST_PROTOCOL), 1)
+
+
+def bytes_to_batches(payload: bytes) -> list:
+    """The batches of one page set, as CPU batches."""
+    doc = pickle.loads(zlib.decompress(payload))
+    out = []
+    for b in doc:
+        cols = []
+        for c in b["cols"]:
+            d = _dict_restore(c["dict"])
+            cols.append(
+                Column(
+                    torch.from_numpy(c["data"]), c["type"],
+                    _opt_tensor(c["valid"]), d, _opt_tensor(c["lengths"]),
+                )
+            )
+        out.append(Batch(cols, torch.from_numpy(b["mask"])))
+    return out
 
 
 #: id(dictionary) -> (dictionary, crc32 of every value): a wave re-hashes

@@ -19,8 +19,9 @@ fragment, and every other attempt's output is discarded unread.  The
 spill tier (runtime/spill.py) rides the same spool with attempt 0.
 
 Batches given to the spool hold CPU tensors; loaded batches hold CPU
-tensors too.  The heartbeat detector the JAX module re-exports lives in
-runtime/membership, which is not ported.
+tensors too.  The heartbeat failure detector lives in runtime/membership
+(one implementation, sticky death, breaker integration); the alias below
+keeps this module's import surface, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+# the ONE heartbeat failure detector (runtime/membership); re-exported here
+# for the module's historical import surface
+from trino_tpu_torch.runtime.membership import (  # noqa: F401
+    HeartbeatFailureDetector,
+)
 
 #: spool files older than this are orphans of a crashed process; swept on
 #: construction of any manager sharing the directory

@@ -18,10 +18,11 @@ queued on the card when a check raises finishes there; the runner then
 closes the result stream, the statement's spill stores and its memory
 reservations.
 
-Remote tasks are not ported: `register_task`, `cancel_tasks`,
-`http_timeout` and `request_timeout` (the abort fan-out to remote tasks and
-the HTTP timeouts derived from the deadline, the multi-host HTTP tier's)
-raise NotImplementedError.
+Remote tasks of the multi-host tier (parallel/remote.py) register on the
+executing query (`register_task`); an abort fans `RemoteTaskClient.cancel`
+out to every live one (`cancel_tasks`), and every HTTP wait is bounded by
+what is left of the query (`http_timeout`, `request_timeout`; reference:
+HttpRemoteTask's per-request deadline derivation).
 """
 
 from __future__ import annotations
@@ -210,6 +211,8 @@ class QueryContext:
         #: not when the abandoned wave generator happens to be GC'd or the
         #: hours-scale orphan sweep runs
         self._spills: list = []
+        #: live RemoteTaskClient handles (multi-host); canceled on abort
+        self._tasks: list = []
         # -- per-statement telemetry handles (the lane-safety contract):
         # concurrent engine lanes each resolve THEIR statement's tracer /
         # mesh profile / trace export through this context instead of
@@ -284,6 +287,7 @@ class QueryContext:
         with self._lock:
             if self.state not in TERMINAL_STATES:
                 self.state = state
+        self.cancel_tasks()
         return state
 
     # -- cancellation token ---------------------------------------------------
@@ -301,6 +305,7 @@ class QueryContext:
                 self.kill_reason = reason
                 self.kill_detail = detail
         self._cancel.set()
+        self.cancel_tasks()
 
     @property
     def canceled(self) -> bool:
@@ -357,16 +362,38 @@ class QueryContext:
                 f"({self.planning_deadline - self.created_at:.3f}s)"
             )
 
-    # -- remote tasks: not ported -----------------------------------------------
+    def http_timeout(self, default: Optional[float] = None) -> float:
+        """Per-request timeout derived from the deadline: never wait on a
+        socket longer than the query has left to live.  Raises when the
+        deadline already passed (the request would be pointless).
+        `default=None` reads the typed config's `lifecycle.request-timeout`."""
+        if default is None:
+            from trino_tpu_torch.config import get_config
 
-    def http_timeout(self, default: float = 0.0) -> float:
-        _remote_tasks_not_ported()
+            default = get_config().lifecycle.request_timeout_s
+        self.check()
+        rem = self.remaining_s()
+        if rem is None:
+            return default
+        return max(min(default, rem), 0.001)
+
+    # -- abort propagation ----------------------------------------------------
 
     def register_task(self, client) -> None:
-        _remote_tasks_not_ported()
+        """Track a live remote task so aborts propagate its cancel."""
+        with self._lock:
+            self._tasks.append(client)
 
     def cancel_tasks(self) -> None:
-        _remote_tasks_not_ported()
+        """Best-effort RemoteTaskClient.cancel on every registered task
+        (reference: SqlStageExecution cancel fan-out on query failure)."""
+        with self._lock:
+            tasks, self._tasks = self._tasks, []
+        for t in tasks:
+            try:
+                t.cancel()
+            except Exception:
+                pass
 
     # -- memory ---------------------------------------------------------------
 
@@ -453,18 +480,25 @@ def check_current_planning() -> None:
         ctx.check_planning()
 
 
-def _remote_tasks_not_ported():
-    raise NotImplementedError(
-        "remote tasks and their HTTP timeouts (the multi-host HTTP tier): not ported yet"
-    )
-
-
 def request_timeout(default: Optional[float] = None) -> float:
-    _remote_tasks_not_ported()
+    """HTTP timeout for the executing query: bounded by the query's
+    remaining run time, `default` when no query or no deadline.
+    `default=None` reads the typed config's `lifecycle.request-timeout`."""
+    if default is None:
+        from trino_tpu_torch.config import get_config
+
+        default = get_config().lifecycle.request_timeout_s
+    ctx = _CURRENT.get()
+    if ctx is None:
+        return default
+    return ctx.http_timeout(default)
 
 
 def register_task(client) -> None:
-    _remote_tasks_not_ported()
+    """Attach a remote task to the executing query (no-op without one)."""
+    ctx = _CURRENT.get()
+    if ctx is not None:
+        ctx.register_task(client)
 
 
 def register_spill(spiller) -> None:

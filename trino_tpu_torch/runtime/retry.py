@@ -10,15 +10,13 @@ receiving traffic until a probe succeeds (circuit breaking).
 Everything time-related is injectable (clock / sleep / rng) so chaos tests
 run on a deterministic clock without real sleeps.
 
-Port of trino_tpu/runtime/retry.py: a copy, with the package renamed,
-less the circuit breakers: they guard the multi-host HTTP tier, which is
-not ported, so `CircuitBreaker` and `CircuitBreakerRegistry` raise
-NotImplementedError and there is no process-wide `BREAKERS` registry.
+Port of trino_tpu/runtime/retry.py: a copy, with the package renamed.
 """
 
 from __future__ import annotations
 
 import random
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -131,19 +129,151 @@ class Backoff:
         return d
 
 
-# -- per-worker circuit breakers: not ported ----------------------------------
+# -- per-worker circuit breakers ----------------------------------------------
+
+BREAKER_CLOSED = "closed"
+BREAKER_OPEN = "open"
+BREAKER_HALF_OPEN = "half_open"
+
+#: numeric encoding for the metrics gauge (system.runtime.metrics)
+BREAKER_STATE_CODES = {BREAKER_CLOSED: 0, BREAKER_HALF_OPEN: 1, BREAKER_OPEN: 2}
 
 
 class CircuitBreaker:
-    """A worker's circuit breaker guards the multi-host HTTP tier, which is
-    not ported: constructing one raises NotImplementedError."""
+    """One worker's breaker: trips OPEN after `failure_threshold`
+    CONSECUTIVE failures; after `cooldown_s` one half-open probe is allowed
+    through — success closes the breaker, failure re-opens it (and restarts
+    the cooldown)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("circuit breakers (the multi-host HTTP tier): not ported yet")
+    def __init__(
+        self,
+        failure_threshold: int = 3,
+        cooldown_s: float = 5.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if failure_threshold < 1:
+            raise ValueError(f"failure_threshold must be >= 1: {failure_threshold}")
+        self.failure_threshold = failure_threshold
+        self.cooldown_s = cooldown_s
+        self.clock = clock
+        self._lock = threading.Lock()
+        self.state = BREAKER_CLOSED
+        self._consecutive_failures = 0
+        self._opened_at: Optional[float] = None
+
+    def allow(self) -> bool:
+        """May a request go to this worker now?  An OPEN breaker past its
+        cooldown transitions to HALF_OPEN and admits ONE probe."""
+        with self._lock:
+            if self.state == BREAKER_CLOSED:
+                return True
+            if self.state == BREAKER_HALF_OPEN:
+                # one probe is already in flight; hold further traffic
+                return False
+            if self.clock() - self._opened_at >= self.cooldown_s:
+                self.state = BREAKER_HALF_OPEN
+                return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            self.state = BREAKER_CLOSED
+            self._consecutive_failures = 0
+            self._opened_at = None
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._consecutive_failures += 1
+            if (
+                self.state == BREAKER_HALF_OPEN
+                or self._consecutive_failures >= self.failure_threshold
+            ):
+                tripped = self.state != BREAKER_OPEN
+                self.state = BREAKER_OPEN
+                self._opened_at = self.clock()
+            else:
+                tripped = False
+        if tripped:
+            from trino_tpu_torch.telemetry.metrics import breaker_trips_counter
+
+            breaker_trips_counter().inc()
+
+    def trip(self) -> None:
+        """Force the breaker OPEN immediately (the heartbeat failure
+        detector declared this worker DEAD: definitive evidence outranks
+        the consecutive-failure count)."""
+        with self._lock:
+            tripped = self.state != BREAKER_OPEN
+            self.state = BREAKER_OPEN
+            self._consecutive_failures = max(
+                self._consecutive_failures, self.failure_threshold
+            )
+            self._opened_at = self.clock()
+        if tripped:
+            from trino_tpu_torch.telemetry.metrics import breaker_trips_counter
+
+            breaker_trips_counter().inc()
 
 
-class CircuitBreakerRegistry(CircuitBreaker):
-    """Worker url -> breaker; not ported (see CircuitBreaker)."""
+class CircuitBreakerRegistry:
+    """Worker url -> breaker; surfaced as the
+    `trino_tpu_breaker_state{worker=...}` gauge in system.runtime.metrics.
+
+    Knobs default to the typed config (`breaker.failure-threshold` /
+    `breaker.cooldown` with per-worker `@token` overrides, trino_tpu/config);
+    explicit constructor values — tests, embedded registries — win over
+    config.  Breakers are created lazily per worker, so a config installed
+    after import still applies to workers seen afterwards."""
+
+    def __init__(self, failure_threshold: Optional[int] = None,
+                 cooldown_s: Optional[float] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.failure_threshold = failure_threshold
+        self.cooldown_s = cooldown_s
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._breakers: dict[str, CircuitBreaker] = {}
+
+    def _knobs_for(self, worker: str) -> tuple:
+        """Each knob resolves independently: the explicit constructor value
+        when given, the typed config (with per-worker overrides) otherwise
+        — a registry pinning only one knob must not mute the config for
+        the other."""
+        cfg = None
+        if self.failure_threshold is None or self.cooldown_s is None:
+            from trino_tpu_torch.config import get_config
+
+            cfg = get_config().breaker_for(worker)
+        threshold = (
+            self.failure_threshold
+            if self.failure_threshold is not None
+            else cfg.failure_threshold
+        )
+        cooldown = (
+            self.cooldown_s if self.cooldown_s is not None else cfg.cooldown_s
+        )
+        return threshold, cooldown
+
+    def get(self, worker: str) -> CircuitBreaker:
+        with self._lock:
+            b = self._breakers.get(worker)
+            if b is None:
+                threshold, cooldown = self._knobs_for(worker)
+                b = CircuitBreaker(threshold, cooldown, self.clock)
+                self._breakers[worker] = b
+            return b
+
+    def states(self) -> dict:
+        with self._lock:
+            return {w: b.state for w, b in self._breakers.items()}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._breakers.clear()
+
+
+#: process-wide breakers for the multi-host HTTP tier (one per worker url)
+BREAKERS = CircuitBreakerRegistry()
 
 
 def execute_with_retry(

@@ -21,9 +21,13 @@ kernels launch on that thread's current stream, and the device gate
 (runtime/dispatcher.device_slice) orders the batch pulls.  The prewarm hooks
 keep their `getattr(runner, "prewarm", None)` form: no port runner carries a
 prewarm executor, and `prewarm.manifest-path` raises NotImplementedError
-naming runtime/prewarm (its executor is not ported yet).  The heartbeat
-detector hooks keep their guard; the port's runners have none to start.
-The listener's backlog is `HTTPServer.request_queue_size` (the JAX server
+naming runtime/prewarm (its executor is not ported yet).  Given a
+`MultiHostQueryRunner` (parallel/remote.py), `start()` starts its
+heartbeat detector's probe loop and `shutdown()` stops it, and PUT
+/v1/worker/register and /v1/worker/drain grow and drain its membership,
+HMAC-checked under TRINO_TPU_CLUSTER_SECRET (401 "bad signature"
+otherwise).  The mesh runner's detector has no loop to start: it is
+checked before each query.  The listener's backlog is `HTTPServer.request_queue_size` (the JAX server
 keeps socketserver's 5).
 """
 

@@ -19,12 +19,12 @@ builds/loads); task retries and spooling (`task_retries_total`,
 the profile archive and the audit log bump `profiles_archived_total`,
 `profiles_pruned_total`, `audit_events_total` and
 `audit_rotations_total`; the decision ledger bumps
-`plan_decisions_total`.  Some series are fed by modules that are not
-ported yet, so nothing in the port bumps them and they stay at their
-initial values: the circuit breakers of the multi-host HTTP tier
-(`breaker_trips_total`, `breaker_state`), membership
-(`membership_events_total`, `worker_alive`) and prewarm
-(`prewarm_runs_total`, `prewarm_statements_total`, `prewarm_state`).  The
+`plan_decisions_total`; the circuit breakers of the multi-host HTTP tier
+feed `breaker_trips_total` and `breaker_state` (runtime/retry.BREAKERS),
+and cluster membership `membership_events_total` and `worker_alive`
+(runtime/membership).  Prewarm is not ported yet, so nothing in the port
+bumps `prewarm_runs_total`, `prewarm_statements_total` or
+`prewarm_state`, which stay at their initial values.  The
 trace-cache series read the port's step cache (parallel/spmd.TRACE_CACHE):
 torch runs eagerly and traces nothing, so a miss builds a step closure
 and `retraces` stays 0.
@@ -815,8 +815,12 @@ def _trace_cache_entries():
 
 
 def _breaker_series():
-    # the circuit breakers (runtime/retry) are not ported: no worker has one
-    return {}
+    from trino_tpu_torch.runtime.retry import BREAKER_STATE_CODES, BREAKERS
+
+    return {
+        (worker,): BREAKER_STATE_CODES[state]
+        for worker, state in BREAKERS.states().items()
+    }
 
 
 def _gate_occupancy_series():

@@ -11,6 +11,14 @@ the device operate on i32 codes directly.
 DECIMAL(p, s) with p <= 18 is a scaled i64 ("short decimal"), exactly like the
 reference's long-encoded short decimals (spi/type/DecimalType.java) — this keeps
 TPC-H money arithmetic in fast integer ops instead of f64.
+
+Port of trino_tpu/types/__init__.py, with one difference: the simple types
+(`DATE`, `TIMESTAMP`, `BIGINT`, ...) and `UNKNOWN` unpickle to this
+module's own instances.  Decoders and the analyzer test them by identity
+(`t is DATE`), and plan fragments and page sets cross the multi-host tier
+as pickles; a copy would decode a date as its day number.  (The JAX
+package's types unpickle as copies, so its multi-host runner returns a
+DATE column as integers.)
 """
 
 from __future__ import annotations
@@ -88,12 +96,24 @@ class Type:
         return self.np_dtype.type(0)
 
 
+#: name -> the module's instance of each simple type (pickle identity)
+_SIMPLES: dict = {}
+
+
+def _simple_type(name: str) -> "Type":
+    return _SIMPLES[name]
+
+
 class _Simple(Type):
     def __init__(self, name: str, np_dtype, orderable: bool = True):
         self.name = name
         self.np_dtype = np.dtype(np_dtype)
         self.orderable = orderable
         self.comparable = True
+        _SIMPLES.setdefault(name, self)
+
+    def __reduce__(self):
+        return (_simple_type, (self.name,))
 
 
 BOOLEAN = _Simple("boolean", bool)
@@ -149,6 +169,9 @@ class _Unknown(Type):
         self.np_dtype = np.dtype(np.int64)
         self.orderable = True
         self.comparable = True
+
+    def __reduce__(self):
+        return "UNKNOWN"
 
 
 UNKNOWN = _Unknown()

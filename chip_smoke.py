@@ -353,6 +353,27 @@ catches nothing and never falls back to the CPU):
      launch's inputs.  Every result is held to the port's CPU run (Q1, Q3,
      Q18 and Q1-double with phases 4-5c's; the seven queries computed last
      by the reference process);
+  5q. restart prewarm on the card at tpch.sf1.  Q1: in this (warm)
+     process, a CoordinatorServer over a LocalQueryRunner (`pallas_agg`
+     on) with `prewarm.manifest-path` set serves Q1-double and Q6, and its
+     shutdown saves their workload manifest; a PrewarmExecutor over the
+     4-worker mesh records and saves Q3's; both in a temporary directory.
+     Q2: a fresh card process (`chip_smoke.py --prewarm-card OUT LOCAL
+     MESH sf1`, a real restart) builds one coordinator over a local runner
+     (its executor attached from `prewarm.manifest-path`) and one over the
+     4-worker mesh (its executor attached before the server); each
+     replays its manifest on start through the dispatcher's
+     `system_admission` and must reach WARM with `verify_events` 0, the
+     local replay launching K1 and the mesh replay K2; then the first real
+     run of each statement through its coordinator must record zero
+     compile events above the watermark.  Q3: a second fresh card process
+     without manifests (`--prewarm-card OUT - - sf1`) gives the cold first
+     walls.  Q4: in the prewarmed process the mesh is resized 4 -> 2 -> 4;
+     each kicked replay must reach WARM and the next Q3 record zero
+     compile events at the new signature.  The replays' walls and each
+     first query's wall with and without prewarm are logged (findings,
+     not a claim); every result is held to the port's CPU run with phases
+     4-5c's;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows),
      of the local T1's, of D1's Q1's (phase 5k), of L1's Q1-double
@@ -5359,6 +5380,295 @@ def run_multihost_path(probe_record: dict, k1_capture: dict, schema: str = "sf1"
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "check": check_rows}
 
 
+# -- phase 5q: restart prewarm on the card -------------------------------------
+
+#: phase 5q's statements: Q1-double and Q6 through a coordinator over the
+#: local runner (`pallas_agg` on: Q1-double's aggregation is K1's), Q3
+#: through a coordinator over the 4-worker mesh (K2 in its join)
+PREWARM_LOCAL = ("q1_double", "q6")
+PREWARM_MESH = ("q3",)
+
+
+def prewarm_sqls() -> dict:
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+
+    return {"q1_double": Q1_DOUBLE, "q6": QUERIES[6], "q3": QUERIES[3]}
+
+
+def wait_prewarm(pw, runs_before: int, timeout_s: float = 300.0) -> None:
+    """Join the executor's replay and any replay it queued behind itself;
+    fails unless a replay ran since the executor had `runs_before`."""
+    if not pw.wait(timeout_s):
+        raise AssertionError(f"the prewarm replay ran past {timeout_s} s")
+    if pw.runs <= runs_before:
+        raise AssertionError("no prewarm replay was started")
+
+
+def served(srv, sql: str, what: str) -> tuple:
+    """One statement through a coordinator's dispatcher (the user's path):
+    its wall and rows; fails unless it finished."""
+    t0 = time.perf_counter()
+    q = srv.submit(sql)
+    if not q.done.wait(timeout=600):
+        raise AssertionError(f"{what}: no answer in 600 s")
+    wall = time.perf_counter() - t0
+    if q.state != "FINISHED":
+        raise AssertionError(f"{what}: {q.state} {q.error}")
+    return wall, q.result.rows
+
+
+def prewarm_card_process(out_path: str, local_loc: str, mesh_loc: str, schema: str) -> int:
+    """A fresh card process of phase 5q (Q2, or Q3 when both manifest
+    paths are "-"): two coordinators, one over a LocalQueryRunner and one
+    over the 4-worker mesh.  Prewarmed, the local server attaches its
+    executor from `prewarm.manifest-path` and the mesh runner's executor
+    is attached before its server (as runner_from_etc does); each server
+    replays its manifest on start through the dispatcher's system
+    admission, and must reach WARM with zero compile events on the verify
+    replay and K1 (local) or K2 (mesh) launched.  Then each statement's
+    first real run: prewarmed, zero compile events above the watermark.
+    Prewarmed, the mesh then grows 4 -> 2 -> 4 (`resize_mesh`): each kicked
+    replay must reach WARM and the next Q3 build nothing.  Walls, events,
+    launches and rows are pickled to `out_path`."""
+    import pickle
+
+    from trino_tpu_torch.config import install_config, load_cluster_config
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.prewarm import attach_prewarm
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.server import CoordinatorServer
+    from trino_tpu_torch.telemetry.compile_events import OBSERVATORY
+
+    prewarmed = local_loc != "-"
+    label = "prewarmed" if prewarmed else "cold"
+    sqls = prewarm_sqls()
+    out: dict = {"label": label, "first": {}, "replay": {}, "grow": [], "rows": {}}
+    t_start = time.perf_counter()
+    if prewarmed:
+        install_config(load_cluster_config({"prewarm.manifest-path": local_loc}))
+    local = LocalQueryRunner(catalog="tpch", schema=schema)
+    local.properties.set("pallas_agg", True)
+    mesh = DistributedQueryRunner(catalog="tpch", schema=schema, n_workers=MESH_WORKERS)
+    if prewarmed:
+        attach_prewarm(mesh, mesh_loc)
+    servers = []
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    try:
+        for name, runner, names in (("local", local, PREWARM_LOCAL), ("mesh", mesh, PREWARM_MESH)):
+            srv = CoordinatorServer(runner=runner, port=0)
+            k1, k2, mark = gs.grouped_sums.launches, ls.locate_sorted.launches, OBSERVATORY.mark()
+            t0 = time.perf_counter()
+            srv.start()  # prewarmed: attaches (local) or adopts (mesh) and replays
+            servers.append(srv)
+            if prewarmed:
+                pw = runner.prewarm
+                if pw is None or pw._admission is None:
+                    raise AssertionError(f"Q2 {name}: no executor adopted the dispatcher's admission")
+                wait_prewarm(pw, 0)
+                wall = time.perf_counter() - t0
+                rep = {
+                    "wall_s": wall, "state": pw.state, "runs": pw.runs,
+                    "verify_events": pw.verify_events,
+                    "replay_events": (pw.watermark or 0) - mark,
+                    "k1": gs.grouped_sums.launches - k1, "k2": ls.locate_sorted.launches - k2,
+                    "admitted": {s["name"]: s for s in srv.dispatcher.stats()}[
+                        "system.prewarm"]["total_admitted"],
+                }
+                out["replay"][name] = rep
+                log(f"prewarm Q2 {name} replay: {json.dumps(rep)}")
+                if pw.state != "WARM" or pw.verify_events != 0:
+                    raise AssertionError(f"Q2 {name}: replay {pw.state}, verify_events "
+                                         f"{pw.verify_events} ({pw.last_error})")
+                if rep["admitted"] < 1:
+                    raise AssertionError(f"Q2 {name}: the replay skipped system.prewarm")
+                if name == "local" and rep["k1"] <= 0:
+                    raise AssertionError("Q2: the local replay never launched grouped_sums")
+                if name == "mesh" and rep["k2"] <= 0:
+                    raise AssertionError("Q2: the mesh replay never launched locate_sorted")
+            for q in names:
+                mark = OBSERVATORY.mark()
+                k1, k2 = gs.grouped_sums.launches, ls.locate_sorted.launches
+                wall, rows = served(srv, sqls[q], f"{label} first {q}")
+                events = OBSERVATORY.mark() - mark
+                steps = sorted({e.step for e in OBSERVATORY.events_above(mark)})
+                first = {"wall_s": wall, "events": events, "steps": steps,
+                         "k1": gs.grouped_sums.launches - k1,
+                         "k2": ls.locate_sorted.launches - k2}
+                out["first"][q] = first
+                out["rows"][f"{label}_first_{q}"] = (q, rows)
+                log(f"prewarm {label} first {q}: {json.dumps(first)}")
+                if prewarmed and events:
+                    raise AssertionError(f"Q2 first {q}: {events} compile events above the "
+                                         f"watermark ({steps})")
+        if prewarmed:
+            # Q4: the mesh grows; each kicked replay builds the new signature
+            srv = servers[1]
+            for w in (2, 4):
+                mark = OBSERVATORY.mark()
+                pw = mesh.prewarm
+                runs = pw.runs
+                t0 = time.perf_counter()
+                mesh.resize_mesh(w)
+                wait_prewarm(pw, runs)
+                replay_s = time.perf_counter() - t0
+                built = (pw.watermark or 0) - mark
+                mark = OBSERVATORY.mark()
+                k2 = ls.locate_sorted.launches
+                wall, rows = served(srv, sqls["q3"], f"grow W={w} q3")
+                grow = {"w": w, "replay_s": replay_s, "state": pw.state,
+                        "verify_events": pw.verify_events, "replay_events": built,
+                        "q3_wall_s": wall, "q3_events": OBSERVATORY.mark() - mark,
+                        "q3_k2": ls.locate_sorted.launches - k2}
+                out["grow"].append(grow)
+                out["rows"][f"grow_w{w}_q3"] = ("q3", rows)
+                log(f"prewarm Q4 grow: {json.dumps(grow)}")
+                if pw.state != "WARM" or pw.verify_events != 0:
+                    raise AssertionError(f"Q4 W={w}: replay {pw.state} ({pw.last_error})")
+                if grow["q3_events"]:
+                    raise AssertionError(f"Q4 W={w}: Q3 recorded {grow['q3_events']} "
+                                         f"compile events at the new signature")
+                if grow["q3_k2"] <= 0:
+                    raise AssertionError(f"Q4 W={w}: Q3 never launched locate_sorted")
+    finally:
+        for srv in servers:
+            srv.shutdown()
+    out["k1_launches"] = gs.grouped_sums.launches  # read just after the path
+    out["k2_launches"] = ls.locate_sorted.launches
+    out["seconds"] = time.perf_counter() - t_start
+    with open(out_path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".part", out_path)
+    return 0
+
+
+def run_prewarm_card(here: str, children: list, out_path: str, args: list,
+                     timeout_s: float = 300.0) -> dict:
+    """Start one fresh card process of phase 5q and read its results."""
+    import pickle
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--prewarm-card", out_path, *args],
+        cwd=here,
+    )
+    children.append(proc)
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"the phase 5q card process ran past {timeout_s} s")
+    if rc != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"the phase 5q card process failed with exit code {rc}")
+    with open(out_path, "rb") as f:
+        out = pickle.load(f)
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_prewarm_path(here: str, children: list, card: str = "", schema: str = "sf1") -> dict:
+    """Phase 5q (see the module docstring, Q1-Q4) on the card at tpch.sf1:
+    record manifests in this warm process, replay them in a fresh card
+    process, take a cold baseline in another.  Returns the launches and
+    the check of every result against the CPU run (phases 4-5c's)."""
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch.config import install_config, load_cluster_config, reset_config
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.prewarm import PrewarmExecutor, load_manifest
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.server import CoordinatorServer
+    from trino_tpu_torch.testing import result_order
+
+    sqls = prewarm_sqls()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5q_")
+    local_loc = os.path.join(tmp, "local_manifest.json")
+    mesh_loc = os.path.join(tmp, "mesh_manifest.json")
+    results: dict = {}
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    try:
+        # -- Q1: record and save both manifests in this (warm) process -------
+        install_config(load_cluster_config({
+            "prewarm.manifest-path": local_loc, "prewarm.on-start": "false",
+        }))
+        local = LocalQueryRunner(catalog="tpch", schema=schema)
+        local.properties.set("pallas_agg", True)
+        orders = {q: result_order(local.create_plan(sql)) for q, sql in sqls.items()}
+        srv = CoordinatorServer(runner=local, port=0)
+        srv.start()
+        try:
+            for q in PREWARM_LOCAL:
+                wall, rows = served(srv, sqls[q], f"record {q}")
+                results[f"record_{q}"] = (q, rows)
+                log(f"prewarm Q1 record {q}: wall_s={wall!r}")
+        finally:
+            srv.shutdown()  # saves the manifest of the served SELECTs
+        reset_config()
+        mesh = DistributedQueryRunner(catalog="tpch", schema=schema, n_workers=MESH_WORKERS)
+        ex = PrewarmExecutor(mesh, mesh_loc)
+        results["record_q3"] = ("q3", mesh.execute(sqls["q3"]).rows)
+        ex.record(sqls["q3"])
+        if not ex.save():
+            raise AssertionError("Q1: the mesh manifest was not saved")
+        for loc, want in ((local_loc, PREWARM_LOCAL), (mesh_loc, PREWARM_MESH)):
+            m = load_manifest(loc)
+            if m is None or m.statements != [sqls[q] for q in want]:
+                raise AssertionError(f"Q1: {loc} holds {m and m.statements}")
+            log(f"prewarm Q1 manifest {os.path.basename(loc)}: {len(m.statements)} "
+                f"statements, {len(m.cap_history)} learned capacities, "
+                f"{len(m.compile_keys)} compile keys, workers={m.workers}, "
+                f"dictionaries={len((m.dictionaries or {}).get('entries') or ())}")
+        k1_record, k2_record = gs.grouped_sums.launches, ls.locate_sorted.launches
+
+        # -- Q2 and Q4: a fresh card process replays them; Q3: one without ----
+        warm = run_prewarm_card(here, children, os.path.join(tmp, "prewarmed.pkl"),
+                                [local_loc, mesh_loc, schema])
+        cold = run_prewarm_card(here, children, os.path.join(tmp, "cold.pkl"),
+                                ["-", "-", schema])
+    finally:
+        reset_config()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for out in (warm, cold):
+        for key, value in out["rows"].items():
+            results[f"{out['label']}_{key}"] = value
+    replay_s = sum(r["wall_s"] for r in warm["replay"].values())
+    summary = {
+        "replay_s": {k: r["wall_s"] for k, r in warm["replay"].items()},
+        "first_s_prewarmed": {q: f["wall_s"] for q, f in warm["first"].items()},
+        "first_s_cold": {q: f["wall_s"] for q, f in cold["first"].items()},
+        "first_events_cold": {q: f["events"] for q, f in cold["first"].items()},
+        "grow": [(g["w"], g["replay_s"], g["q3_wall_s"]) for g in warm["grow"]],
+        "process_s": {"prewarmed": warm["process_s"], "cold": cold["process_s"]},
+    }
+    log(f"prewarm path ({card}): {json.dumps(summary)} (replays {replay_s!r} s)")
+    k1_launches = k1_record + warm["k1_launches"] + cold["k1_launches"]
+    k2_launches = k2_record + warm["k2_launches"] + cold["k2_launches"]
+    log(f"prewarm path: grouped_sums launches={k1_launches} (record {k1_record}, "
+        f"prewarmed process {warm['k1_launches']}, cold process {cold['k1_launches']}) "
+        f"locate_sorted launches={k2_launches} (record {k2_record}, prewarmed process "
+        f"{warm['k2_launches']}, cold process {cold['k2_launches']})")
+    if k1_launches <= 0 or k2_launches <= 0:
+        raise AssertionError("the prewarm path never launched a kernel")
+
+    def check_rows(cpu_tpch: dict) -> None:
+        from trino_tpu_torch.testing import assert_rows_match
+
+        for key, (name, rows) in results.items():
+            rtol = KERNEL_RTOL if name == "q1_double" else DOUBLE_RTOL
+            assert_rows_match(rows, cpu_tpch[sqls[name]][0], orders[name], rtol)
+        log(f"prewarm path: {len(results)} results match the CPU run")
+
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches,
+            "replay": warm["replay"], "grow": warm["grow"], "check": check_rows}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -5678,6 +5988,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     multihost_probe: dict = {}
     multihost_k1: dict = {}
     mh_path = timed("5p", run_multihost_path, multihost_probe, multihost_k1)
+    pw_path = timed("5q", run_prewarm_path, here, children, smi)
     tpcds = timed("5d-5e wait", wait_tpcds_card, card, card_path, procs, dev)
     for phase in ("5d", "5e"):  # the second card process's seconds
         seconds[phase] = tpcds[phase]["seconds"]
@@ -5687,7 +5998,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     def check_tpch_paths():
         cpu = tpcds_reference("tpch")
         for path in (main_path, mesh_path, semi_path, func_path, sch_path, fte_path,
-                     srv_path):
+                     srv_path, pw_path):
             path.pop("check")(cpu)
         mh_path.pop("check")({**cpu, **tpcds_reference("5p")})
 
@@ -5696,7 +6007,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
         + tem_path["k1_launches"] + stm_path["k1_launches"] + lc_path["k1_launches"]
         + sch_path["k1_launches"] + fte_path["k1_launches"] + srv_path["k1_launches"]
-        + mh_path["k1_launches"]
+        + mh_path["k1_launches"] + pw_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
@@ -5704,7 +6015,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "temporal": tem_path["k1_launches"], "statements": stm_path["k1_launches"],
         "lifecycle": lc_path["k1_launches"], "schedule_layouts": sch_path["k1_launches"],
         "fte_observatory": fte_path["k1_launches"], "serving": srv_path["k1_launches"],
-        "multihost": mh_path["k1_launches"],
+        "multihost": mh_path["k1_launches"], "prewarm": pw_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
@@ -5720,7 +6031,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
         + tem_path["k2_launches"] + stm_path["k2_launches"] + lc_path["k2_launches"]
         + sch_path["k2_launches"] + fte_path["k2_launches"] + srv_path["k2_launches"]
-        + mh_path["k2_launches"]
+        + mh_path["k2_launches"] + pw_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -5742,6 +6053,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "fte_observatory": fte_path["k2_launches"],
         "serving": srv_path["k2_launches"],
         "multihost": mh_path["k2_launches"],
+        "prewarm": pw_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)
@@ -5767,4 +6079,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--tpcds-card"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(tpcds_card_process(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--prewarm-card"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(prewarm_card_process(*sys.argv[2:6]))
     sys.exit(main())

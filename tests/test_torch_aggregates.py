@@ -58,6 +58,7 @@ from trino_tpu_torch.telemetry import metrics as pmetrics
 import chip_smoke
 from test_torch_arrays import SqlParity
 from test_torch_tpcds import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fte import no_spool_leaks  # noqa: F401 (autouse: private spool directory)
 
 
 # -- the value hash, the registers and the estimate ----------------------------

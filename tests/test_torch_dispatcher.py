@@ -20,6 +20,8 @@ import time
 
 import pytest
 
+from test_torch_fte import no_spool_leaks  # noqa: F401 (autouse: private spool directory)
+
 PKGS = ("trino_tpu", "trino_tpu_torch")
 
 
@@ -347,26 +349,25 @@ def test_legacy_acquire_shares_the_concurrency_limit(pkg):
 
 
 def test_system_admission_holds_primary_lane_while_users_flow(pkg):
-    """JAX: a prewarm replay holds the primary lane while users flow.  The
-    port has no prewarm, so system_admission raises by name (the idle
-    system.prewarm group is still listed)."""
+    """A prewarm replay holds the primary lane while users flow: the
+    system.prewarm group runs one ticket on lane 0, a user's statement
+    takes the other lane meanwhile, and a second system admission waits
+    for lane 0 (tests/test_dispatcher.py's case, on both packages)."""
     P = _Pkg(pkg)
     d = P.QueryDispatcher(_DummyRunner(), P.manager(), lanes=2)
-    if pkg == "trino_tpu_torch":
-        with pytest.raises(NotImplementedError, match="prewarm"):
-            d.system_admission()
-        assert {s["name"]: s for s in d.stats()}["system.prewarm"]["running"] == 0
-        t = d.enqueue()
-        assert t.wait() is not None
-        d.release(t)
-        return
     with d.system_admission() as runner:
         assert runner is d.runner
         stats = {s["name"]: s for s in d.stats()}
         assert stats["system.prewarm"]["running"] == 1
         t = d.enqueue()
         assert t.wait() is not None
+        assert t.lane is not d._lanes[0]
+        # lane 0 is held: a second replay queues even with no other lane busy
         d.release(t)
+        queued = d.enqueue(group_name="system.prewarm", lane0_required=True)
+        assert queued.state == "QUEUED"
+    assert queued.wait() is not None and queued.lane is d._lanes[0]
+    d.release(queued)
     stats = {s["name"]: s for s in d.stats()}
     assert stats["system.prewarm"]["running"] == 0
 

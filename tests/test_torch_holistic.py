@@ -59,6 +59,7 @@ from trino_tpu_torch.testing import ResultOrder, assert_rows_match, result_order
 import chip_smoke
 from test_torch_arrays import Col, pair
 from test_torch_tpcds import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fte import no_spool_leaks  # noqa: F401 (autouse: private spool directory)
 
 
 # -- the qdigest sketch ---------------------------------------------------------

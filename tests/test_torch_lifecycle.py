@@ -18,6 +18,8 @@ import threading
 
 import pytest
 
+from test_torch_fte import no_spool_leaks  # noqa: F401 (autouse: private spool directory)
+
 PKGS = ("trino_tpu", "trino_tpu_torch")
 
 

@@ -43,6 +43,7 @@ from trino_tpu_torch.parallel.spmd import WorkerMesh, shard, stack_batches
 
 from test_torch_e2e import assert_same_rows
 from test_torch_observatory import assert_same_ledger, attach_stores
+from test_torch_fte import no_spool_leaks  # noqa: F401 (autouse: private spool directory)
 
 W = 4
 
@@ -278,8 +279,12 @@ def test_unported_mesh_settings_raise(setting):
     whose bucket count W / 2 still divides) and holds Q3 again."""
     import os
 
+    from trino_tpu_torch.runtime.buffer_pool import POOL
     from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
+    # cold scans: another module of this process may have left the same
+    # layout's bucketized scan in the process-wide device scan cache
+    POOL.clear()
     r = DistributedQueryRunner(catalog="tpch", schema="tiny", n_workers=W, device="cpu")
     r.execute("set session " + setting)
     local = LocalQueryRunner(catalog="tpch", schema="tiny", device="cpu")

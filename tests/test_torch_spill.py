@@ -36,6 +36,7 @@ from trino_tpu_torch.telemetry.metrics import (
     memory_revocations_counter,
     memory_waves_counter,
 )
+from test_torch_fte import no_spool_leaks  # noqa: F401 (autouse: private spool directory)
 
 # -- seeded batches, one per engine --------------------------------------------
 

@@ -30,6 +30,7 @@ from trino_tpu_torch.runtime.spill import REVOCABLES
 from trino_tpu_torch.telemetry import metrics as pmetrics
 
 from test_torch_e2e import assert_same_rows
+from test_torch_fte import no_spool_leaks  # noqa: F401 (autouse: private spool directory)
 
 JOIN_SQL = (
     "select o_orderpriority, count(*) c from orders join lineitem "

@@ -28,6 +28,7 @@ from trino_tpu_torch.telemetry import metrics as pmetrics
 
 from test_torch_e2e import assert_same_rows
 from test_torch_spill_e2e import AGG_SQL, JOIN_SQL
+from test_torch_fte import no_spool_leaks  # noqa: F401 (autouse: private spool directory)
 
 #: name -> (sql, session properties, ORDER BY rows in order, operator that waves)
 CASES = {

@@ -18,6 +18,7 @@ from test_torch_spill_e2e import (  # noqa: F401  (spill_dir is a fixture)
     check_unbudgeted_query,
     spill_dir,
 )
+from test_torch_fte import no_spool_leaks  # noqa: F401 (autouse: private spool directory)
 
 #: name -> (sql, target_splits, session properties, ORDER BY rows in order)
 CASES = {

@@ -292,8 +292,9 @@ def test_unported_knobs_raise_by_name(etc_dir, tmp_path, key):
     """The observatory's knobs attach their pieces (as in the JAX package:
     the profile store archives each statement under the directory, the
     audit log writes one line per statement), and the access-control file
-    installs its rules (the runner's user may read nation, not region);
-    prewarm still raises naming itself."""
+    installs its rules (the runner's user may read nation, not region),
+    and the prewarm manifest attaches an executor that records, saves and
+    replays to WARM with the JAX package's executor beside it."""
     import json
 
     from trino_tpu_torch.config import reset_config
@@ -310,8 +311,26 @@ def test_unported_knobs_raise_by_name(etc_dir, tmp_path, key):
         fh.write(f"{key}={target}\n")
     try:
         if key == "prewarm.manifest-path":
-            with pytest.raises(NotImplementedError, match=key):
-                runner_from_etc(etc_dir, device="cpu")
+            from trino_tpu.config import reset_config as jax_reset
+            from trino_tpu.runtime.config import runner_from_etc as jax_from_etc
+
+            got = {}
+            try:
+                for p, build in (("trino_tpu", jax_from_etc), ("trino_tpu_torch", runner_from_etc)):
+                    r = build(etc_dir) if p == "trino_tpu" else build(etc_dir, device="cpu")
+                    pw = r.prewarm
+                    assert type(pw).__module__ == f"{p}.runtime.prewarm"
+                    assert pw.location == str(target) and pw.state == "IDLE"
+                    rows = r.execute("select count(*) from nation").rows
+                    assert pw.record("select count(*) from nation") and pw.save()
+                    pw.run(reason="start", wait=True)
+                    got[p] = (rows, pw.state, pw.runs, pw.verify_events,
+                              json.loads(target.read_text())["sql"])
+                    target.unlink()
+            finally:
+                jax_reset()
+            assert got["trino_tpu_torch"] == got["trino_tpu"]
+            assert got["trino_tpu"][1] == "WARM"
             return
         r = runner_from_etc(etc_dir, device="cpu")
         r.execute("select count(*) from nation")

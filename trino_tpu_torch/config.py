@@ -18,12 +18,17 @@ Sections: ``breaker`` (the per-worker circuit breakers, runtime/retry.py),
 ``heartbeat`` (runtime/membership.HeartbeatDetector), ``lifecycle`` (the
 HTTP tier's request timeouts), ``remote`` (parallel/remote.py's retry
 budgets), ``worker`` (server/worker.py), ``coordinator``, ``dispatcher``,
-``memory``, ``profile`` and ``audit``, with `get_config` /
-`install_config` / `reset_config` / `load_config`; installing a config
-with a pool limit arms the shared memory pool's limit.  The JAX package's
-``compile-cache`` section configures XLA's on-disk compilation cache and
-has no torch counterpart; the ``prewarm`` and ``dictionary`` sections are
-not ported yet (runtime/config.py raises for ``prewarm.manifest-path``).
+``memory``, ``prewarm`` (runtime/prewarm's executor), ``dictionary``
+(how much of runtime/dictionary_service's state a manifest inlines),
+``profile`` and ``audit``, with
+`get_config` / `install_config` / `reset_config` / `load_config`;
+installing a config with a pool limit arms the shared memory pool's
+limit.  The JAX package's ``compile-cache`` section configures XLA's
+on-disk compilation cache and has no section here: its torch counterpart
+is the kernel build directory (``build/trino_tpu_torch/``, where
+kernels/build.py keeps each nvcc output under the hash of its source),
+which already survives a restart, so a restarted process loads its
+kernels without compiling them again.
 """
 
 from __future__ import annotations
@@ -350,6 +355,49 @@ class AuditConfig(ConfigSection):
 
 
 @dataclass
+class PrewarmConfig(ConfigSection):
+    """AOT prewarm executor (runtime/prewarm.py): replay a persisted
+    workload manifest at server start / after mesh growth so the first
+    real query finds every (step, bucket, mesh) key already built."""
+
+    manifest_path: str = knob(
+        "", "prewarm.manifest-path",
+        "workload-manifest location (filesystem SPI; empty = prewarm off): "
+        "SQL replay set + cap_history seed + closure watermark",
+    )
+    on_start: bool = knob(
+        True, "prewarm.on-start",
+        "replay the manifest in a background thread at coordinator/worker "
+        "server start",
+    )
+    on_grow: bool = knob(
+        True, "prewarm.on-grow",
+        "replay the manifest after add_worker grows the mesh, re-tracing "
+        "at the NEW mesh signature before the next query arrives",
+    )
+
+
+@dataclass
+class DictionaryConfig(ConfigSection):
+    """Global dictionary service (runtime/dictionary_service.py): the
+    coordinator-owned versioned code assignment that makes varchar keys
+    first-class in exchanges, co-located joins, and capacity licenses.
+
+    The JAX package's section also has `dictionary.snapshot-path`, which
+    no code there reads; it has no knob here.  Snapshots are taken with
+    an explicit path (dictionary_service.save_snapshot / load_snapshot),
+    and a restarted coordinator gets its codes from the prewarm manifest
+    (runtime/prewarm)."""
+
+    max_inline_values: int = knob(
+        1 << 16, "dictionary.max-inline-values",
+        "largest dictionary whose values inline into snapshots/manifests; "
+        "bigger (and pattern-backed) dictionaries snapshot as metadata "
+        "only and re-adopt their recorded version at re-registration",
+    )
+
+
+@dataclass
 class CoordinatorConfig(ConfigSection):
     """Coordinator protocol knobs (server/coordinator.py)."""
 
@@ -376,6 +424,8 @@ class ClusterConfig:
     coordinator: CoordinatorConfig = field(default_factory=CoordinatorConfig)
     dispatcher: DispatcherConfig = field(default_factory=DispatcherConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
+    prewarm: PrewarmConfig = field(default_factory=PrewarmConfig)
+    dictionary: DictionaryConfig = field(default_factory=DictionaryConfig)
     profile: ProfileConfig = field(default_factory=ProfileConfig)
     audit: AuditConfig = field(default_factory=AuditConfig)
     properties: dict = field(default_factory=dict)
@@ -416,6 +466,8 @@ def load_cluster_config(props: Optional[dict] = None, env=None) -> ClusterConfig
         coordinator=CoordinatorConfig.from_properties(props, env),
         dispatcher=DispatcherConfig.from_properties(props, env),
         memory=MemoryConfig.from_properties(props, env),
+        prewarm=PrewarmConfig.from_properties(props, env),
+        dictionary=DictionaryConfig.from_properties(props, env),
         profile=ProfileConfig.from_properties(props, env),
         audit=AuditConfig.from_properties(props, env),
         properties=props,

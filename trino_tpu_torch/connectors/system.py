@@ -32,7 +32,8 @@ or the mesh runner's heartbeat detector over `worker-0..W-1`) with their
 state, heartbeat age and breaker state; a runner with neither lists its
 device (one row per CUDA device when it runs on the card, one `cpu` row
 otherwise; the JAX package lists its XLA devices by id).  The prewarm
-column is NULL: prewarm is not ported yet.  (The JAX mesh runner's
+column is the attached prewarm executor's state (runtime/prewarm), NULL
+without one.  (The JAX mesh runner's
 `nodes` raises AttributeError: it reads a detector field that its
 membership-backed detector no longer has.)  `query_profiles` and `plan_decisions` read
 the profile store attached to the runner (`profile.archive-dir`, or
@@ -357,10 +358,10 @@ class SystemConnector(Connector):
             dev = getattr(r, "device", None)
             if dev is not None and dev.type == "cuda":
                 return [
-                    (f"cuda:{i}", "ACTIVE", None, None, None)
+                    (f"cuda:{i}", "ACTIVE", None, None, pstate)
                     for i in range(torch.cuda.device_count())
                 ]
-            return [("cpu", "ACTIVE", None, None, None)]
+            return [("cpu", "ACTIVE", None, None, pstate)]
         if table == "resource_groups":
             # live admission state: the dispatcher when attached (serving
             # coordinator), else any standalone resource-group manager the

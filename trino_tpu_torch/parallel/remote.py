@@ -23,8 +23,8 @@ coordinator's device where a fragment reads them (`_coordinator_fragment`,
 With `query_trace` on, each stage's `fragment` span carries the bytes the
 coordinator pulled from it and their decode seconds, and the workers'
 task spans (output bytes, encode seconds, input pulls) graft under it.
-Prewarm is not ported yet: `add_worker` runs the grow replay only for a
-runner that carries an executor (`getattr(self, "prewarm", None)`).
+`add_worker` kicks the attached prewarm executor's grow replay
+(runtime/prewarm.kick_grow_prewarm; off under `prewarm.on-grow=false`).
 """
 
 from __future__ import annotations
@@ -228,15 +228,15 @@ class MultiHostQueryRunner(LocalQueryRunner):
         (reference: DiscoveryNodeManager announcement).  The attached
         prewarm executor (runtime/prewarm) then replays the workload
         manifest in the background at the GROWN worker set — the next
-        query plans at the new W against warm plan/trace state instead of
-        paying the re-fragmentation cold."""
+        query plans at the new W against warm plan and step state instead
+        of paying the re-fragmentation cold."""
+        from trino_tpu_torch.runtime.prewarm import kick_grow_prewarm
+
         if url not in self.worker_urls:
             self.worker_urls.append(url)
         self.membership.register(url)
         self._worker_health.pop(url, None)
-        pw = getattr(self, "prewarm", None)
-        if pw is not None:
-            pw.run(reason="grow")
+        kick_grow_prewarm(self)
 
     def drain_worker(self, url: str) -> None:
         """Gracefully retire a worker: PUT /v1/worker/shutdown (it finishes

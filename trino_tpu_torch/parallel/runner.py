@@ -126,8 +126,9 @@ Membership: the runner keeps a `failure_detector`
 (runtime/membership.HeartbeatFailureDetector) over `worker-0..W-1`,
 refreshed and checked before every query (a worker silent past its
 timeout fails the query), and `resize_mesh(W)` re-shapes the mesh for
-later queries, dropping the old signature's device scan-cache entries.
-Prewarm is not ported yet.
+later queries, dropping the old signature's device scan-cache entries and
+kicking the attached prewarm executor (runtime/prewarm), which replays
+its manifest at the new signature.
 """
 
 from __future__ import annotations
@@ -339,14 +340,17 @@ class DistributedQueryRunner(LocalQueryRunner):
         are dead weight and are dropped here.  The mesh is W logical
         workers on one card, so no device count bounds W from above (the
         JAX mesh slices W of its devices); W < 1 raises ValueError as it
-        does there.  Prewarm is not ported yet, so nothing replays a
-        workload at the new signature.
+        does there.  A changed W is a new `mesh_key(wm)`, so every step
+        is built again: the attached prewarm executor (runner.prewarm,
+        runtime/prewarm) replays the workload manifest at the new
+        signature in the background, so the next query arrives warm.
 
         Deliberately NOT named `add_worker`: that name is the coordinator
         register endpoint's protocol (`add_worker(url)` on the multi-host
         runner).  Call between queries."""
         from trino_tpu_torch.parallel.spmd import mesh_key
         from trino_tpu_torch.runtime.membership import invalidate_mesh_scans
+        from trino_tpu_torch.runtime.prewarm import kick_grow_prewarm
 
         if n_workers < 1:
             raise ValueError(f"mesh size {n_workers} out of range (must be >= 1)")
@@ -362,6 +366,7 @@ class DistributedQueryRunner(LocalQueryRunner):
         for i in range(self.wm.n, old_n):
             self.failure_detector.unregister(f"worker-{i}")
         self.last_resize_invalidated = invalidate_mesh_scans(old_sig)
+        kick_grow_prewarm(self)
 
     # -- planning -------------------------------------------------------------
 

@@ -19,10 +19,10 @@ query performance observatory's knobs: `profile.archive-dir` attaches a
 profile store and `audit.log-path` an audit log to the runner, and
 `access-control.config-file` (a JSON file of rules under "tables" or
 "rules") installs a RuleBasedAccessControl.  `prewarm.manifest-path`
-raises NotImplementedError naming the prewarm executor, which is not
-ported, when config.properties sets it; unset, it does nothing, as in the
-JAX package.  `runner_from_etc` builds a LocalQueryRunner on the card
-unless `device=` names another device.
+attaches the prewarm executor (runtime/prewarm) to the runner, which the
+CoordinatorServer replays at start; unset, it does nothing, as in the JAX
+package.  `runner_from_etc` builds a LocalQueryRunner on the card unless
+`device=` names another device.
 """
 
 from __future__ import annotations
@@ -167,10 +167,6 @@ def runner_from_etc(etc_dir: str, **kw):
     from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
     cfg = load_etc(etc_dir)
-    # prewarm (`prewarm.manifest-path`) is not ported: configuring it raises
-    for key, piece in _UNPORTED_KNOBS:
-        if cfg.node_properties.get(key):
-            raise NotImplementedError(f"{key} ({piece}): not ported yet")
     catalog = cfg.node_properties.get("default.catalog", "tpch")
     schema = cfg.node_properties.get("default.schema", "tiny")
     if catalog not in cfg.catalogs.names():
@@ -213,6 +209,13 @@ def runner_from_etc(etc_dir: str, **kw):
 
     attach_profile_store(r)
     attach_audit_log(r)
+    # restart resilience: an etc/-driven runner gets its prewarm executor
+    # (runtime/prewarm) when `prewarm.manifest-path` is configured — the
+    # CoordinatorServer then replays it at start, and grow paths re-build
+    # at the new mesh signature (no-op without the knob)
+    from trino_tpu_torch.runtime.prewarm import attach_prewarm
+
+    attach_prewarm(r)
     ac_file = cfg.node_properties.get("access-control.config-file")
     if ac_file:
         import json
@@ -225,9 +228,3 @@ def runner_from_etc(etc_dir: str, **kw):
             doc.get("tables", doc.get("rules", []))
         )
     return r
-
-
-#: config.properties keys of pieces the port does not have yet
-_UNPORTED_KNOBS = (
-    ("prewarm.manifest-path", "runtime/prewarm, the prewarm executor"),
-)

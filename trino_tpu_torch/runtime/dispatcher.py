@@ -46,9 +46,10 @@ running ones, then force-kills stragglers through their lifecycle tokens
 (the bounded force-kill contract) and waits a short grace.
 
 Port of trino_tpu/runtime/dispatcher.py: a copy, with the package
-renamed, less `system_admission` (the admission of prewarm replays onto
-the primary lane), which raises NotImplementedError until prewarm is
-ported.
+renamed.  `system_admission` admits a prewarm replay (runtime/prewarm)
+through the `system.prewarm` group onto the primary lane; the replay's
+statements pass the device gate at every batch pull, as a user's do
+(runtime/runner.py takes `device_slice()` around each pull).
 """
 
 from __future__ import annotations
@@ -212,11 +213,12 @@ class AdmissionTicket:
 
     __slots__ = (
         "dispatcher", "group_name", "state", "event", "lane",
-        "enqueued_at", "admitted_at", "deadline", "on_force_kill", "queued_s", "_observed",
+        "enqueued_at", "admitted_at", "deadline", "lane0_required",
+        "on_force_kill", "queued_s", "_observed",
     )
 
     def __init__(self, dispatcher: "QueryDispatcher", group_name: str,
-                 deadline: Optional[float]):
+                 deadline: Optional[float], lane0_required: bool = False):
         self.dispatcher = dispatcher
         self.group_name = group_name
         self.state = QUEUED
@@ -225,6 +227,7 @@ class AdmissionTicket:
         self.enqueued_at = dispatcher._clock()
         self.admitted_at: Optional[float] = None
         self.deadline = deadline
+        self.lane0_required = lane0_required
         #: called by drain() on a still-running statement past the drain
         #: deadline (the coordinator wires the query's cancel here)
         self.on_force_kill: Optional[Callable[[], None]] = None
@@ -330,9 +333,7 @@ class QueryDispatcher:
 
         self.groups = groups or ResourceGroupManager()
         # prewarm replays admit through a dedicated weight-capped group
-        # instead of holding an engine lock (prewarm is not ported: the
-        # group stays idle, a row of system.runtime.resource_groups as in
-        # the JAX package)
+        # instead of holding an engine lock (system_admission)
         self.groups.ensure(
             ResourceGroupConfig(
                 SYSTEM_PREWARM_GROUP, hard_concurrency=1, max_queued=8,
@@ -418,11 +419,14 @@ class QueryDispatcher:
             self._cv.notify_all()
 
     def _can_start_now_locked(  # lint: allow(unguarded-state)
-            self, gs: _GroupSched) -> bool:
+            self, gs: _GroupSched, lane0_required: bool = False) -> bool:
         """Caller holds self._lock."""
         if self._stopped or gs.queue:
             return False
-        if not any(not l.busy for l in self._lanes):
+        if lane0_required:
+            if self._lanes[0].busy:
+                return False
+        elif not any(not l.busy for l in self._lanes):
             return False
         return gs.group.has_slot()
 
@@ -450,7 +454,8 @@ class QueryDispatcher:
 
     def enqueue(self, user: Optional[str] = None,
                 group_name: Optional[str] = None,
-                queue_deadline_s: Optional[float] = None) -> AdmissionTicket:
+                queue_deadline_s: Optional[float] = None,
+                lane0_required: bool = False) -> AdmissionTicket:
         """Admit-or-queue one statement; returns its ticket (wait() blocks
         for the lane).  Raises QueryShedError when the group's queue is
         full and no slot is immediately free; DispatcherStoppedError when
@@ -475,12 +480,14 @@ class QueryDispatcher:
                 raise DispatcherStoppedError()
             if (
                 len(gs.queue) >= group.config.max_queued
-                and not self._can_start_now_locked(gs)
+                and not self._can_start_now_locked(gs, lane0_required)
             ):
                 raise QueryShedError(
                     group.config.name, self._shed_locked(gs)
                 )
-            t = AdmissionTicket(self, group.config.name, deadline)
+            t = AdmissionTicket(
+                self, group.config.name, deadline, lane0_required
+            )
             gs.queue.append(t)
             gs.queued_total += 1
             with group.lock:
@@ -569,6 +576,8 @@ class QueryDispatcher:
                 if not gs.queue:
                     continue
                 head = gs.queue[0]
+                if head.lane0_required and self._lanes[0].busy:
+                    continue
                 if not gs.group.has_slot():
                     continue
                 if best is None or gs.vtime < best[0]:
@@ -578,7 +587,7 @@ class QueryDispatcher:
             _, name, gs, t = best
             if not gs.group.try_acquire_now():
                 continue  # raced a legacy acquire(); re-evaluate
-            lane = free[-1]
+            lane = self._lanes[0] if t.lane0_required else free[-1]
             lane.busy = True
             t.lane = lane
             t.state = ADMITTED
@@ -671,9 +680,12 @@ class QueryDispatcher:
             self._cv.notify_all()
 
     def system_admission(self):
-        """Engine-internal admission for prewarm replays: prewarm is not
-        ported, so there is nothing to admit."""
-        raise NotImplementedError("system_admission (runtime/prewarm): not ported yet")
+        """Context manager for engine-internal work (prewarm replays):
+        admits through the weight-capped `system.prewarm` group onto the
+        PRIMARY lane — a fair queue participant, never a lock that jumps
+        ahead of live user statements.  While the replay holds lane 0,
+        other lanes keep serving users."""
+        return _SystemAdmission(self)
 
     # -- shutdown --------------------------------------------------------------
 
@@ -745,3 +757,27 @@ class QueryDispatcher:
     def retry_after_hint(self) -> int:
         return max(1, int(math.ceil(self._retry_after())))
 
+
+class _SystemAdmission:
+    """The prewarm-replay admission gate (QueryDispatcher.system_admission):
+    enqueue into system.prewarm, wait for the primary lane, hold it for
+    the with-block, release on exit."""
+
+    def __init__(self, dispatcher: QueryDispatcher):
+        self.dispatcher = dispatcher
+        self.ticket: Optional[AdmissionTicket] = None
+
+    def __enter__(self):
+        d = self.dispatcher
+        self.ticket = d.enqueue(
+            group_name=SYSTEM_PREWARM_GROUP, queue_deadline_s=0.0,
+            lane0_required=True,
+        )
+        self.ticket.wait()
+        with d._lock:
+            self.ticket.state = RUNNING
+        return d.runner
+
+    def __exit__(self, et, ev, tb):
+        self.dispatcher.release(self.ticket)
+        return False

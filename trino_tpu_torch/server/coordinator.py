@@ -18,10 +18,12 @@ With no `runner`, the server builds `LocalQueryRunner(device=device)`, so
 none unless `device="cpu"` is passed.  Statements run on their own
 `statement-{id}` threads through the dispatcher's engine lanes; each lane's
 kernels launch on that thread's current stream, and the device gate
-(runtime/dispatcher.device_slice) orders the batch pulls.  The prewarm hooks
-keep their `getattr(runner, "prewarm", None)` form: no port runner carries a
-prewarm executor, and `prewarm.manifest-path` raises NotImplementedError
-naming runtime/prewarm (its executor is not ported yet).  Given a
+(runtime/dispatcher.device_slice) orders the batch pulls.  At start the
+server attaches a prewarm executor (runtime/prewarm) from
+`prewarm.manifest-path` when the runner carries none and, with
+`prewarm.on-start`, replays the manifest through the dispatcher's
+`system_admission`; successful SELECTs feed the executor's replay set, and
+shutdown saves it.  Given a
 `MultiHostQueryRunner` (parallel/remote.py), `start()` starts its
 heartbeat detector's probe loop and `shutdown()` stops it, and PUT
 /v1/worker/register and /v1/worker/drain grow and drain its membership,
@@ -180,13 +182,6 @@ class CoordinatorServer:
         from trino_tpu_torch.runtime.runner import LocalQueryRunner
 
         self.runner = runner or LocalQueryRunner(device=device)
-        if getattr(self.runner, "prewarm", None) is None and get_config(
-        ).properties.get("prewarm.manifest-path"):
-            # start() would attach an executor from the manifest
-            raise NotImplementedError(
-                "prewarm.manifest-path (runtime/prewarm, the prewarm "
-                "executor): not ported yet"
-            )
         #: optional PasswordAuthenticator (AuthenticationFilter role)
         self.authenticator = authenticator
         if access_control is not None:
@@ -795,9 +790,10 @@ class CoordinatorServer:
           is the only process that should own it (only membership-backed detectors
           have a start/stop loop — the in-mesh detector refreshes at query
           start and needs none);
-        * a prewarm executor the runner already carries (runtime/prewarm):
-          replay its persisted workload manifest in the background so
-          restart cost is paid before the first query, not by it."""
+        * the prewarm executor (runtime/prewarm): attach one from
+          `prewarm.manifest-path` when the runner has none, and replay the
+          persisted workload manifest in the background so restart cost is
+          paid before the first query, not by it."""
         det = getattr(self.runner, "failure_detector", None)
         if det is not None and callable(getattr(det, "start", None)) \
                 and callable(getattr(det, "stop", None)):
@@ -810,13 +806,23 @@ class CoordinatorServer:
         from trino_tpu_torch.telemetry.audit import attach_audit_log
 
         attach_audit_log(self.runner)
+        from trino_tpu_torch.config import get_config
+
         pw = getattr(self.runner, "prewarm", None)
+        if pw is None and get_config().prewarm.manifest_path:
+            from trino_tpu_torch.runtime.prewarm import attach_prewarm
+
+            pw = attach_prewarm(self.runner)
         if pw is not None:
-            # a pre-attached executor's replays admit through the
-            # dispatcher's weight-capped system.prewarm resource group
-            # (system_admission raises until prewarm is ported)
+            # adopt even a pre-attached executor (runner_from_etc creates
+            # one with a private lock): replays — start AND later grow
+            # kicks — admit through the dispatcher's weight-capped
+            # system.prewarm resource group, so a replay waits its fair
+            # turn on the primary lane and can never starve live user
+            # queries
             pw.use_admission(self.dispatcher.system_admission)
-            pw.run(reason="start")
+            if get_config().prewarm.on_start:
+                pw.run(reason="start")
 
     def shutdown(self) -> None:
         # graceful dispatcher drain FIRST: admission closes, queued

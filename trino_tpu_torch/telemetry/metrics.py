@@ -22,10 +22,9 @@ the profile archive and the audit log bump `profiles_archived_total`,
 `plan_decisions_total`; the circuit breakers of the multi-host HTTP tier
 feed `breaker_trips_total` and `breaker_state` (runtime/retry.BREAKERS),
 and cluster membership `membership_events_total` and `worker_alive`
-(runtime/membership).  Prewarm is not ported yet, so nothing in the port
-bumps `prewarm_runs_total`, `prewarm_statements_total` or
-`prewarm_state`, which stay at their initial values.  The
-trace-cache series read the port's step cache (parallel/spmd.TRACE_CACHE):
+(runtime/membership); the prewarm executor (runtime/prewarm) bumps
+`prewarm_runs_total{reason,outcome}` and `prewarm_statements_total` and
+sets `prewarm_state`.  The trace-cache series read the port's step cache (parallel/spmd.TRACE_CACHE):
 torch runs eagerly and traces nothing, so a miss builds a step closure
 and `retraces` stays 0.
 """

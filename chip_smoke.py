@@ -374,11 +374,28 @@ catches nothing and never falls back to the CPU):
      first query's wall with and without prewarm are logged (findings,
      not a claim); every result is held to the port's CPU run with phases
      4-5c's;
+  5r. Parquet without pyarrow at tpch.sf1, in a temporary directory
+     removed at the end.  R1: the port's own writer (formats/parquet,
+     GZIP level 1) writes lineitem, orders and customer from the tpch
+     catalog; each table's write seconds and file bytes are logged.  R2:
+     over the parquet catalog, Q1-double (`pallas_agg`, K1) and Q6 through
+     the local runner and Q3 (`pallas_probe`, K2) on the 4-worker mesh,
+     cold and twice warm, each run's wall and the reader's host seconds of
+     decompression by codec and of decoding by encoding logged, one warm
+     run each profiled (the card's idle share); the rows must equal the
+     same queries over the tpch catalog on the card; an untimed run keeps
+     K1's and K2's largest inputs.  R3: iceberg: CTAS from tpch.sf1.orders,
+     one INSERT, then `$snapshots` and a read of the CTAS snapshot
+     (`"orders@2"`) held to the tpch rows and counts.  R4: hive:
+     `write_partitioned` of tpch.sf1.orders by o_orderpriority (5
+     partitions), then a query with a predicate on the partition column
+     whose scan must enumerate the splits of one partition only, and whose
+     rows equal the tpch catalog's;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows),
      of the local T1's, of D1's Q1's (phase 5k), of L1's Q1-double
-     (phase 5l) and of a 5p worker's Q1-double aggregation, and
-     time it there;
+     (phase 5l), of a 5p worker's Q1-double aggregation and of 5r's
+     Q1-double over parquet, and time it there;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -395,8 +412,8 @@ catches nothing and never falls back to the CPU):
      launch of the mesh H3 (phase 5i), of the mesh T2 (phase 5j), of D3's
      mesh join (phase 5k), of L2's mesh Q3 (phase 5l), of M2's
      co-located join (phase 5m), of N1's largest launch fed by a spooled
-     stage output (phase 5n) and of the W = 2 mesh Q3 after `resize_mesh`
-     (phase 5p);
+     stage output (phase 5n), of the W = 2 mesh Q3 after `resize_mesh`
+     (phase 5p) and of the mesh Q3 over parquet (phase 5r);
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -5669,6 +5686,236 @@ def run_prewarm_path(here: str, children: list, card: str = "", schema: str = "s
             "replay": warm["replay"], "grow": warm["grow"], "check": check_rows}
 
 
+# -- phase 5r: Parquet without pyarrow, under the parquet, iceberg and hive catalogs --
+
+#: the TPC-H tables phase 5r writes with the port's parquet writer
+PARQUET_TABLES = ("lineitem", "orders", "customer")
+
+
+def parquet_sqls() -> list:
+    """Phase 5r's queries over the parquet catalog: (name, runner, sql);
+    the local runner runs under `pallas_agg` (K1), the mesh under
+    `pallas_probe` (K2)."""
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+
+    return [("q1_double", "local", Q1_DOUBLE), ("q6", "local", QUERIES[6]),
+            ("q3", "mesh", QUERIES[3])]
+
+
+def decode_summary(stats: dict) -> dict:
+    """The reader's host seconds by codec and by encoding, and its bytes."""
+    return {
+        "codec_s": stats["codec_s"],
+        "encoding_s": stats["encoding_s"],
+        "decode_s": sum(stats["codec_s"].values()) + sum(stats["encoding_s"].values()),
+        "compressed_bytes": stats["compressed_bytes"],
+        "uncompressed_bytes": stats["uncompressed_bytes"],
+        "pages": stats["pages"],
+        "data_pages": stats["data_pages"],
+        "column_chunks": stats["column_chunks"],
+    }
+
+
+def run_parquet_path(k1_capture: dict, probe_record: dict, schema: str = "sf1",
+                     device=None) -> dict:
+    """Phase 5r (see the module docstring, R1-R4): the port's own Parquet
+    writer and reader at tpch.sf1 on the card, under the parquet, iceberg
+    and hive catalogs.  Every result is held to the same query over the
+    `tpch` catalog on the card.  The kernels' counts are set to 0 just
+    before the path and read just after; the inputs of K1's largest launch
+    (the local Q1-double) and of K2's (the mesh Q3) are kept for phases 6a
+    and 6.  `device` moves the runners off the card for a dry run."""
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch.connectors.api import CatalogManager, TableHandle
+    from trino_tpu_torch.connectors.hive import HiveConnector, write_partitioned
+    from trino_tpu_torch.connectors.iceberg import IcebergConnector
+    from trino_tpu_torch.connectors.parquet import ParquetConnector, write_table_to_parquet
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+    from trino_tpu_torch.formats.parquet import decode_stats, reset_decode_stats
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import assert_rows_match, result_order
+    import trino_tpu_torch.parallel.runner as mesh_runner
+
+    on_card = device is None
+    # a dry run off the card counts the plain versions' calls instead
+    k1 = gs.grouped_sums if on_card else gs.grouped_sums_reference
+    k2 = ls.locate_sorted if on_card else ls.locate_sorted_reference
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5r_")
+    roots = {k: os.path.join(tmp, k) for k in ("parquet", "iceberg", "hive")}
+    report: dict = {"writes": {}, "queries": {}}
+    try:
+        # -- R1: the port's writer, tpch -> parquet files ----------------------
+        tpch = TpchConnector()
+        for table in PARQUET_TABLES:
+            t0 = time.perf_counter()
+            path = write_table_to_parquet(tpch, schema, table, roots["parquet"])
+            wall = time.perf_counter() - t0
+            report["writes"][table] = {"wall_s": wall, "bytes": os.path.getsize(path)}
+            log(f"parquet R1 write {table}: wall_s={wall!r} "
+                f"file_bytes={os.path.getsize(path)} codec=GZIP")
+        cm = CatalogManager()
+        cm.register("tpch", tpch)
+        cm.register("pq", ParquetConnector(roots["parquet"]))
+        cm.register("ice", IcebergConnector(roots["iceberg"]))
+        hive = HiveConnector(roots["hive"])
+        cm.register("hive", hive)
+        runners = {}
+        for catalog in ("pq", "tpch"):
+            local = LocalQueryRunner(cm, catalog=catalog, schema=schema, device=device)
+            local.execute("set session pallas_agg = true")
+            mesh = DistributedQueryRunner(cm, catalog=catalog, schema=schema,
+                                          n_workers=MESH_WORKERS, device=device)
+            mesh.execute("set session pallas_probe = true")
+            runners[catalog] = {"local": local, "mesh": mesh}
+        # the same queries over the tpch catalog on the card, before the
+        # kernels' counts are zeroed: the rows the parquet path must give
+        expected = {}
+        for name, kind, sql in parquet_sqls():
+            r = runners["tpch"][kind]
+            expected[name] = (r.execute(sql).rows, result_order(r.create_plan(sql)))
+
+        # -- R2: Q1-double and Q6 local, Q3 on the mesh, over parquet ------------
+        k1.launches = 0  # every kernel count, just before the path
+        k2.launches = 0
+        results = {}
+        for name, kind, sql in parquet_sqls():
+            r = runners["pq"][kind]
+            walls = []
+            for attempt in ("cold", "warm", "warm"):
+                reset_decode_stats()
+                n1, n2 = k1.launches, k2.launches
+                t0 = time.perf_counter()
+                res = r.execute(sql)  # rows come back to the host: synchronized
+                wall = time.perf_counter() - t0
+                walls.append(wall)
+                dec = decode_summary(decode_stats())
+                log(f"parquet R2 {name} {kind} {attempt}: wall_s={wall!r} "
+                    f"grouped_sums_launches={k1.launches - n1} "
+                    f"locate_sorted_launches={k2.launches - n2} "
+                    f"decode={json.dumps(dec)}")
+                if attempt == "cold":
+                    report["queries"][name] = {"cold_s": wall, "decode": dec}
+            report["queries"][name]["warm_s"] = min(walls[1:])
+            results[name] = res.rows
+        for name, kind, sql in parquet_sqls():
+            if on_card:
+                profile_warm(f"parquet_{name}", runners["pq"][kind], sql)
+        if k1.launches <= 0 or k2.launches <= 0:
+            raise AssertionError(
+                f"R2 launched grouped_sums {k1.launches}x and "
+                f"locate_sorted {k2.launches}x")
+        for name, rows in results.items():
+            want, order = expected[name]
+            rtol = KERNEL_RTOL if name == "q1_double" else DOUBLE_RTOL
+            assert_rows_match(rows, want, order, rtol)
+            log(f"parquet R2 {name}: {len(rows)} rows equal the tpch catalog's on the card")
+        if on_card:  # untimed: the kernels' largest inputs
+            gs_orig, gs_rec = grouped_sums_recorder(k1_capture)
+            k1_capture["query"] = "R2_q1_double"
+            gs._launch = gs_rec
+            probe_kernel, probe_rec = shape_recording_probe(probe_record)
+            probe_record["query"] = "R2_q3_mesh"
+            mesh_runner.locate_sorted = probe_rec
+            try:
+                runners["pq"]["local"].execute(Q1_DOUBLE)
+                runners["pq"]["mesh"].execute(QUERIES[3])
+            finally:
+                gs._launch = gs_orig
+                mesh_runner.locate_sorted = probe_kernel
+
+        # -- R3: iceberg, CTAS from tpch orders, one INSERT, time travel -------
+        ice = LocalQueryRunner(cm, catalog="ice", schema="s", device=device)
+        t0 = time.perf_counter()
+        ice.execute(f"create table orders as select * from tpch.{schema}.orders")
+        ctas_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ice.execute(f"insert into orders select * from tpch.{schema}.orders "
+                    "where o_orderkey < 1000")
+        insert_s = time.perf_counter() - t0
+        snaps = ice.execute('select snapshot_id, operation, file_count, total_records '
+                            'from "orders$snapshots" order by snapshot_id').rows
+        n_orders = runners["tpch"]["local"].execute("select count(*) from orders").rows[0][0]
+        n_insert = runners["tpch"]["local"].execute(
+            "select count(*) from orders where o_orderkey < 1000").rows[0][0]
+        want_snaps = [(1, "create", 0, 0), (2, "append", 1, n_orders),
+                      (3, "append", 2, n_orders + n_insert)]
+        if snaps != want_snaps:
+            raise AssertionError(f"R3: $snapshots {snaps} != {want_snaps}")
+        agg = ("select o_orderpriority, count(*), sum(o_totalprice), min(o_orderdate), "
+               "max(o_comment) from {} group by o_orderpriority")
+        tpch_rows = runners["tpch"]["local"].execute(agg.format("orders")).rows
+        order = result_order(runners["tpch"]["local"].create_plan(agg.format("orders")))
+        t0 = time.perf_counter()
+        travel = ice.execute(agg.format('"orders@2"')).rows
+        travel_s = time.perf_counter() - t0
+        assert_rows_match(travel, tpch_rows, order, DOUBLE_RTOL)
+        current = ice.execute("select count(*) from orders").rows
+        if current != [(n_orders + n_insert,)]:
+            raise AssertionError(f"R3: the current snapshot holds {current}")
+        report["iceberg"] = {"ctas_s": ctas_s, "insert_s": insert_s,
+                             "time_travel_s": travel_s, "snapshots": snaps}
+        log(f"parquet R3 iceberg: ctas_s={ctas_s!r} insert_s={insert_s!r} "
+            f"time_travel_s={travel_s!r} snapshots={snaps}; "
+            f"\"orders@2\" equals tpch.{schema}.orders, current count {current[0][0]}")
+
+        # -- R4: hive, orders partitioned by o_orderpriority, pruned scan -------
+        t0 = time.perf_counter()
+        nparts = write_partitioned(tpch, schema, "orders", roots["hive"],
+                                   partition_by=["o_orderpriority"])
+        part_s = time.perf_counter() - t0
+        if nparts != 5:
+            raise AssertionError(f"R4: {nparts} partitions, not 5")
+        seen = []
+        all_splits = hive.splits(TableHandle("hive", schema, "orders"), 1)
+        plain_splits = hive.splits
+
+        def recording_splits(handle, target_splits, predicate=None):
+            out = plain_splits(handle, target_splits, predicate)
+            seen.append((predicate, out))
+            return out
+
+        hive.splits = recording_splits
+        try:
+            sql = ("select o_orderpriority, count(*), sum(o_totalprice), max(o_orderdate) "
+                   "from {}orders where o_orderpriority = '1-URGENT' group by o_orderpriority")
+            t0 = time.perf_counter()
+            rows = LocalQueryRunner(cm, catalog="hive", schema=schema,
+                                    device=device).execute(sql.format("")).rows
+            hive_s = time.perf_counter() - t0
+        finally:
+            hive.splits = plain_splits
+        want = runners["tpch"]["local"].execute(sql.format("")).rows
+        assert_rows_match(rows, want, result_order(
+            runners["tpch"]["local"].create_plan(sql.format(""))), DOUBLE_RTOL)
+        if not seen:
+            raise AssertionError("R4: the hive scan enumerated no splits")
+        read = {p for _, splits in seen for s in splits for p in [s.info[0]]}
+        dirs = {os.path.basename(os.path.dirname(p)) for p in read}
+        if dirs != {"o_orderpriority=1-URGENT"}:
+            raise AssertionError(f"R4: the pruned scan read {sorted(dirs)}")
+        report["hive"] = {"write_s": part_s, "query_s": hive_s,
+                          "splits_read": sum(len(s) for _, s in seen),
+                          "splits_all": len(all_splits)}
+        log(f"parquet R4 hive: write_partitioned_s={part_s!r} partitions={nparts} "
+            f"query_s={hive_s!r} splits read {report['hive']['splits_read']} of "
+            f"{len(all_splits)} (1 partition of 5; predicate {seen[0][0]}); rows equal "
+            f"tpch.{schema}.orders's")
+        k1_launches = k1.launches  # read just after the path
+        k2_launches = k2.launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"parquet path: {json.dumps(report)}")
+    log(f"parquet path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "report": report}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -5745,7 +5992,7 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
                         tdw: dict, arrays: dict, holistic: dict, temporal: dict,
                         statements: dict, lifecycle: dict, schedule: dict,
-                        fte: dict, multihost: dict) -> dict:
+                        fte: dict, multihost: dict, parquet: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -5774,6 +6021,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no spooled sorted-probe launch was captured in phase 5n")
     if "largest" not in multihost:
         raise AssertionError("no sorted-probe launch was captured on phase 5p's W = 2 mesh")
+    if "largest" not in parquet:
+        raise AssertionError("no sorted-probe launch was captured in phase 5r")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -5788,6 +6037,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"schedule_largest_{schedule['largest_query']}",) + schedule["largest"]]
     cases += [(f"fte_largest_{fte['largest_query']}",) + fte["largest"]]
     cases += [(f"multihost_largest_{multihost['largest_query']}",) + multihost["largest"]]
+    cases += [(f"parquet_largest_{parquet['largest_query']}",) + parquet["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -5822,6 +6072,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     fte_largest["query"] = fte["largest_query"]
     multihost_largest = time_probe_inputs("multihost_largest", dev, multihost["largest"])
     multihost_largest["query"] = multihost["largest_query"]
+    parquet_largest = time_probe_inputs("parquet_largest", dev, parquet["largest"])
+    parquet_largest["query"] = parquet["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -5841,6 +6093,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "schedule_inputs": schedule_largest,
         "fte_inputs": fte_largest,
         "multihost_inputs": multihost_largest,
+        "parquet_inputs": parquet_largest,
     }
 
 
@@ -5989,6 +6242,9 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     multihost_k1: dict = {}
     mh_path = timed("5p", run_multihost_path, multihost_probe, multihost_k1)
     pw_path = timed("5q", run_prewarm_path, here, children, smi)
+    parquet_k1: dict = {}
+    parquet_probe: dict = {}
+    pq_path = timed("5r", run_parquet_path, parquet_k1, parquet_probe)
     tpcds = timed("5d-5e wait", wait_tpcds_card, card, card_path, procs, dev)
     for phase in ("5d", "5e"):  # the second card process's seconds
         seconds[phase] = tpcds[phase]["seconds"]
@@ -6007,7 +6263,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         arr_path["k1_launches"] + agg_path["k1_launches"] + hol_path["k1_launches"]
         + tem_path["k1_launches"] + stm_path["k1_launches"] + lc_path["k1_launches"]
         + sch_path["k1_launches"] + fte_path["k1_launches"] + srv_path["k1_launches"]
-        + mh_path["k1_launches"] + pw_path["k1_launches"]
+        + mh_path["k1_launches"] + pw_path["k1_launches"] + pq_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
@@ -6016,14 +6272,17 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "lifecycle": lc_path["k1_launches"], "schedule_layouts": sch_path["k1_launches"],
         "fte_observatory": fte_path["k1_launches"], "serving": srv_path["k1_launches"],
         "multihost": mh_path["k1_launches"], "prewarm": pw_path["k1_launches"],
+        "parquet": pq_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
     k1["statements_inputs"] = check_grouped_sums_captured(dev, statements_k1, "statements")
     k1["lifecycle_inputs"] = check_grouped_sums_captured(dev, lifecycle_k1, "lifecycle")
     k1["multihost_inputs"] = check_grouped_sums_captured(dev, multihost_k1, "multihost")
+    k1["parquet_inputs"] = check_grouped_sums_captured(dev, parquet_k1, "parquet")
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
-               holistic, temporal, statements, lifecycle, schedule, fte, multihost_probe)
+               holistic, temporal, statements, lifecycle, schedule, fte, multihost_probe,
+               parquet_probe)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
@@ -6031,7 +6290,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         + arr_path["k2_launches"] + agg_path["k2_launches"] + hol_path["k2_launches"]
         + tem_path["k2_launches"] + stm_path["k2_launches"] + lc_path["k2_launches"]
         + sch_path["k2_launches"] + fte_path["k2_launches"] + srv_path["k2_launches"]
-        + mh_path["k2_launches"] + pw_path["k2_launches"]
+        + mh_path["k2_launches"] + pw_path["k2_launches"] + pq_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -6054,6 +6313,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "serving": srv_path["k2_launches"],
         "multihost": mh_path["k2_launches"],
         "prewarm": pw_path["k2_launches"],
+        "parquet": pq_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of trino_tpu_torch, and not chip_smoke.py,
 imports jax or anything of the JAX package (importing any trino_tpu module
-imports jax), and its entry points (the runners, the coordinator, the CLI,
+imports jax), nor pyarrow or pandas (the card's machine has neither; the
+port reads and writes Parquet itself), and its entry points (the runners, the coordinator, the CLI,
 the DB-API driver) never fall back to the CPU silently."""
 
 import ast
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "trino_tpu")
+FORBIDDEN = ("jax", "jaxlib", "trino_tpu", "pyarrow", "pandas")
 
 
 def _sources():

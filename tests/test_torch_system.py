@@ -8,9 +8,8 @@ Each case runs the same statements through the JAX LocalQueryRunner and
 the port's (`device="cpu"`) at tpch.tiny and holds the rows and column
 names equal, except where the port differs by design: `nodes` lists the
 runner's device (`cpu` here; every CUDA device on the card) where the JAX
-package lists its XLA devices, and the hive/iceberg/parquet connectors
-and the knobs of unported pieces raise NotImplementedError naming
-themselves.
+package lists its XLA devices.  The hive/iceberg/parquet catalogs load
+under the JAX keys and answer with the JAX rows.
 """
 
 import importlib
@@ -245,19 +244,48 @@ def test_load_etc_catalogs(etc_dir):
 
 @pytest.mark.parametrize("connector", ["parquet", "hive", "iceberg"])
 def test_unported_connectors_raise_by_name(tmp_path, connector):
-    """The JAX package loads a parquet catalog; the port's hive, iceberg
-    and parquet factories raise naming themselves."""
-    etc = _write_etc(tmp_path, parquet=True)
+    """The parquet, hive and iceberg catalogs (no longer unported: the port
+    reads and writes Parquet itself) load from an etc/ directory in both
+    packages under the JAX keys, and one query over the lake's nation table
+    gives equal rows."""
+    from trino_tpu.connectors.tpch import TpchConnector as JaxTpch
+
+    etc = _write_etc(tmp_path, parquet=False)
+    lake = tmp_path / "lake"
+    lake.mkdir()
     if connector == "parquet":
-        cfg = mod("trino_tpu", "runtime.config").load_etc(etc)
-        assert "files" in cfg.catalogs.names()
+        from trino_tpu.connectors.parquet import write_table_to_parquet
+
+        write_table_to_parquet(JaxTpch(), "tiny", "nation", str(lake))
+        key = "parquet.dir"
+    elif connector == "hive":
+        from trino_tpu.connectors.hive import write_partitioned
+
+        write_partitioned(JaxTpch(), "tiny", "nation", str(lake), partition_by=["n_regionkey"])
+        key = "hive.metastore.catalog.dir"
     else:
-        keys = {"hive": "hive.metastore.catalog.dir", "iceberg": "iceberg.catalog.warehouse"}
-        os.remove(os.path.join(etc, "catalog", "files.properties"))
-        with open(os.path.join(etc, "catalog", "lake.properties"), "w") as fh:
-            fh.write(f"connector.name={connector}\n{keys[connector]}={tmp_path}\n")
-    with pytest.raises(NotImplementedError, match=connector):
-        mod("trino_tpu_torch", "runtime.config").load_etc(etc)
+        from trino_tpu.runtime.runner import LocalQueryRunner as JaxRunner
+        from trino_tpu.connectors.api import CatalogManager
+        from trino_tpu.connectors.iceberg import IcebergConnector
+
+        cm = CatalogManager()
+        cm.register("tpch", JaxTpch())
+        cm.register("ice", IcebergConnector(str(lake)))
+        JaxRunner(cm, catalog="ice", schema="tiny").execute(
+            "create table nation as select * from tpch.tiny.nation"
+        )
+        key = "iceberg.catalog.warehouse"
+    with open(os.path.join(etc, "catalog", "lake.properties"), "w") as fh:
+        fh.write(f"connector.name={connector}\n{key}={lake}\n")
+    sql = ("select n_regionkey, count(*), min(n_name), sum(n_nationkey) "
+           "from lake.tiny.nation group by n_regionkey order by n_regionkey")
+    rows = []
+    for p in PKGS:
+        cfg = mod(p, "runtime.config").load_etc(etc)
+        assert type(cfg.catalogs.get("lake")).__module__ == f"{p}.connectors.{connector}"
+        kw = {"device": "cpu"} if p == "trino_tpu_torch" else {}
+        rows.append(mod(p, "runtime.config").runner_from_etc(etc, **kw).execute(sql).rows)
+    assert rows[0] == rows[1] and len(rows[0]) == 5
 
 
 def test_runner_from_etc(etc_dir):

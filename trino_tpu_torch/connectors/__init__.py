@@ -5,7 +5,9 @@ Round-1 set mirrors the reference's baseline-critical connectors:
   tpcds      -> plugin/trino-tpcds
   memory     -> plugin/trino-memory (in-RAM pages store, test workhorse)
   blackhole  -> plugin/trino-blackhole (null source/sink for perf tests)
-  parquet    -> lib/trino-parquet read path (via pyarrow host decode)
+  parquet    -> lib/trino-parquet read path (the port's own reader, formats/parquet)
+  hive       -> plugin/trino-hive over parquet (ORC not ported yet)
+  iceberg    -> plugin/trino-iceberg (snapshot-versioned parquet tables)
 """
 
 from trino_tpu_torch.connectors.api import (

@@ -933,10 +933,13 @@ class StageExecutor:
 
     def _register_dynamic_filters(self, criteria, build: _Dist) -> None:
         """Record build-side key min/max under the probe symbol names.
-        Dictionary-coded, float and limb-plane keys are skipped.  All
+        Dictionary-coded and float keys are skipped, as in the JAX runner.
+        A limb-plane (long-decimal) key still joins the reduce, so the
+        issued collectives are the recorded signature's, but registers no
+        range: a min/max over both limbs is not an int128 range.  All
         summaries reduce in one per-worker step and cross to the host in one
         transfer."""
-        pairs = []  # (probe name, channel)
+        pairs = []  # (probe name, channel, limb plane)
         # materialize pending steps first: deferred projections may have
         # changed a key column's dictionary, which the skip check reads
         stacked = build.stacked
@@ -946,33 +949,33 @@ class StageExecutor:
             except KeyError:
                 continue
             col = stacked.columns[chn]
-            if (
-                col.dictionary is not None
-                or col.data.is_floating_point()
-                or col.data.ndim > 2
-            ):
+            if col.dictionary is not None or col.data.is_floating_point():
                 continue
-            pairs.append((lsym.name, chn))
+            pairs.append((lsym.name, chn, col.data.ndim > 2))
         if not pairs:
             return
-        chans = tuple(ch for _, ch in pairs)
+        chans = tuple((ch, limb) for _, ch, limb in pairs)
 
         def build_step():
             def step(b: Batch):
                 big = torch.iinfo(torch.int64).max
                 outs = []
-                for chn in chans:
+                for chn, limb in chans:
                     c = b.columns[chn]
                     live = b.mask()
                     if c.valid is not None:
                         live = torch.logical_and(live, c.valid)
+                    n = live.sum(dtype=torch.int64)
+                    if limb:
+                        outs.append(torch.stack([n * 0, n * 0, n]))
+                        continue
                     d = c.data.to(torch.int64)
                     outs.append(
                         torch.stack(
                             [
                                 torch.where(live, d, big).min(),
                                 torch.where(live, d, -big).max(),
-                                live.sum(dtype=torch.int64),
+                                n,
                             ]
                         )
                     )
@@ -989,7 +992,9 @@ class StageExecutor:
             self._current_fid, int(summ.nbytes), "reduce", "dynamic_filter"
         )
         # [W, k, 3] -> per-criterion global (lo, hi, n)
-        for i, (name, _) in enumerate(pairs):
+        for i, (name, _, limb) in enumerate(pairs):
+            if limb:
+                continue
             lo = int(summ[:, i, 0].min())
             hi = int(summ[:, i, 1].max())
             n = int(summ[:, i, 2].sum())

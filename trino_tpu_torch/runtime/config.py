@@ -11,10 +11,10 @@ The properties syntax is the java.util.Properties subset the reference uses:
 `key=value` or `key: value`, `#`/`!` comments, trailing-backslash line
 continuation.
 
-Port of trino_tpu/runtime/config.py.  The `tpch`, `tpcds`, `memory` and
-`blackhole` connectors load; the `hive`, `iceberg` and `parquet`
-factories raise NotImplementedError naming themselves (their connectors
-are not ported).  The file event listener is ported, and so are the
+Port of trino_tpu/runtime/config.py.  The `tpch`, `tpcds`, `memory`,
+`blackhole`, `parquet` (`parquet.dir`), `hive` (`hive.metastore.catalog.dir`)
+and `iceberg` (`iceberg.catalog.warehouse`) connectors load, the last three
+over the port's own parquet reader and writer (`formats/parquet`).  The file event listener is ported, and so are the
 query performance observatory's knobs: `profile.archive-dir` attaches a
 profile store and `audit.log-path` an audit log to the runner, and
 `access-control.config-file` (a JSON file of rules under "tables" or
@@ -73,17 +73,20 @@ def _factories() -> dict:
     except ImportError:  # pragma: no cover
         pass
 
-    def unported(name: str):
-        def factory(p):
-            raise NotImplementedError(
-                f"the {name} connector (connector.name={name}): not ported yet"
-            )
+    def hive(p):
+        from trino_tpu_torch.connectors.hive import HiveConnector
 
-        return factory
+        return HiveConnector(p["hive.metastore.catalog.dir"])
 
-    hive = unported("hive")
-    iceberg = unported("iceberg")
-    parquet = unported("parquet")
+    def iceberg(p):
+        from trino_tpu_torch.connectors.iceberg import IcebergConnector
+
+        return IcebergConnector(p["iceberg.catalog.warehouse"])
+
+    def parquet(p):
+        from trino_tpu_torch.connectors.parquet import ParquetConnector
+
+        return ParquetConnector(p["parquet.dir"])
 
     reg["hive"] = hive
     reg["iceberg"] = iceberg

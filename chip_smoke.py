@@ -391,11 +391,27 @@ catches nothing and never falls back to the CPU):
      partitions), then a query with a predicate on the partition column
      whose scan must enumerate the splits of one partition only, and whose
      rows equal the tpch catalog's;
+  5s. ORC without pyarrow at tpch.sf1, under the hive catalog, in a
+     temporary directory removed at the end.  S1: the port's own ORC writer
+     (formats/orc, ZLIB level 1, a stripe every 2**20 rows) writes a hive
+     layout from the tpch catalog: lineitem by l_shipmode (7 partitions),
+     orders by o_orderpriority (5), customer by c_mktsegment (5); each
+     table's write seconds and file bytes are logged.  S2: over the hive
+     catalog, Q1-double (`pallas_agg`, K1) and Q6 through the local runner,
+     Q3 and Q12 (`pallas_probe`, K2) on the 4-worker mesh, cold and twice
+     warm, each run's wall and the ORC reader's host seconds of
+     decompression by codec and of decoding by encoding (each RLE v2
+     sub-encoding apart) logged, one warm run each profiled (the card's
+     idle share); the rows must equal the same queries over the tpch catalog
+     on the card.  S3: an untimed run of the four records the partitions
+     each scan enumerated (Q3's `c_mktsegment = 'BUILDING'` must read 1
+     customer partition of 5, Q12's `l_shipmode IN ('MAIL', 'SHIP')` 2
+     lineitem partitions of 7) and keeps K1's and K2's largest inputs;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows),
      of the local T1's, of D1's Q1's (phase 5k), of L1's Q1-double
-     (phase 5l), of a 5p worker's Q1-double aggregation and of 5r's
-     Q1-double over parquet, and time it there;
+     (phase 5l), of a 5p worker's Q1-double aggregation, of 5r's
+     Q1-double over parquet and of 5s's over ORC, and time it there;
   6. hold the sorted-probe kernel to its plain version on the card, bit for
      bit, at the inputs of the largest launch of phase 5 and at the edges
      (duplicate runs and misses, runs crossing window edges and runs longer
@@ -413,7 +429,8 @@ catches nothing and never falls back to the CPU):
      mesh join (phase 5k), of L2's mesh Q3 (phase 5l), of M2's
      co-located join (phase 5m), of N1's largest launch fed by a spooled
      stage output (phase 5n), of the W = 2 mesh Q3 after `resize_mesh`
-     (phase 5p) and of the mesh Q3 over parquet (phase 5r);
+     (phase 5p), of the mesh Q3 over parquet (phase 5r) and of the mesh
+     Q3 or Q12 over ORC (phase 5s);
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -5703,17 +5720,10 @@ def parquet_sqls() -> list:
 
 
 def decode_summary(stats: dict) -> dict:
-    """The reader's host seconds by codec and by encoding, and its bytes."""
-    return {
-        "codec_s": stats["codec_s"],
-        "encoding_s": stats["encoding_s"],
-        "decode_s": sum(stats["codec_s"].values()) + sum(stats["encoding_s"].values()),
-        "compressed_bytes": stats["compressed_bytes"],
-        "uncompressed_bytes": stats["uncompressed_bytes"],
-        "pages": stats["pages"],
-        "data_pages": stats["data_pages"],
-        "column_chunks": stats["column_chunks"],
-    }
+    """A reader's `decode_stats()` (parquet's or ORC's: host seconds by
+    codec and by encoding, bytes, pages or streams) with their sum."""
+    decode_s = sum(stats["codec_s"].values()) + sum(stats["encoding_s"].values())
+    return {**stats, "decode_s": decode_s}
 
 
 def run_parquet_path(k1_capture: dict, probe_record: dict, schema: str = "sf1",
@@ -5916,6 +5926,170 @@ def run_parquet_path(k1_capture: dict, probe_record: dict, schema: str = "sf1",
     return {"k1_launches": k1_launches, "k2_launches": k2_launches, "report": report}
 
 
+# -- phase 5s: ORC without pyarrow, under the hive catalog ---------------------
+
+#: phase 5s's hive layout: each TPC-H table and its partition column
+ORC_PARTITIONS = (("lineitem", "l_shipmode"), ("orders", "o_orderpriority"),
+                  ("customer", "c_mktsegment"))
+#: the pruning each S3 scan must show: (query, table) -> partitions read
+ORC_PRUNING = {("q3", "customer"): ["c_mktsegment=BUILDING"],
+               ("q12", "lineitem"): ["l_shipmode=MAIL", "l_shipmode=SHIP"]}
+
+
+def orc_sqls() -> list:
+    """Phase 5s's queries over the hive catalog: (name, runner, sql); the
+    local runner runs under `pallas_agg` (K1), the mesh under `pallas_probe`
+    (K2)."""
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+
+    return [("q1_double", "local", Q1_DOUBLE), ("q6", "local", QUERIES[6]),
+            ("q3", "mesh", QUERIES[3]), ("q12", "mesh", QUERIES[12])]
+
+
+def run_orc_path(k1_capture: dict, probe_record: dict, schema: str = "sf1",
+                 device=None) -> dict:
+    """Phase 5s (see the module docstring, S1-S3): the port's own ORC writer
+    and reader at tpch.sf1 on the card under the hive catalog.  Every result
+    is held to the same query over the `tpch` catalog on the card.  The
+    kernels' counts are set to 0 just before the path and read just after;
+    the inputs of K1's largest launch (the local Q1-double) and of K2's (the
+    mesh Q3 or Q12) are kept for phases 6a and 6.  `device` moves the
+    runners off the card for a dry run."""
+    import shutil
+    import tempfile
+
+    from trino_tpu_torch.connectors.api import CatalogManager
+    from trino_tpu_torch.connectors.hive import HiveConnector, write_partitioned
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.formats.orc import decode_stats, reset_decode_stats
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+    from trino_tpu_torch.testing import assert_rows_match, result_order
+    import trino_tpu_torch.parallel.runner as mesh_runner
+
+    on_card = device is None
+    # a dry run off the card counts the plain versions' calls instead
+    k1 = gs.grouped_sums if on_card else gs.grouped_sums_reference
+    k2 = ls.locate_sorted if on_card else ls.locate_sorted_reference
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5s_")
+    report: dict = {"writes": {}, "queries": {}}
+    try:
+        # -- S1: the port's writer, tpch -> a hive layout of ORC files ---------
+        tpch = TpchConnector()
+        for table, by in ORC_PARTITIONS:
+            t0 = time.perf_counter()
+            nparts = write_partitioned(tpch, schema, table, tmp, [by], fmt="orc")
+            wall = time.perf_counter() - t0
+            base = os.path.join(tmp, schema, table)
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(base) for f in files)
+            report["writes"][table] = {"wall_s": wall, "bytes": nbytes, "partitions": nparts}
+            log(f"orc S1 write {table} by {by}: wall_s={wall!r} file_bytes={nbytes} "
+                f"partitions={nparts} codec=ZLIB")
+        hive = HiveConnector(tmp)
+        cm = CatalogManager()
+        cm.register("tpch", tpch)
+        cm.register("hive", hive)
+        runners = {}
+        for catalog in ("hive", "tpch"):
+            local = LocalQueryRunner(cm, catalog=catalog, schema=schema, device=device)
+            local.execute("set session pallas_agg = true")
+            mesh = DistributedQueryRunner(cm, catalog=catalog, schema=schema,
+                                          n_workers=MESH_WORKERS, device=device)
+            mesh.execute("set session pallas_probe = true")
+            runners[catalog] = {"local": local, "mesh": mesh}
+        # the same queries over the tpch catalog on the card, before the
+        # kernels' counts are zeroed: the rows the ORC path must give
+        expected = {}
+        for name, kind, sql in orc_sqls():
+            r = runners["tpch"][kind]
+            expected[name] = (r.execute(sql).rows, result_order(r.create_plan(sql)))
+
+        # -- S2: Q1-double and Q6 local, Q3 and Q12 on the mesh, over ORC -------
+        k1.launches = 0  # every kernel count, just before the path
+        k2.launches = 0
+        results = {}
+        for name, kind, sql in orc_sqls():
+            r = runners["hive"][kind]
+            walls = []
+            for attempt in ("cold", "warm", "warm"):
+                reset_decode_stats()
+                n1, n2 = k1.launches, k2.launches
+                t0 = time.perf_counter()
+                res = r.execute(sql)  # rows come back to the host: synchronized
+                wall = time.perf_counter() - t0
+                walls.append(wall)
+                dec = decode_summary(decode_stats())
+                log(f"orc S2 {name} {kind} {attempt}: wall_s={wall!r} "
+                    f"grouped_sums_launches={k1.launches - n1} "
+                    f"locate_sorted_launches={k2.launches - n2} "
+                    f"decode={json.dumps(dec)}")
+                if attempt == "cold":
+                    report["queries"][name] = {"cold_s": wall, "decode": dec}
+            report["queries"][name]["warm_s"] = min(walls[1:])
+            results[name] = res.rows
+        for name, kind, sql in orc_sqls():
+            if on_card:
+                profile_warm(f"orc_{name}", runners["hive"][kind], sql)
+        if k1.launches <= 0 or k2.launches <= 0:
+            raise AssertionError(
+                f"S2 launched grouped_sums {k1.launches}x and "
+                f"locate_sorted {k2.launches}x")
+        for name, rows in results.items():
+            want, order = expected[name]
+            rtol = KERNEL_RTOL if name == "q1_double" else DOUBLE_RTOL
+            assert_rows_match(rows, want, order, rtol)
+            log(f"orc S2 {name}: {len(rows)} rows equal the tpch catalog's on the card")
+
+        # -- S3: untimed: the partitions each scan read, the kernels' inputs ---
+        seen: list = []
+        plain_splits = hive.splits
+
+        def recording_splits(handle, target_splits, predicate=None):
+            out = plain_splits(handle, target_splits, predicate)
+            seen.append((handle.table, predicate, sorted(
+                {os.path.basename(os.path.dirname(s.info[0])) for s in out})))
+            return out
+
+        hive.splits = recording_splits
+        if on_card:
+            gs_orig, gs_rec = grouped_sums_recorder(k1_capture)
+            k1_capture["query"] = "S3_q1_double"
+            gs._launch = gs_rec
+            probe_kernel, probe_rec = shape_recording_probe(probe_record)
+            mesh_runner.locate_sorted = probe_rec
+        pruning = {}
+        try:
+            for name, kind, sql in orc_sqls():
+                probe_record["query"] = f"S3_{name}_mesh"
+                seen.clear()
+                runners["hive"][kind].execute(sql)
+                pruning[name] = [(table, dirs) for table, _, dirs in seen]
+                for table, predicate, dirs in seen:
+                    log(f"orc S3 {name} {kind}: {table} read {len(dirs)} partitions "
+                        f"{dirs} (predicate {predicate})")
+        finally:
+            hive.splits = plain_splits
+            if on_card:
+                gs._launch = gs_orig
+                mesh_runner.locate_sorted = probe_kernel
+        for (name, table), want in ORC_PRUNING.items():
+            got = [dirs for t, dirs in pruning[name] if t == table]
+            if not got or any(dirs != want for dirs in got):
+                raise AssertionError(f"S3: {name} read {table} partitions {got}, not {want}")
+        report["pruning"] = pruning
+        k1_launches = k1.launches  # read just after the path
+        k2_launches = k2.launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"orc path: {json.dumps(report)}")
+    log(f"orc path: grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+    return {"k1_launches": k1_launches, "k2_launches": k2_launches, "report": report}
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -5992,7 +6166,7 @@ def locate_sorted_bound(build, n_match, probe, nomatch) -> tuple:
 def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
                         tdw: dict, arrays: dict, holistic: dict, temporal: dict,
                         statements: dict, lifecycle: dict, schedule: dict,
-                        fte: dict, multihost: dict, parquet: dict) -> dict:
+                        fte: dict, multihost: dict, parquet: dict, orc: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -6023,6 +6197,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured on phase 5p's W = 2 mesh")
     if "largest" not in parquet:
         raise AssertionError("no sorted-probe launch was captured in phase 5r")
+    if "largest" not in orc:
+        raise AssertionError("no sorted-probe launch was captured in phase 5s")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -6038,6 +6214,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"fte_largest_{fte['largest_query']}",) + fte["largest"]]
     cases += [(f"multihost_largest_{multihost['largest_query']}",) + multihost["largest"]]
     cases += [(f"parquet_largest_{parquet['largest_query']}",) + parquet["largest"]]
+    cases += [(f"orc_largest_{orc['largest_query']}",) + orc["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -6074,6 +6251,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     multihost_largest["query"] = multihost["largest_query"]
     parquet_largest = time_probe_inputs("parquet_largest", dev, parquet["largest"])
     parquet_largest["query"] = parquet["largest_query"]
+    orc_largest = time_probe_inputs("orc_largest", dev, orc["largest"])
+    orc_largest["query"] = orc["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -6094,6 +6273,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "fte_inputs": fte_largest,
         "multihost_inputs": multihost_largest,
         "parquet_inputs": parquet_largest,
+        "orc_inputs": orc_largest,
     }
 
 
@@ -6245,6 +6425,9 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     parquet_k1: dict = {}
     parquet_probe: dict = {}
     pq_path = timed("5r", run_parquet_path, parquet_k1, parquet_probe)
+    orc_k1: dict = {}
+    orc_probe: dict = {}
+    orc_path = timed("5s", run_orc_path, orc_k1, orc_probe)
     tpcds = timed("5d-5e wait", wait_tpcds_card, card, card_path, procs, dev)
     for phase in ("5d", "5e"):  # the second card process's seconds
         seconds[phase] = tpcds[phase]["seconds"]
@@ -6264,6 +6447,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         + tem_path["k1_launches"] + stm_path["k1_launches"] + lc_path["k1_launches"]
         + sch_path["k1_launches"] + fte_path["k1_launches"] + srv_path["k1_launches"]
         + mh_path["k1_launches"] + pw_path["k1_launches"] + pq_path["k1_launches"]
+        + orc_path["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
@@ -6272,7 +6456,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "lifecycle": lc_path["k1_launches"], "schedule_layouts": sch_path["k1_launches"],
         "fte_observatory": fte_path["k1_launches"], "serving": srv_path["k1_launches"],
         "multihost": mh_path["k1_launches"], "prewarm": pw_path["k1_launches"],
-        "parquet": pq_path["k1_launches"],
+        "parquet": pq_path["k1_launches"], "orc": orc_path["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
@@ -6280,9 +6464,10 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     k1["lifecycle_inputs"] = check_grouped_sums_captured(dev, lifecycle_k1, "lifecycle")
     k1["multihost_inputs"] = check_grouped_sums_captured(dev, multihost_k1, "multihost")
     k1["parquet_inputs"] = check_grouped_sums_captured(dev, parquet_k1, "parquet")
+    k1["orc_inputs"] = check_grouped_sums_captured(dev, orc_k1, "orc")
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
                holistic, temporal, statements, lifecycle, schedule, fte, multihost_probe,
-               parquet_probe)
+               parquet_probe, orc_probe)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
@@ -6291,6 +6476,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         + tem_path["k2_launches"] + stm_path["k2_launches"] + lc_path["k2_launches"]
         + sch_path["k2_launches"] + fte_path["k2_launches"] + srv_path["k2_launches"]
         + mh_path["k2_launches"] + pw_path["k2_launches"] + pq_path["k2_launches"]
+        + orc_path["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -6314,6 +6500,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "multihost": mh_path["k2_launches"],
         "prewarm": pw_path["k2_launches"],
         "parquet": pq_path["k2_launches"],
+        "orc": orc_path["k2_launches"],
     }
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
     log(smi)

@@ -6,7 +6,7 @@ Round-1 set mirrors the reference's baseline-critical connectors:
   memory     -> plugin/trino-memory (in-RAM pages store, test workhorse)
   blackhole  -> plugin/trino-blackhole (null source/sink for perf tests)
   parquet    -> lib/trino-parquet read path (the port's own reader, formats/parquet)
-  hive       -> plugin/trino-hive over parquet (ORC not ported yet)
+  hive       -> plugin/trino-hive over parquet and ORC (formats/parquet, formats/orc)
   iceberg    -> plugin/trino-iceberg (snapshot-versioned parquet tables)
 """
 

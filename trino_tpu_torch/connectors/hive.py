@@ -1,10 +1,10 @@
-"""Hive-style partitioned file connector (parquet; ORC not ported yet).
+"""Hive-style partitioned file connector (parquet + ORC).
 
 Reference roles: plugin/trino-hive (HiveMetadata / HivePartitionManager
 partition pruning, BackgroundHiveSplitLoader's directory walk,
-ParquetPageSourceFactory) — the host decode is the port's own parquet
-reader (`formats/parquet`, row groups), the metastore is the directory
-layout itself:
+ParquetPageSourceFactory + OrcPageSourceFactory) — the host decode is the
+port's own parquet reader (`formats/parquet`, row groups) and ORC reader
+(`formats/orc`, stripes), the metastore is the directory layout itself:
 
     root/<schema>/<table>/<pcol>=<val>/.../part-*.parquet|.orc
 
@@ -12,12 +12,12 @@ Partition columns live in directory names (values typed by inference:
 int-looking -> bigint, date-looking -> date, else varchar).  Split
 enumeration prunes partitions against pushed-down predicate conjuncts
 (HivePartitionManager.getPartitions analog) BEFORE any file IO, then splits
-per parquet row group / per ORC stripe group.  Partition values surface as
+per parquet row group / per ORC stripe.  Partition values surface as
 constant columns welded onto each page (HivePageSource's prefilled blocks).
+A table whose partitions hold both formats reads each file by its
+extension, its schema from the first file, as the JAX package's does.
 
-Port of trino_tpu/connectors/hive.py.  An `.orc` data file, and
-`write_partitioned(..., fmt="orc")`, raise NotImplementedError naming ORC at
-the first place they are met: the port has no ORC codec yet.
+Port of trino_tpu/connectors/hive.py.
 """
 
 from __future__ import annotations
@@ -43,17 +43,21 @@ from trino_tpu_torch.connectors.api import (
     TableStatistics,
 )
 from trino_tpu_torch.connectors.parquet import read_table_columns, slice_column
+from trino_tpu_torch.formats.orc import writer as orc_writer
+from trino_tpu_torch.formats.orc.reader import OrcFile
+from trino_tpu_torch.formats.parquet import writer as parquet_writer
 from trino_tpu_torch.formats.parquet.reader import ParquetFile
-from trino_tpu_torch.formats.parquet.writer import write_columns
 
 _DATA_EXT = (".parquet", ".orc")
-_ORC = "ORC ({}): not ported yet (the port has no ORC reader or writer)"
+#: `codec=` of write_partitioned, read for ORC as Trino's HiveCompressionCodec
+#: maps it (GZIP is ORC's ZLIB)
+_ORC_CODECS = {"GZIP": "ZLIB", "UNCOMPRESSED": "NONE"}
 
 
-def _parquet_only(path: str) -> None:
-    """Raise by name at the first ORC file met."""
-    if not path.endswith(".parquet"):
-        raise NotImplementedError("hive: " + _ORC.format(path))
+def _is_orc(path: str) -> bool:
+    return path.endswith(".orc")
+
+
 _INT_RE = re.compile(r"^-?\d+$")
 _DATE_RE = re.compile(r"^\d{4}-\d{2}-\d{2}$")
 
@@ -132,8 +136,7 @@ class _Partition:
 
 
 def _file_rows(path: str) -> int:
-    _parquet_only(path)
-    return ParquetFile(path).num_rows
+    return (OrcFile if _is_orc(path) else ParquetFile)(path).num_rows
 
 
 class _HivePageSource(PageSource):
@@ -179,7 +182,8 @@ class _HivePageSource(PageSource):
 
 
 def _read_piece(path: str, piece, columns, types):
-    _parquet_only(path)
+    if _is_orc(path):
+        return OrcFile(path).read_stripe(piece, columns, types)
     return ParquetFile(path).read_row_group(piece, columns, types)
 
 
@@ -206,8 +210,7 @@ class HiveConnector(Connector):
     # -- directory walk (BackgroundHiveSplitLoader role) ---------------------
 
     def _file_schema(self, path: str):
-        _parquet_only(path)
-        return ParquetFile(path).columns()
+        return (OrcFile if _is_orc(path) else ParquetFile)(path).columns()
 
     def _partitions(self, schema: str, table: str) -> list:
         base = os.path.join(self.root, schema, table)
@@ -323,8 +326,10 @@ class HiveConnector(Connector):
 
 
 def _pieces(path: str):
-    """(piece_index, rows) per split unit: the parquet row group."""
-    _parquet_only(path)
+    """(piece_index, rows) per split unit: parquet row group / ORC stripe."""
+    if _is_orc(path):
+        f = OrcFile(path)
+        return [(i, f.stripe_rows(i)) for i in range(f.num_stripes)]
     pf = ParquetFile(path)
     return [(rg, pf.row_group_rows(rg)) for rg in range(pf.num_row_groups)]
 
@@ -346,10 +351,23 @@ def write_partitioned(
     `partition_by` columns.  Returns partition count.  Partitions come in
     order of first appearance; a row whose partition key is NULL is written
     to no partition, and its combination's directory (`k=None`) holds an
-    empty file, as the JAX package's Arrow filter leaves it."""
+    empty file, as the JAX package's Arrow filter leaves it.  `fmt` is
+    "parquet" (`row_group_rows` rows a row group) or "orc" (a stripe every
+    `row_group_rows` rows); `codec` is GZIP (ORC's ZLIB) or UNCOMPRESSED."""
     if fmt == "orc":
-        raise NotImplementedError("hive write_partitioned: " + _ORC.format("fmt='orc'"))
-    if fmt != "parquet":
+        if codec not in _ORC_CODECS:
+            raise NotImplementedError(
+                f"hive write_partitioned: codec {codec} for ORC (GZIP and "
+                "UNCOMPRESSED are supported)")
+
+        def write(path, names, types, columns):
+            orc_writer.write_columns(path, names, types, columns,
+                                     stripe_rows=row_group_rows, codec=_ORC_CODECS[codec])
+    elif fmt == "parquet":
+        def write(path, names, types, columns):
+            parquet_writer.write_columns(path, names, types, columns,
+                                         row_group_rows=row_group_rows, codec=codec)
+    else:
         raise ValueError(f"unsupported format {fmt}")
     names, types, cols = read_table_columns(connector, schema, table, row_group_rows)
     by = {n: (t, cd) for n, t, cd in zip(names, types, cols)}
@@ -378,13 +396,11 @@ def write_partitioned(
         d = os.path.join(out_root, schema, table, *rendered)
         os.makedirs(d, exist_ok=True)
         path = os.path.join(d, f"part-0.{fmt}")
-        write_columns(
+        write(
             path,
             [n for n, _, _ in data],
             [t for _, t, _ in data],
             [_take(cd, idx) for _, _, cd in data],
-            row_group_rows=row_group_rows,
-            codec=codec,
         )
         nparts += 1
     return nparts

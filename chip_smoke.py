@@ -424,6 +424,31 @@ catches nothing and never falls back to the CPU):
      between cards, each card's peak memory, and K2 held bit-exact to its
      plain version on every card at that card's largest launch; on one
      card a line says that T2 did not run, and why;
+  5u. the serving and memory-pressure probes and the numpy oracle at
+     tpch.sf1, in a third card process (`chip_smoke.py --probes-card OUT
+     WAIT`: the probes read process-wide counters, the compile
+     observatory's watermark and FAILURE_INJECTOR, and this process runs
+     budgets with waves and spill), started with phase 5d's process and
+     beginning once 5d's runs below sf1 are over (their file WAIT), beside
+     the main process's phases, so its walls are taken on a shared card.
+     The serving probe (trino_tpu_torch/bench_serve.run_serve, 8 clients,
+     3 rounds): the TPC-H mix Q1, Q6, Q3 through a dispatcher over 4 local
+     lanes, then through one lane over the 8-worker mesh after a replay
+     (no compile event may come above the watermark), then the chaos
+     phase: fault-tolerant execution on, a worker killed at a stage's
+     finish in client 0's Q18, which must retry from spooled stage outputs
+     without a re-plan.  The memory-pressure probe (bench_pressure.
+     run_pressure): Q18 under a pool of an eighth of its unconstrained
+     reserved peak, on a local runner and the 4-worker mesh, in two or more
+     waves with spill and the unconstrained rows, with no wave, spill or
+     revocation before it.  Every condition of tools/compare_bench.py's
+     check_serve, check_chaos and check_pressure must hold
+     (probe_violations).  Q1 and Q6 through the local runner on the card
+     must equal numpy over the connector's lineitem columns (testing/
+     oracle: decimals exact from the cents).  The sorted-probe kernel must
+     launch in the mesh serve, the chaos phase and the budgeted mesh Q18;
+     the launches of both kernels are logged per sub-phase, and the inputs
+     of the largest sorted-probe launch go to phase 6;
   6a. hold the grouped-sums kernel to its plain version, as in phase 3, at
      the inputs of the local U1's largest launch (N = 2**21 unnested rows),
      of the local T1's, of D1's Q1's (phase 5k), of L1's Q1-double
@@ -447,7 +472,8 @@ catches nothing and never falls back to the CPU):
      co-located join (phase 5m), of N1's largest launch fed by a spooled
      stage output (phase 5n), of the W = 2 mesh Q3 after `resize_mesh`
      (phase 5p), of the mesh Q3 over parquet (phase 5r), of the mesh
-     Q3 or Q12 over ORC (phase 5s) and of phase 5t's largest launch;
+     Q3 or Q12 over ORC (phase 5s), of phase 5t's largest launch and of
+     phase 5u's;
   7. one JSON line with the kernels;
   8. last line: {"ok": true, "device": {...}}.
 
@@ -1837,7 +1863,8 @@ def tpcds_card_process(out_path: str, reference_path: str) -> int:
     other phases and on its cores, each result checked here against the
     reference's CPU run.  What the main process needs of them (each phase's
     launches and per-query counts, the inputs of its largest sorted-probe
-    launch, its seconds) is pickled to `out_path`."""
+    launch, its seconds) is pickled to `out_path`; `out_path` +
+    ".below_done" is written once the runs below sf1 are over."""
     import pickle
 
     cores = sorted(os.sched_getaffinity(0))
@@ -1850,7 +1877,8 @@ def tpcds_card_process(out_path: str, reference_path: str) -> int:
 
     out = {}
     for phase, windowed in (("5d", False), ("5e", True)):
-        record: dict = {}
+        # the file phase 5u's card process waits for
+        record: dict = {"below_done": out_path + ".below_done"}
         t0 = time.perf_counter()
         path = (run_tpcds_window_path(record, reference) if windowed
                 else run_tpcds_path(record, reference))
@@ -2022,8 +2050,11 @@ def _tpcds_runs(qids, record, results, per_query, kernel, recording, windows) ->
     runs += [(where, q) for where in ("local", "mesh") for q in qids if q not in below]
     ls.locate_sorted.launches = 0  # every kernel count, just before the path
     for i, (where, q) in enumerate(runs):
-        if i == 2 * len(below) > 0:
-            torch.cuda.empty_cache()  # the card's memory back for the other process
+        if i == 2 * len(below):
+            if below:
+                torch.cuda.empty_cache()  # the card's memory back for the other processes
+            if record.get("below_done"):  # phase 5u's card process may begin
+                open(record["below_done"], "w").close()
         schema = TPCDS_SCHEMA.get(q, "sf1")
         r = tpcds_runner(where, schema)
         walls = []
@@ -6291,6 +6322,349 @@ def run_multicard_path(probe_record: dict, schema: str = "sf1", device=None) -> 
         "check": check}
 
 
+# -- phase 5u: the serving and memory-pressure probes, and the numpy oracle ------
+
+#: phase 5u's serving probe: the JAX probe's defaults (BENCH_SERVE_*),
+#: K concurrent clients, `rounds` statements each, the local phase's lanes
+PROBE_CLIENTS = 8
+PROBE_ROUNDS = 3
+PROBE_LANES = 4
+#: the keys every serving phase must carry (compare_bench's SERVE_KEYS)
+PROBE_SERVE_KEYS = ("clients", "queries_total", "qps", "p50_s", "p95_s", "p99_s",
+                    "shed_total", "rows_match")
+#: the chaos phase's further keys (compare_bench's CHAOS_KEYS)
+PROBE_CHAOS_KEYS = ("injected_kills", "task_retries", "spooled_fragments", "spool_hits",
+                    "full_replans")
+#: the pressure counters that must be zero over the unconstrained runs
+PROBE_IDLE_ZEROS = ("memory_waves_total", "spill_bytes_total", "memory_revocations_total")
+#: 5u's sub-phases that must launch the sorted-probe kernel: the mesh serve
+#: (Q3), the chaos phase (Q3, and Q18's semi join from spooled inputs) and
+#: the budgeted mesh Q18's waves
+PROBE_K2_PHASES = ("serve_mesh", "chaos", "pressure_mesh")
+#: the lineitem columns TPC-H Q1 and Q6 read (the numpy oracle's projection)
+ORACLE_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+                  "l_discount", "l_tax", "l_shipdate")
+
+
+def probe_violations(serve: dict, pressure: dict) -> list:
+    """The conditions of tools/compare_bench.py's check_serve, check_chaos
+    and check_pressure over phase 5u's sections, checked here (the script
+    imports nothing of tools/)."""
+    bad = []
+    for phase in ("local", "mesh", "chaos"):
+        p = serve.get(phase)
+        if not isinstance(p, dict):
+            bad.append(f"serve.{phase} missing")
+            continue
+        keys = PROBE_SERVE_KEYS + (PROBE_CHAOS_KEYS if phase == "chaos" else ())
+        missing = [k for k in keys if k not in p]
+        if missing:
+            bad.append(f"serve.{phase} missing {missing}")
+        if p.get("rows_match") is not True:
+            bad.append(f"serve.{phase}.rows_match = {p.get('rows_match')} "
+                       f"(errors: {p.get('errors')})")
+        if p.get("clients", 0) < 2:
+            bad.append(f"serve.{phase}.clients = {p.get('clients')} (expected >= 2)")
+        if not p.get("qps", 0) > 0:
+            bad.append(f"serve.{phase}.qps = {p.get('qps')} (expected > 0)")
+    mesh, chaos = serve.get("mesh") or {}, serve.get("chaos") or {}
+    if mesh.get("warm_compile_events", 1) != 0:
+        bad.append(f"serve.mesh.warm_compile_events = {mesh.get('warm_compile_events')} "
+                   "(expected 0: warm serving must build no step and load no kernel)")
+    retries = chaos.get("task_retries") or {}
+    for name, ok in (
+        ("injected_kills >= 1", chaos.get("injected_kills", 0) >= 1),
+        ("task_retries.retry >= 1", retries.get("retry", 0) >= 1),
+        ("task_retries.fail == 0", retries.get("fail", 0) == 0),
+        ("spooled_fragments > 0", chaos.get("spooled_fragments", 0) > 0),
+        ("spool_hits > 0", chaos.get("spool_hits", 0) > 0),
+        ("full_replans == 0", chaos.get("full_replans", 0) == 0),
+    ):
+        if not ok:
+            bad.append(f"serve.chaos: expected {name} ({json.dumps(chaos, default=str)})")
+    unc = pressure.get("unconstrained") or {}
+    for name in PROBE_IDLE_ZEROS:
+        if unc.get(name, 0) != 0:
+            bad.append(f"pressure.unconstrained.{name} = {unc.get(name)} (expected 0)")
+    for side in ("local", "mesh"):
+        s = pressure.get(side)
+        if not isinstance(s, dict):
+            bad.append(f"pressure.{side} missing")
+            continue
+        if s.get("rows_match") is not True:
+            bad.append(f"pressure.{side}.rows_match = {s.get('rows_match')}")
+        if s.get("waves", 0) < 2:
+            bad.append(f"pressure.{side}.waves = {s.get('waves', 0)} (expected > 1)")
+        if s.get("spill_bytes", 0) <= 0:
+            bad.append(f"pressure.{side}.spill_bytes = {s.get('spill_bytes', 0)} "
+                       "(expected > 0)")
+    return bad
+
+
+def _cents(total: int, scale: int):
+    from decimal import Decimal
+
+    return Decimal(int(total)).scaleb(-scale)
+
+
+def _average(total_cents: int, n: int):
+    """A decimal(12,2) average as the engine gives it: the exact quotient
+    rounded half up to the scale."""
+    from decimal import ROUND_HALF_UP, Decimal
+
+    return (_cents(total_cents, 2) / Decimal(n)).quantize(Decimal("0.01"), ROUND_HALF_UP)
+
+
+def q1_q6_numpy(schema: str) -> dict:
+    """TPC-H Q1 and Q6 computed with numpy over the connector's lineitem
+    columns (testing/oracle's tpch_columns, the columns the queries read),
+    apart from the engine: decimals exact from the `__cents` columns (Q1's
+    sum_disc_price at scale 4, sum_charge at 6, Q6's revenue at 4), the
+    averages the exact quotient rounded half up to scale 2."""
+    from trino_tpu_torch.testing import tpch_columns
+
+    c = tpch_columns(schema, "lineitem", ORACLE_COLUMNS)
+    ship = c["l_shipdate"]
+    qty, ext, disc, tax = (c[f"l_{n}__cents"] for n in
+                           ("quantity", "extendedprice", "discount", "tax"))
+    flags = c["l_returnflag"].astype("U1")
+    status = c["l_linestatus"].astype("U1")
+    keep = ship <= np.datetime64("1998-09-02")  # date '1998-12-01' - interval '90' day
+    q1 = []
+    for f in np.unique(flags[keep]):
+        for s in np.unique(status[keep & (flags == f)]):
+            m = keep & (flags == f) & (status == s)
+            n = int(m.sum())
+            disc_price = ext[m] * (100 - disc[m])
+            q1.append((
+                str(f), str(s), _cents(qty[m].sum(), 2), _cents(ext[m].sum(), 2),
+                _cents(disc_price.sum(), 4), _cents((disc_price * (100 + tax[m])).sum(), 6),
+                _average(qty[m].sum(), n), _average(ext[m].sum(), n),
+                _average(disc[m].sum(), n), n,
+            ))
+    m = ((ship >= np.datetime64("1994-01-01")) & (ship < np.datetime64("1995-01-01"))
+         & (disc >= 5) & (disc <= 7) & (qty < 2400))
+    q6 = [(_cents((ext[m] * disc[m]).sum(), 4),)]
+    return {1: q1, 6: q6, "rows": len(ship)}
+
+
+def check_oracle_q1_q6(runner, schema: str) -> dict:
+    """Q1 and Q6 through `runner` (on the card) against q1_q6_numpy: every
+    value equal and of the same type, a decimal in its scale too (repr)."""
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+
+    t0 = time.perf_counter()
+    expected = q1_q6_numpy(schema)
+    numpy_s = time.perf_counter() - t0
+    out = {"numpy_s": numpy_s, "lineitem_rows": expected["rows"]}
+    for q in (1, 6):
+        t0 = time.perf_counter()
+        rows = runner.execute(QUERIES[q]).rows
+        out[f"q{q}_wall_s"] = time.perf_counter() - t0
+        got, want = [tuple(map(repr, r)) for r in rows], [tuple(map(repr, r)) for r in expected[q]]
+        if got != want:
+            raise AssertionError(f"5u oracle: Q{q} on the card {got} != numpy {want}")
+        out[f"q{q}_rows"] = len(rows)
+    log(f"5u oracle: Q1 and Q6 at {schema} equal the numpy oracle over "
+        f"{expected['rows']} lineitem rows: {json.dumps(out)}")
+    return out
+
+
+def largest_probe_recorder(record: dict):
+    """A stand-in for the mesh's call of the sorted-probe wrapper that
+    passes every call through (the wrapper alone counts the launch) and
+    keeps copies of the inputs of the largest launch in record["largest"],
+    with the sub-phase it came from (record["phase"]) in
+    record["largest_query"]."""
+    import trino_tpu_torch.parallel.runner as mesh_runner
+
+    kernel = mesh_runner.locate_sorted
+
+    def recording(build, n_match, probe, nomatch, cap_b):
+        out = kernel(build, n_match, probe, nomatch, cap_b=cap_b)
+        size = probe.shape[0] * max(build.shape[0], 1)
+        if size > record.get("size", -1):
+            record.update(size=size, largest_query=record["phase"], largest=(
+                build.clone(), n_match.clone(), probe.clone(), nomatch.clone(), cap_b))
+        return out
+
+    return kernel, recording
+
+
+def wait_for_file(path: str, what: str, timeout_s: float = 900.0) -> float:
+    """Wait until `path` exists; stops if the main process has ended."""
+    parent = os.getppid()
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if os.getppid() != parent:
+            raise SystemExit("chip_smoke: the main process has ended")
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"{what} did not come in {timeout_s} s")
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def probes_card_process(out_path: str, wait_path: str, schema: str = "sf1",
+                        device=None) -> int:
+    """Phase 5u in a card process of its own (the probes' counters, the
+    compile observatory's watermark and FAILURE_INJECTOR are process-wide,
+    and the main process has run budgets with waves and spill): the
+    serving probe (trino_tpu_torch/bench_serve.py: local lanes, the
+    8-worker mesh, the chaos kill), the memory-pressure probe
+    (bench_pressure.py: Q18 under a pool of an eighth of its peak, on a
+    local runner and the 4-worker mesh) and Q1 and Q6 against the numpy
+    oracle, at `schema` on the card.  Waits for `wait_path` first (unless
+    "-"): phase 5d's runs below sf1, which take most of the card's memory,
+    are then over.  Sections, walls, launches per sub-phase and the inputs
+    of the largest sorted-probe launch are pickled to `out_path`."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import trino_tpu_torch.parallel.runner as mesh_runner
+    from trino_tpu_torch import bench_serve
+    from trino_tpu_torch.bench_pressure import run_pressure
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+    from trino_tpu_torch.ops import grouped_sums as gs
+    from trino_tpu_torch.ops import locate_sorted as ls
+    from trino_tpu_torch.parallel.runner import DistributedQueryRunner
+    from trino_tpu_torch.runtime.runner import LocalQueryRunner
+
+    t_start = time.perf_counter()
+    cores = sorted(os.sched_getaffinity(0))
+    torch.set_num_threads(max(len(cores) // 2, 1))
+    log(f"probes card process: cores {cores[0]}-{cores[-1]}, "
+        f"{torch.get_num_threads()} torch threads")
+    waited = wait_for_file(wait_path, "phase 5d's runs below sf1") if wait_path != "-" else 0.0
+    log(f"probes card process: waited {waited:.1f} s for phase 5d's runs below sf1")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5u_")
+    os.environ["BENCH_PROFILE_DIR"] = os.path.join(tmp, "profiles")
+    record: dict = {"phase": None}
+    phases: dict = {}
+
+    def enter(phase):
+        """Close the running sub-phase's wall and launches; open `phase`."""
+        now = time.perf_counter()
+        if record["phase"] is not None:
+            p = phases[record["phase"]]
+            p.update(wall_s=now - p.pop("t0"), k1=gs.grouped_sums.launches - p.pop("k1_0"),
+                     k2=ls.locate_sorted.launches - p.pop("k2_0"))
+        record["phase"] = phase
+        if phase is not None:
+            phases[phase] = {"t0": now, "k1_0": gs.grouped_sums.launches,
+                             "k2_0": ls.locate_sorted.launches}
+
+    mix_and_oracle, run_chaos = bench_serve._mix_and_oracle, bench_serve._run_chaos
+
+    def marked_mix(runner):
+        if isinstance(runner, DistributedQueryRunner):
+            enter("serve_mesh")
+        return mix_and_oracle(runner)
+
+    def marked_chaos(*args, **kwargs):
+        enter("chaos")
+        return run_chaos(*args, **kwargs)
+
+    kernel, recording = largest_probe_recorder(record)
+    bench_serve._mix_and_oracle, bench_serve._run_chaos = marked_mix, marked_chaos
+    mesh_runner.locate_sorted = recording
+    gs.grouped_sums.launches = 0  # every kernel count, just before the path
+    ls.locate_sorted.launches = 0
+    try:
+        enter("serve_local")
+        serve = bench_serve.run_serve(schema=schema, clients=PROBE_CLIENTS,
+                                      rounds=PROBE_ROUNDS, lanes=PROBE_LANES, device=device)
+        enter("pressure_local")
+        local = LocalQueryRunner(catalog="tpch", schema=schema, device=device)
+        dist = DistributedQueryRunner(catalog="tpch", schema=schema, n_workers=MESH_WORKERS,
+                                      device=device)
+        mesh_execute = dist.execute
+
+        def marked_execute(sql):
+            enter("pressure_mesh")
+            return mesh_execute(sql)
+
+        dist.execute = marked_execute
+        pressure = run_pressure(local, dist, QUERIES[18])
+        enter("oracle")
+        oracle = check_oracle_q1_q6(local, schema)
+        enter(None)
+    finally:
+        bench_serve._mix_and_oracle, bench_serve._run_chaos = mix_and_oracle, run_chaos
+        mesh_runner.locate_sorted = kernel
+        shutil.rmtree(tmp, ignore_errors=True)
+    k1_launches, k2_launches = gs.grouped_sums.launches, ls.locate_sorted.launches
+    log(f"5u serve: {json.dumps(serve, default=str)}")
+    log(f"5u pressure: {json.dumps(pressure, default=str)}")
+    log(f"5u sub-phases: "
+        f"{json.dumps(phases)}; grouped_sums launches={k1_launches} "
+        f"locate_sorted launches={k2_launches}")
+    bad = probe_violations(serve, pressure)
+    bad += [f"{p}: the sorted-probe kernel was never launched" for p in PROBE_K2_PHASES
+            if phases[p]["k2"] <= 0]
+    if bad:
+        raise AssertionError("phase 5u: " + "; ".join(bad))
+    out = {
+        "serve": serve, "pressure": pressure, "oracle": oracle, "phases": phases,
+        "k1_launches": k1_launches, "k2_launches": k2_launches,
+        "largest_query": record.get("largest_query"),
+        "largest": tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                         for x in record.get("largest", ())),
+        "seconds": time.perf_counter() - t_start,
+    }
+    with open(out_path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".part", out_path)
+    return 0
+
+
+def start_probes_card(here: str, reference_path: str, wait_path: str):
+    """Start phase 5u's card process; returns (process, its result path)."""
+    out_path = reference_path + ".probes"
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--probes-card", out_path,
+         wait_path],
+        cwd=here,
+    )
+    return proc, out_path
+
+
+def wait_probes_card(proc, out_path: str, dev) -> dict:
+    """Phase 5u's results once its card process has ended (the largest
+    sorted-probe launch's inputs back on the card); fails if it failed."""
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    log(f"probes card process: exit {rc}, waited {time.perf_counter() - t0:.1f} s")
+    if rc != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"the phase 5u card process failed with exit code {rc}")
+    return read_probes(out_path, dev, "a card shared with the main process")
+
+
+def read_probes(out_path: str, dev, card: str) -> dict:
+    """Phase 5u's pickled results, the largest launch's inputs on `dev`,
+    with a summary line whose walls were taken on `card`."""
+    import pickle
+
+    with open(out_path, "rb") as f:
+        out = pickle.load(f)
+    out["largest"] = tuple(x.to(dev) if isinstance(x, torch.Tensor) else x
+                           for x in out["largest"])
+    summary = {
+        "qps": {p: out["serve"][p]["qps"] for p in ("local", "mesh", "chaos")},
+        "p50_p95_p99_s": {p: [out["serve"][p][k] for k in ("p50_s", "p95_s", "p99_s")]
+                          for p in ("local", "mesh", "chaos")},
+        "chaos_p99_degradation": out["serve"]["chaos"]["p99_degradation_ratio"],
+        "pressure": {s: {k: out["pressure"][s][k] for k in ("wall_s", "waves", "spill_bytes")}
+                     for s in ("local", "mesh")},
+        "pool_limit_bytes": out["pressure"]["pool_limit_bytes"],
+        "unconstrained_peak_bytes": out["pressure"]["unconstrained_peak_bytes"],
+        "k2_by_phase": {p: v["k2"] for p, v in out["phases"].items()},
+        "seconds": out["seconds"],
+    }
+    log(f"5u report ({card}): {json.dumps(summary)}")
+    return out
+
+
 # -- phase 6: the sorted-probe kernel against its plain version ----------------
 
 
@@ -6368,7 +6742,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
                         tdw: dict, arrays: dict, holistic: dict, temporal: dict,
                         statements: dict, lifecycle: dict, schedule: dict,
                         fte: dict, multihost: dict, parquet: dict, orc: dict,
-                        multicard: dict) -> dict:
+                        multicard: dict, probes: dict) -> dict:
     from trino_tpu_torch.ops import locate_sorted as ls
 
     if "inputs" not in capture:
@@ -6403,6 +6777,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         raise AssertionError("no sorted-probe launch was captured in phase 5s")
     if "largest" not in multicard:
         raise AssertionError("no sorted-probe launch was captured in phase 5t")
+    if not probes.get("largest"):
+        raise AssertionError("no sorted-probe launch was captured in phase 5u")
     build, n_match, probe, nomatch, cap_b = capture["inputs"]
     cases = [("main", build, n_match, probe, nomatch, cap_b)]
     cases += [("semi_largest",) + semi["largest"], ("semi_min_n_match",) + semi["smallest"]]
@@ -6420,6 +6796,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     cases += [(f"parquet_largest_{parquet['largest_query']}",) + parquet["largest"]]
     cases += [(f"orc_largest_{orc['largest_query']}",) + orc["largest"]]
     cases += [(f"multicard_largest_{multicard['largest_query']}",) + multicard["largest"]]
+    cases += [(f"probes_largest_{probes['largest_query']}",) + probes["largest"]]
     cases += probe_edge_inputs(dev)
     for name, b, nm, p, no, cb in cases:
         start, count = ls.locate_sorted(b, nm, p, no, cap_b=cb)
@@ -6460,6 +6837,8 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
     orc_largest["query"] = orc["largest_query"]
     multicard_largest = time_probe_inputs("multicard_largest", dev, multicard["largest"])
     multicard_largest["query"] = multicard["largest_query"]
+    probes_largest = time_probe_inputs("probes_largest", dev, probes["largest"])
+    probes_largest["query"] = probes["largest_query"]
     keys = ("ms", "ms_l2_flushed", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "name": "locate_sorted",
@@ -6482,6 +6861,7 @@ def check_locate_sorted(dev, capture: dict, semi: dict, func: dict, tds: dict,
         "parquet_inputs": parquet_largest,
         "orc_inputs": orc_largest,
         "multicard_inputs": multicard_largest,
+        "probes_inputs": probes_largest,
     }
 
 
@@ -6584,6 +6964,10 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     # phases 5d and 5e run in a second card process, beside phases 3-5l
     card, card_path = start_tpcds_card(here, reference_path)
     children.append(card)
+    # phase 5u in a third card process, once phase 5d's runs below sf1 are over
+    probes_card, probes_path = start_probes_card(here, reference_path,
+                                                 card_path + ".below_done")
+    children.append(probes_card)
 
     def tpcds_reference(phase: str) -> dict:
         return wait_reference(procs, reference_path, phase)
@@ -6643,6 +7027,8 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         seconds[phase] = tpcds[phase]["seconds"]
     tds_path, tds = tpcds["5d"]["path"], tpcds["5d"]["record"]
     tdw_path, tdw = tpcds["5e"]["path"], tpcds["5e"]["record"]
+    probes = timed("5u wait", wait_probes_card, probes_card, probes_path, dev)
+    seconds["5u"] = probes["seconds"]  # the third card process's seconds
 
     def check_tpch_paths():
         cpu = tpcds_reference("tpch")
@@ -6657,7 +7043,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         + tem_path["k1_launches"] + stm_path["k1_launches"] + lc_path["k1_launches"]
         + sch_path["k1_launches"] + fte_path["k1_launches"] + srv_path["k1_launches"]
         + mh_path["k1_launches"] + pw_path["k1_launches"] + pq_path["k1_launches"]
-        + orc_path["k1_launches"]
+        + orc_path["k1_launches"] + probes["k1_launches"]
     )
     k1["launches_by_path"] = {
         "q1_double": main_path["launches"], "arrays": arr_path["k1_launches"],
@@ -6667,6 +7053,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "fte_observatory": fte_path["k1_launches"], "serving": srv_path["k1_launches"],
         "multihost": mh_path["k1_launches"], "prewarm": pw_path["k1_launches"],
         "parquet": pq_path["k1_launches"], "orc": orc_path["k1_launches"],
+        "probes": probes["k1_launches"],
     }
     k1["arrays_inputs"] = timed("6a", check_grouped_sums_captured, dev, arrays_k1)
     k1["temporal_inputs"] = check_grouped_sums_captured(dev, temporal_k1, "temporal")
@@ -6677,7 +7064,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
     k1["orc_inputs"] = check_grouped_sums_captured(dev, orc_k1, "orc")
     k2 = timed("6", check_locate_sorted, dev, capture, semi, func, tds, tdw, arrays,
                holistic, temporal, statements, lifecycle, schedule, fte, multihost_probe,
-               parquet_probe, orc_probe, multicard_probe)
+               parquet_probe, orc_probe, multicard_probe, probes)
     log(f"phase seconds: {json.dumps(seconds)}")
     k2["launches"] = (
         mesh_path["launches"] + semi_path["launches"] + func_path["launches"]
@@ -6686,7 +7073,7 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         + tem_path["k2_launches"] + stm_path["k2_launches"] + lc_path["k2_launches"]
         + sch_path["k2_launches"] + fte_path["k2_launches"] + srv_path["k2_launches"]
         + mh_path["k2_launches"] + pw_path["k2_launches"] + pq_path["k2_launches"]
-        + orc_path["k2_launches"] + mc_path["launches"]
+        + orc_path["k2_launches"] + mc_path["launches"] + probes["k2_launches"]
     )
     k2["launches_by_path"] = {
         "q3_mesh": mesh_path["launches"], "semi_cross": semi_path["launches"],
@@ -6713,6 +7100,8 @@ def drive(here: str, procs: dict, reference_path: str, children: list) -> int:
         "orc": orc_path["k2_launches"],
         "multicard": mc_path["launches"],
         "multicard_by_block": {str(b): n for b, n in mc_path["by_block"].items()},
+        "probes": probes["k2_launches"],
+        "probes_by_phase": {p: v["k2"] for p, v in probes["phases"].items()},
     }
     log(f"multicard report: {json.dumps(mc_path['report'])}")
     log(json.dumps({"kernels": [k1, k2], "not_ported": []}))
@@ -6742,4 +7131,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--prewarm-card"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(prewarm_card_process(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--probes-card"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(probes_card_process(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -13,6 +13,10 @@ the same type, a timestamp with time zone in its offset too; doubles equal
 to a relative tolerance.  Arrays (lists) and maps (dicts)
 compare element by element under the same rules, so a double inside an
 array is held to the tolerance too, never compared by its repr.
+
+The numpy oracle (`testing/oracle.py`) plays H2's role from the
+reference's QueryAssertions: connector tables as columns, for expected
+results computed apart from the engine.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Optional
 
 from trino_tpu_torch.expr.ir import SymbolRef
 from trino_tpu_torch.planner import plan as P
+from trino_tpu_torch.testing.oracle import connector_table_to_columns, tpch_columns
 
 
 @dataclass(frozen=True)
